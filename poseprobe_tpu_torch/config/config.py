@@ -1,16 +1,16 @@
-"""Experiment configuration: the dataclasses the scene-only slice reads.
+"""Experiment configuration: the dataclasses the ported training step reads.
 
-Port of `poseprobe_tpu/config/config.py`, cut to the fields the scene-only
-training step and its trainer read (and `ObjectTrainConfig.N_iters`, the
-object phase's length, which places the coarse phase); every field keeps
-the reference's name and default. `ObjectConfig` (the object branch) is not
-part of this slice.
+Port of `poseprobe_tpu/config/config.py`, cut to the fields the joint
+training step and its trainer read; every field keeps the reference's name
+and default. The data, camera and PnP blocks hold only what the ported
+slices use (host pose events and loaders come later).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from ..models.object_sdf import ObjectConfig
 from ..models.scene_nerf import SceneConfig
 
 
@@ -36,12 +36,48 @@ class PnPConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObjectTrainConfig:
-    """The object-training fields the scene step reads: the object-phase
-    length and the pose optimizer's lr (0 => poses frozen)."""
+    """Object-branch training block."""
 
     N_iters: int = 10000
+    N_rand: int = 1024
+    lrate_decay: int = 10               # lr *= 0.1^(1/(decay*1000)) per step
+    # per-module learning rates; 0 => frozen
+    lrate_sdf: float = 0.1
+    lrate_k0: float = 0.1
+    lrate_rgbnet: float = 1e-3
+    lrate_warpnet: float = 1e-3
+    lrate_sdf_alpha: float = 1e-2
+    lrate_sdf_beta: float = 1e-2
+    # staged multiplicative lr drops
+    decay_step_module: tuple = ((5000, (("sdf", 0.1), ("sdf_beta", 0.1), ("sdf_alpha", 0.1))),
+                                (10000, (("sdf", 0.5), ("sdf_beta", 0.5), ("sdf_alpha", 0.5))))
+    # loss weights
+    weight_main: float = 1.0
+    weight_mask: float = 0.1
+    weight_tv_k0: float = 0.01
+    weight_tv_density: float = 0.005
+    sdf_tv: float = 0.1
+    smooth_grad_tv: float = 0.05
+    tv_updates: tuple = ((4000, (("sdf_tv", 0.1), ("smooth_grad_tv", 0.2))),)
+    weight_surface_projection: float = 0.0   # > 0 is not ported (needs VGG feature maps)
+    projection_dis_error: float = 0.001
+    weight_near_surface: float = 0.1
+    # deform-prior dynamic weight endpoints, exp-decayed over the object phase
+    weight_deform_prior_init: float = 1e-1
+    weight_deform_prior_final: float = 1e-3
+    # progressive grid scaling checkpoints: training starts at
+    # num_voxels / 2^len(pg_scale) and doubles the voxel count at each step listed
+    pg_scale: tuple = ()
+    # boundary-shell SDF positivity prior
+    weight_shell: float = 0.0
+    shell_margin: float = 0.0
+    # free-space-skip mask refresh cadence (steps)
+    maskcache_update_every: int = 1000
+    # pose optimizer (0 => poses frozen)
     lr_pose: float = 0.0
     lr_pose_end: float = 0.0
+    ray_sampler: str = "semantic"       # 20/30/50 background/boundary/object split
+    probe_health_check: bool = True     # read by the host-event loop (not ported yet)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +116,7 @@ class ExperimentConfig:
     data: DataConfig = DataConfig()
     camera: CameraConfig = CameraConfig()
     pnp: PnPConfig = PnPConfig()
+    object_model: ObjectConfig = ObjectConfig()
     object_train: ObjectTrainConfig = ObjectTrainConfig()
     scene_model: SceneConfig = SceneConfig()
     scene_train: SceneTrainConfig = SceneTrainConfig()

@@ -4,7 +4,10 @@ Both packages store parameters as nested dicts/lists in the same layout
 (`w` is [in, out]); on the JAX side the leaves are given as numpy arrays
 (`jax.tree.map(np.asarray, tree)`), so this module needs no JAX. Adam state
 is recognised by its fields: the optax chain's `ScaleByAdamState` has
-`count`, `mu` and `nu`; its `ScaleByScheduleState` has only `count`.
+`count`, `mu` and `nu`; its `ScaleByScheduleState` has only `count`. The
+object optimizer's `multi_transform` state holds one such chain per label
+under `inner_states[label].inner_state`, its moments shaped like the whole
+param tree with the other labels' leaves masked out.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from .core.tree import tree_map
+from .train.optim import _OBJECT_MODULES
 
 
 def tree_from_numpy(tree, device="cuda"):
@@ -25,6 +29,12 @@ def tree_to_numpy(tree):
 
 def scene_params_from_jax(tree, device="cuda") -> dict:
     """JAX scene param tree {'nerf': {'feat': [...], 'rgb': [...]}, 'nerf_fine': ...}."""
+    return tree_from_numpy(tree, device)
+
+
+def object_params_from_jax(tree, device="cuda") -> dict:
+    """JAX object param tree {'sdf_grid', 'k0_grid', 'rgbnet', 'warpnet',
+    'sdf_alpha', 'sdf_beta', 's_val'}."""
     return tree_from_numpy(tree, device)
 
 
@@ -48,6 +58,27 @@ def adam_state_from_jax(opt_state, device="cuda") -> dict | None:
             raise ValueError("schedule count differs from Adam's count")
     return {"count": count, "mu": tree_from_numpy(adam[0].mu, device),
             "nu": tree_from_numpy(adam[0].nu, device)}
+
+
+def object_adam_state_from_jax(opt_state, device="cuda") -> dict:
+    """The optax `multi_transform` state of the object optimizer -> the port's
+    `ObjectOptimizer` state {'count', 'mu': {param key: ...}, 'nu': ...} over
+    the trainable (lr > 0) modules. Every label's Adam and schedule counts
+    must agree: the port keeps one count."""
+    counts, mu, nu = set(), {}, {}
+    for key, label in _OBJECT_MODULES.items():
+        chain = opt_state.inner_states[label].inner_state
+        if _fields(chain) != ():
+            continue                      # set_to_zero (an EmptyState): a frozen module
+        for s in chain:
+            if "count" in _fields(s):
+                counts.add(int(np.asarray(s.count)))
+            if {"mu", "nu"} <= set(_fields(s)):
+                # the other labels' leaves are masked out of this label's moments
+                mu[key], nu[key] = tree_from_numpy(s.mu[key], device), tree_from_numpy(s.nu[key], device)
+    if len(counts) != 1:
+        raise ValueError(f"object optimizer counts differ between modules: {sorted(counts)}")
+    return {"count": counts.pop(), "mu": mu, "nu": nu}
 
 
 def _fields(state) -> tuple:

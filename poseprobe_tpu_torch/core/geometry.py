@@ -1,6 +1,7 @@
-"""Batched projection / backprojection used by the corres and depth losses.
+"""Batched projection / backprojection used by the corres, depth and
+reprojection losses.
 
-Port of `poseprobe_tpu/core/geometry.py` (the slice's subset).
+Port of `poseprobe_tpu/core/geometry.py` (the ported slices' subset).
 """
 from __future__ import annotations
 
@@ -45,3 +46,21 @@ def batch_project(kpi_3d_i, T_itoj, Kj, return_depth: bool = False):
     if return_depth:
         return from_homogeneous(kpi_2d_in_j), kpi_3d_in_j[..., -1]
     return from_homogeneous(kpi_2d_in_j)
+
+
+def project_to_cam(points: torch.Tensor, camera_mat: torch.Tensor) -> torch.Tensor:
+    """Camera-frame points [..., N, 3] -> pixel coords [..., N, 2] (perspective divide)."""
+    xy = points @ camera_mat.transpose(-1, -2)
+    return xy[..., :2] / (xy[..., 2:] + 1e-12)
+
+
+def point_to_ray_distance(ray_origins: torch.Tensor, ray_directions: torch.Tensor,
+                          point: torch.Tensor) -> torch.Tensor:
+    """Distance of a point to rays; rays that point away from it use the
+    distance to their origin."""
+    v = point - ray_origins
+    t = torch.sum(v * ray_directions, dim=-1)
+    dist_to_origin = torch.linalg.norm(v, dim=-1)
+    p_proj = ray_origins + t[..., None] * ray_directions
+    dist_to_line = torch.linalg.norm(point - p_proj, dim=-1)
+    return torch.where(t < 0, dist_to_origin, dist_to_line)

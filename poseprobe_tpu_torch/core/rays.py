@@ -1,13 +1,37 @@
-"""Scene-branch camera rays.
+"""Camera rays.
 
-Port of `poseprobe_tpu/core/rays.py` (the slice's subset): rays are built by
-unprojecting homogeneous pixel coordinates through K^-1 and a w2c pose.
+Port of `poseprobe_tpu/core/rays.py` (the ported slices' subset). Scene
+branch: rays are built by unprojecting homogeneous pixel coordinates through
+K^-1 and a w2c pose. Object branch (`get_ray_dir`): unit rays through pixel
+coordinate lists from a c2w pose.
 """
 from __future__ import annotations
 
 import torch
 
 from . import pose as pose_ops
+
+
+def get_ray_dir(points: torch.Tensor, K: torch.Tensor, c2w: torch.Tensor, inverse_y: bool,
+                mode: str = "center"):
+    """Rays through 2D pixel coords (the object branch's reprojection path).
+
+    points: [B, N, 2]; K: [B, 3, 3]; c2w: [B, 3, 4]. Returns (rays_o, rays_d),
+    each [B, N, 3], with unit-norm directions.
+    """
+    if mode == "center":
+        points = points + 0.5
+    px, py = points[..., 0], points[..., 1]
+    x = (px - K[:, 0, None, 2]) / K[:, 0, None, 0]
+    y = (py - K[:, 1, None, 2]) / K[:, 1, None, 1]
+    if inverse_y:
+        dirs = torch.stack([x, y, torch.ones_like(px)], -1)
+    else:
+        dirs = torch.stack([x, -y, -torch.ones_like(px)], -1)
+    rays_d = torch.einsum("bnc,brc->bnr", dirs, c2w[:, :3, :3])
+    rays_d = rays_d / (torch.linalg.norm(rays_d, dim=-1, keepdim=True) + 1e-12)
+    rays_o = c2w[:, None, :3, 3].expand(rays_d.shape)
+    return rays_o, rays_d
 
 
 def get_center_and_ray_at_pixels(pose_w2c: torch.Tensor, pixels: torch.Tensor,

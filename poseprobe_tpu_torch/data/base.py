@@ -1,8 +1,9 @@
 """Dataset container (numpy, host side).
 
 The port's own copy of `poseprobe_tpu/data/base.py` (the fields and helpers
-the scene-only slice uses). Match packs are padded to [n_train, M, 5]
-(x_prev, y_prev, x_cur, y_cur, conf); conf 0 marks padding.
+the ported slices use). Match packs are padded to [n_train, M, 5]
+(x_prev, y_prev, x_cur, y_cur, conf); conf 0 marks padding. Semantic pixel
+pools are padded with counts.
 """
 from __future__ import annotations
 
@@ -10,6 +11,19 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class SemanticSamplers:
+    """Per-view pixel pools for the 20/30/50 background/boundary/object split,
+    from Gaussian-blurred object masks: object = blurred mask ~ 1, background
+    = ~0, boundary = in between.
+    pixels: [n_views, 3, max_pix, 2] int32 (x, y); counts: [n_views, 3].
+    Class order: (background, boundary, object).
+    """
+
+    pixels: np.ndarray
+    counts: np.ndarray
 
 
 @dataclasses.dataclass
@@ -30,6 +44,7 @@ class SceneData:
     pair_j: Optional[np.ndarray] = None         # [n_train] int
     ba_matches: Optional[np.ndarray] = None     # [n_pairs, M, 5] (i-2, i) skip pairs
     ba_pairs: Optional[np.ndarray] = None       # [n_pairs, 2] int
+    samplers: Optional[SemanticSamplers] = None
     depth_gt: Optional[np.ndarray] = None       # [n_views, H, W] camera-z
     inverse_y: bool = True
     white_bkgd: bool = False
@@ -53,3 +68,29 @@ def default_pair_j(n_train: int) -> np.ndarray:
     if n_train > 1:
         pj[0] = 1
     return pj.astype(np.int32)
+
+
+def build_semantic_samplers(masks: np.ndarray, blur_sigma: float = 5.0,
+                            lo: float = 0.05, hi: float = 0.95) -> SemanticSamplers:
+    """3-class pixel pools from Gaussian-blurred masks [n_views, H, W, 1]
+    (host-side numpy/scipy preprocessing)."""
+    from scipy.ndimage import gaussian_filter
+
+    n = masks.shape[0]
+    pools = []
+    counts = np.zeros((n, 3), np.int32)
+    for i in range(n):
+        blurred = gaussian_filter(masks[i, :, :, 0].astype(np.float32), blur_sigma)
+        bg = np.argwhere(blurred <= lo)
+        bd = np.argwhere((blurred > lo) & (blurred < hi))
+        ob = np.argwhere(blurred >= hi)
+        pools.append((bg, bd, ob))
+        counts[i] = [max(len(bg), 1), max(len(bd), 1), max(len(ob), 1)]
+    max_pix = max(max(max(len(p) for p in view) for view in pools), 1)
+    pixels = np.zeros((n, 3, max_pix, 2), np.int32)
+    for i, view in enumerate(pools):
+        for c, p in enumerate(view):
+            # argwhere gives (y, x); stored as (x, y)
+            pixels[i, c, : len(p), 0] = p[:, 1]
+            pixels[i, c, : len(p), 1] = p[:, 0]
+    return SemanticSamplers(pixels=pixels, counts=counts)

@@ -287,6 +287,7 @@ def make_synthetic_scene(n_train: int = 3, n_test: int = 6, H: int = 64, W: int 
                                 noise_px=match_noise_px,
                                 outlier_frac=match_outlier_frac)
 
+    samplers = base.build_semantic_samplers(masks[:n_train])
     # probe bbox sized so the cube SDF init (rect = span/(1.25*1.05)) matches
     # the true cube closely — the analog of a well-chosen DTU xyz bound, which
     # is what makes the reference's PnP anchors accurate
@@ -303,7 +304,7 @@ def make_synthetic_scene(n_train: int = 3, n_test: int = 6, H: int = 64, W: int 
         xyz_max=np.array([margin] * 3, np.float32),
         obj_matches=obj_matches, scene_matches=scene_matches, pair_j=pair_j,
         ba_matches=ba_matches, ba_pairs=skip_pairs,
-        inverse_y=True,
+        samplers=samplers, inverse_y=True,
         # rays use the K^-1 [x, y, 1] convention (camera-z = 1), so the ray
         # parameter t IS camera-z — same convention as the scene renderer's
         # depth output, usable directly as depth-metric GT

@@ -1,7 +1,7 @@
 """Volume-rendering compositing: alpha -> weights and the NeRF composite.
 
 Port of `poseprobe_tpu/ops/compositing.py` (`alpha2weights`,
-`nerf_composite`).
+`s_val_schedule`, `neus_alpha_from_sdf`, `nerf_composite`).
 """
 from __future__ import annotations
 
@@ -26,6 +26,29 @@ def alpha2weights(alpha: torch.Tensor, early_termination: bool = True):
     else:
         weights = T * alpha
     return weights, (T * one_minus)[..., -1]
+
+
+def s_val_schedule(global_step, s_ratio: float, s_start: float, step_start: int = 0):
+    """NeuS sharpness schedule s = s_ratio / (step + s_ratio/s_start - step_start)."""
+    return 1.0 / (global_step + s_ratio / s_start - step_start) * s_ratio
+
+
+def neus_alpha_from_sdf(viewdirs: torch.Tensor, dist, sdf: torch.Tensor,
+                        gradients: torch.Tensor, s_val) -> torch.Tensor:
+    """NeuS-style alpha from SDF values and gradients at samples.
+
+    viewdirs: [..., 3] unit view directions (broadcast over samples),
+    sdf: [...], gradients: [..., 3], dist: scalar world-metric step.
+    """
+    inv_s = 1.0 / s_val
+    true_cos = torch.sum(viewdirs * gradients, dim=-1)
+    iter_cos = -torch.clamp(-true_cos, min=0.0)          # always non-positive
+    est_next = sdf + iter_cos * dist * 0.5
+    est_prev = sdf - iter_cos * dist * 0.5
+    # torch.sigmoid, not 1/(1+exp(-x)): the naive form overflows in the backward
+    prev_cdf = torch.sigmoid(est_prev * inv_s)
+    next_cdf = torch.sigmoid(est_next * inv_s)
+    return torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
 
 
 class CompositeOutput(NamedTuple):

@@ -49,15 +49,13 @@ between runs.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import os
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+
+from . import _build
+from ._build import check as _check, ptr as _ptr
 
 H = 256          # trunk width the kernel is written for
 IN_PAD = 64      # encoded input padded to a multiple of 16 (63 -> 64)
@@ -66,10 +64,6 @@ DENS_PAD = 128   # last layer: [feat(H) | density | zeros] = H + DENS_PAD column
 # launch counts of the kernels; the CPU twin does not count
 fwd_launches = 0
 bwd_launches = 0
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("fused_trunk",)
 
 
 # ---------------------------------------------------------------------------
@@ -182,58 +176,13 @@ def trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
 
 
 # ---------------------------------------------------------------------------
-# kernel build and binding
-
-
-def build(names=SOURCES, force: bool = False) -> dict:
-    """Compile the named csrc/*.cu sources with nvcc (all at once, one process
-    each) into build/lib<name>.so, unless an up-to-date library is there (or
-    `force`). Returns {name: seconds spent compiling it, 0.0 if up to date}."""
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    procs, started = {}, time.perf_counter()
-    for name in names:
-        src, lib = _CSRC / f"{name}.cu", _BUILD / f"lib{name}.so"
-        if not force and lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [str(nvcc), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, lib)
-    seconds = {name: 0.0 for name in names}
-    for name, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
-        (_BUILD / f"lib{name}.ptxas.txt").write_text(log)
-        os.replace(tmp, lib)
-        seconds[name] = time.perf_counter() - started
-    return seconds
+# kernel binding (built and loaded by `_build`)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(str(_BUILD / "libfused_trunk.so"))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.trunk_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
-    lib.trunk_bwd_chain.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, p]
-    lib.trunk_bwd_dw.argtypes = [p, p, p, p, i, i, i, i, p]
-    for fn in (lib.trunk_fwd, lib.trunk_bwd_chain, lib.trunk_bwd_dw):
-        fn.restype = ctypes.c_int
-    lib.cuda_error_string.argtypes = [i]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.cuda_error_string(err).decode()}")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+def _lib():
+    return _build.declare(_build.load("fused_trunk"), trunk_fwd="ppppppiiip",
+                          trunk_bwd_chain="ppppppppppiiip", trunk_bwd_dw="ppppiiiip")
 
 
 def _check_inputs(L: int, skip: int, w, b, **tensors) -> None:

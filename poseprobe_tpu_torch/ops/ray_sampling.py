@@ -1,13 +1,60 @@
-"""Scene-branch depth sampling along rays.
+"""Ray sampling: the object branch's dense stepping through its box, and the
+scene branch's depth sampling.
 
-Port of the scene half of `poseprobe_tpu/ops/ray_sampling.py`. Randomness is
-injected: the stratified jitter and the fine-sampling grid are tensors the
-caller draws (`draw_render_noise`), so a test can feed the JAX function and
-this one the same numbers.
+Port of `poseprobe_tpu/ops/ray_sampling.py`. Randomness is injected: the
+object sampler's per-ray jitter, the scene sampler's stratified jitter and the
+fine-sampling grid are tensors the caller draws, so a test can feed the JAX
+function and this one the same numbers.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
+
+
+class RaySamples(NamedTuple):
+    pts: torch.Tensor          # [N_rays, N_samples, 3] world-space sample points
+    mask_inbbox: torch.Tensor  # [N_rays, N_samples] bool, True = inside the box
+    step: torch.Tensor         # [N_rays, N_samples] distance along the ray from t_min (world units)
+    t_min: torch.Tensor        # [N_rays]
+    t_max: torch.Tensor        # [N_rays]
+
+
+def n_samples_for_grid(world_size, stepsize: float) -> int:
+    """Max sample count covering the grid diagonal."""
+    ws = np.asarray(world_size, dtype=np.float64)
+    return int(np.linalg.norm(ws + 1) / stepsize) + 1
+
+
+def ray_aabb(rays_o, rays_d, xyz_min, xyz_max, near: float, far: float):
+    """Slab-method ray/box entry and exit distances, clamped to [near, far], in
+    units of the unnormalised direction. Returns (t_min, t_max, miss)."""
+    vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
+    rate_a = (xyz_max - rays_o) / vec
+    rate_b = (xyz_min - rays_o) / vec
+    t_min = torch.clamp(torch.minimum(rate_a, rate_b).amax(-1), near, far)
+    t_max = torch.clamp(torch.maximum(rate_a, rate_b).amin(-1), near, far)
+    return t_min, t_max, t_max <= t_min
+
+
+def sample_ray(rays_o, rays_d, xyz_min, xyz_max, near: float, far: float, stepsize: float,
+               voxel_size: float, n_samples: int, jitter: torch.Tensor | None = None) -> RaySamples:
+    """`n_samples` points per ray from the box entry point on; rays_d need not
+    be unit (steps are world-metric via step / |rays_d|). `jitter` [N, 1] in
+    [0, 1) is the training-time per-ray offset, None for none."""
+    t_min, t_max, miss = ray_aabb(rays_o, rays_d, xyz_min, xyz_max, near, far)
+    n_rays = rays_o.shape[0]
+    rng_steps = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device).expand(n_rays, n_samples)
+    if jitter is not None:
+        rng_steps = rng_steps + jitter
+    step = stepsize * voxel_size * rng_steps
+    d_norm = torch.clamp(torch.linalg.norm(rays_d, dim=-1, keepdim=True), min=1e-12)
+    interpx = t_min[..., None] + step / d_norm
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * interpx[..., None]
+    inbbox = torch.all((pts >= xyz_min) & (pts <= xyz_max), dim=-1) & (~miss)[..., None]
+    return RaySamples(pts=pts, mask_inbbox=inbbox, step=step, t_min=t_min, t_max=t_max)
 
 
 def draw_render_noise(generator: torch.Generator, batch_size: int, num_rays: int,

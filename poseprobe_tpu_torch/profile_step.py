@@ -1,15 +1,18 @@
-"""Where the time of the scene-only training step goes, on one GPU.
+"""Where the time of the training step goes, on one GPU.
 
-    python3 -m poseprobe_tpu_torch.profile_step [--steps 6] [--out TRACE_DIR]
+    python3 -m poseprobe_tpu_torch.profile_step [--steps 6] [--out TRACE_DIR] [--phases early coarse mid]
 
-For each phase cell of `build_scene_trainer()` (coarse: step 10,001; mid:
-step 18,001) it times steps without the profiler (host clock around
+For each phase cell of `build_trainer()` (early: step 1, object branch on;
+coarse: step 10,001; mid: step 18,001) it times steps without the profiler (host clock around
 synchronised steps), then traces the same number of steps with
 `torch.profiler` and prints the device time per step, the device busy share
 (device time / unprofiled step time), the kernel launches per step, the
-device time of the fused-trunk kernels, the kernels with the most device
-time and the most frequent host (aten) ops. One JSON line per phase;
-Chrome traces go to `--out`.
+device time of the hand-written kernels (fused trunk; trilinear and layout),
+the kernels with the most device time and the most frequent host (aten) ops.
+After the phases it prints the 60k-weighted rays/s of the measured step times
+(10k early steps at object + scene rays, 8k coarse and 42k mid steps at scene
+rays). One JSON line per phase and one for the weighting; Chrome traces go to
+`--out`.
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ def profile_phase(tr, name: str, start: int, steps: int, out: Path | None) -> di
     device_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events)
     trunk_us = sum(e.self_device_time_total for e in events if "trunk_" in e.key)
+    grid_names = ("trilinear_", "scatter_rows", "rows_to_channels", "channels_to_rows", "tiled_transpose",
+                  "materialize_kernel")
+    grid_us = sum(e.self_device_time_total for e in events if any(n in e.key for n in grid_names))
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     host_ops = sorted((e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")),
@@ -64,6 +70,7 @@ def profile_phase(tr, name: str, start: int, steps: int, out: Path | None) -> di
         "busy_share": device_us / 1e3 / steps / step_ms,
         "launches_per_step": launches / steps,
         "trunk_kernels_ms_per_step": trunk_us / 1e3 / steps,
+        "grid_kernels_ms_per_step": grid_us / 1e3 / steps,
         "top": [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
                  "calls_per_step": e.count / steps} for e in top],
         "top_host_ops": [{"op": e.key, "calls_per_step": e.count / steps,
@@ -71,7 +78,8 @@ def profile_phase(tr, name: str, start: int, steps: int, out: Path | None) -> di
     }
     print(f"{name}: {step_ms:.2f} ms/step unprofiled, device {result['device_ms_per_step']:.2f} ms/step "
           f"(busy {100 * result['busy_share']:.1f}%), {result['launches_per_step']:.0f} device "
-          f"events/step, trunk kernels {result['trunk_kernels_ms_per_step']:.2f} ms/step")
+          f"events/step, trunk kernels {result['trunk_kernels_ms_per_step']:.2f} ms/step, trilinear + "
+          f"layout kernels {result['grid_kernels_ms_per_step']:.3f} ms/step")
     for t in result["top"]:
         print(f"  {t['ms_per_step']:8.3f} ms  x{t['calls_per_step']:6.1f}  {t['kernel']}")
     print("  most frequent host ops: " + ", ".join(
@@ -83,14 +91,37 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--out", type=Path, default=None, help="directory for Chrome traces")
+    ap.add_argument("--phases", nargs="+", default=["early", "coarse", "mid"],
+                    choices=["early", "coarse", "mid"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    tr = trainer_mod.build_scene_trainer(device="cuda")
-    for name, start in (("coarse", trainer_mod.N_ITERS + 1), ("mid", tr.fine_start + 1)):
-        print(json.dumps(profile_phase(tr, name, start, args.steps, args.out)))
+    tr = trainer_mod.build_trainer(device="cuda")
+    starts = {"early": 1, "coarse": trainer_mod.N_ITERS + 1, "mid": tr.fine_start + 1}
+    step_ms = {}
+    for name in args.phases:
+        result = profile_phase(tr, name, starts[name], args.steps, args.out)
+        step_ms[name] = result["step_ms"]
+        print(json.dumps(result))
+    if len(step_ms) == 3:
+        print(json.dumps(weighted_rays_per_s(tr, step_ms)))
+
+
+def weighted_rays_per_s(tr, step_ms: dict) -> dict:
+    """60k-weighted rays/s from the per-phase step times, weighted as the
+    reference's benchmark weights them: early steps carry object + scene rays."""
+    n_iters, fine_start, max_iter = trainer_mod.N_ITERS, tr.fine_start, trainer_mod.MAX_ITER
+    obj_rays, scene_rays = tr.cfg.object_train.N_rand, tr.cfg.scene_model.rand_rays
+    steps = {"early": n_iters, "coarse": fine_start - n_iters, "mid": max_iter - fine_start}
+    rays = {"early": obj_rays + scene_rays, "coarse": scene_rays, "mid": scene_rays}
+    total_s = sum(steps[p] * step_ms[p] / 1e3 for p in steps)
+    total_rays = sum(steps[p] * rays[p] for p in steps)
+    out = {"rays_per_s_60k_weighted": total_rays / total_s, "seconds_for_60k_steps": total_s,
+           "step_ms": step_ms}
+    print(f"60k-weighted: {out['rays_per_s_60k_weighted']:.1f} rays/s, {total_s:.0f} s for the 60k steps")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Scene-branch pixel batch sampling (patches shared across views).
+"""Ray/pixel batch sampling: the object branch's semantic sampler and the
+scene branch's patches shared across views.
 
-Port of the scene half of `poseprobe_tpu/train/batching.py`. The random
-draws are tensors (`draw_scene_pixels`), so a test can hand the JAX sampler's
-numbers to this one.
+Port of `poseprobe_tpu/train/batching.py`. The random draws are tensors
+(`draw_object_batch`, `draw_scene_pixels`), so a test can hand the JAX
+samplers' numbers to these.
 """
 from __future__ import annotations
 
@@ -10,6 +11,60 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..core import pose as pose_ops
+
+SEMANTIC_FRACS = (0.2, 0.3, 0.5)  # background / boundary / object
+
+
+class ObjectBatch(NamedTuple):
+    rays_o: torch.Tensor    # [N, 3]
+    rays_d: torch.Tensor    # [N, 3] (unnormalized)
+    viewdirs: torch.Tensor  # [N, 3]
+    target: torch.Tensor    # [N, 3]
+    mask: torch.Tensor      # [N, 1]
+    view_idx: torch.Tensor  # [N]
+
+
+def rays_from_pixels_object(pixels, view_idx, Ks, current_pose, inverse_y: bool):
+    """Object-branch rays at (x, y) pixel coords (+0.5 centers) per view index."""
+    K = Ks[view_idx]                                       # [N, 3, 3]
+    c2w = pose_ops.invert(current_pose)[view_idx]          # [N, 3, 4]
+    x = pixels[:, 0].to(torch.float32) + 0.5
+    y = pixels[:, 1].to(torch.float32) + 0.5
+    dx, dy = (x - K[:, 0, 2]) / K[:, 0, 0], (y - K[:, 1, 2]) / K[:, 1, 1]
+    if inverse_y:
+        dirs = torch.stack([dx, dy, torch.ones_like(x)], -1)
+    else:
+        dirs = torch.stack([dx, -dy, -torch.ones_like(x)], -1)
+    rays_d = torch.einsum("nc,nrc->nr", dirs, c2w[:, :3, :3])
+    rays_o = c2w[:, :3, 3]
+    viewdirs = rays_d / torch.clamp(torch.linalg.norm(rays_d, dim=-1, keepdim=True), min=1e-12)
+    return rays_o, rays_d, viewdirs
+
+
+def draw_object_batch(generator: torch.Generator, n_rand: int, n_active: int, device="cuda") -> dict:
+    """The draws of `sample_object_batch`: a view and a semantic class per ray,
+    and the uniform that picks the pixel from that pool."""
+    fracs = torch.tensor(SEMANTIC_FRACS, dtype=torch.float32, device=device)
+    return {"view": torch.randint(0, n_active, (n_rand,), generator=generator, device=device),
+            "cls": torch.multinomial(fracs, n_rand, replacement=True, generator=generator),
+            "pick": torch.rand(n_rand, generator=generator, device=device)}
+
+
+def sample_object_batch(draws: dict, images: torch.Tensor, masks: torch.Tensor, Ks: torch.Tensor,
+                        current_pose: torch.Tensor, sampler_pixels: torch.Tensor,
+                        sampler_counts: torch.Tensor, inverse_y: bool) -> ObjectBatch:
+    """images [n_train, H, W, 3], masks [n_train, H, W, 1], sampler_pixels
+    [n_train, 3, max_pix, 2] (x, y), sampler_counts [n_train, 3]."""
+    view, cls = draws["view"], draws["cls"]
+    count = sampler_counts[view, cls]
+    pick = (draws["pick"] * count).to(torch.int64)
+    pixels = sampler_pixels[view, cls, pick]               # [N, 2] (x, y)
+    rays_o, rays_d, viewdirs = rays_from_pixels_object(pixels, view, Ks, current_pose, inverse_y)
+    target = images[view, pixels[:, 1], pixels[:, 0]]
+    mask = masks[view, pixels[:, 1], pixels[:, 0]]
+    return ObjectBatch(rays_o, rays_d, viewdirs, target, mask, view)
 
 
 class SceneBatch(NamedTuple):

@@ -1,7 +1,8 @@
-"""Scene and pose optimizers, written out to reproduce the reference's optax chains.
+"""Object, scene and pose optimizers, written out to reproduce the reference's
+optax chains.
 
-Port of `build_scene_optimizer` and `build_pose_optimizer` of
-`poseprobe_tpu/train/optim.py`. Parameters, gradients and moments are nested
+Port of `build_object_optimizer`, `build_scene_optimizer` and
+`build_pose_optimizer` of `poseprobe_tpu/train/optim.py`. Parameters, gradients and moments are nested
 dicts/lists of tensors (the JAX trees); an optimizer is functional:
 ``update(grads, state) -> (updates, new_state)`` and the caller adds the
 updates. Matching optax exactly:
@@ -46,6 +47,57 @@ class _Adam:
         new_state = {"count": count, "mu": tree_unflatten(state["mu"], mu),
                      "nu": tree_unflatten(state["nu"], nu)}
         return d, new_state
+
+
+# object param key -> the lr field of ObjectTrainConfig and the module name of
+# `decay_step_module`; `s_val` has neither: it is frozen
+_OBJECT_MODULES = {"sdf_grid": "sdf", "k0_grid": "k0", "rgbnet": "rgbnet", "warpnet": "warpnet",
+                   "sdf_alpha": "sdf_alpha", "sdf_beta": "sdf_beta"}
+
+
+class ObjectOptimizer(_Adam):
+    """Adam (0.9, 0.99) per object module (top-level param key) with its own lr:
+    ``lr * 0.1^(count / (lrate_decay * 1000))`` times the staged
+    `decay_step_module` drops reached by `count`. A module with lr <= 0, and
+    `s_val`, is frozen: zero updates and no state. `count` is the number of
+    updates since `init` (after a grid rescale the trainer calls `init` again
+    and the schedules restart, as the reference's do). Every leaf under a
+    module key is updated, `warpnet["output_range"]` included."""
+
+    def __init__(self, cfg: ObjectTrainConfig):
+        super().__init__(0.9, 0.99)
+        self.decay_steps = cfg.lrate_decay * 1000
+        self.base_lr = {key: getattr(cfg, f"lrate_{mod}") for key, mod in _OBJECT_MODULES.items()}
+        self.events = {key: [(step, dict(factors)[mod]) for step, factors in cfg.decay_step_module
+                             if mod in dict(factors)] for key, mod in _OBJECT_MODULES.items()}
+
+    def trainable(self, params: dict) -> dict:
+        return {k: v for k, v in params.items() if self.base_lr.get(k, 0.0) > 0}
+
+    def init(self, params: dict) -> dict:
+        return super().init(self.trainable(params))
+
+    def lr(self, key: str, count: int) -> float:
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+        lr = f32(self.base_lr[key]) * f32(0.1) ** (f32(count) / self.decay_steps)
+        for ev_step, factor in self.events[key]:
+            if count >= ev_step:
+                lr = lr * factor
+        return float(lr)
+
+    def update(self, grads: dict, state: dict):
+        sub = self.trainable(grads)
+        d, new_state = self._direction(sub, state)
+        d = tree_unflatten(sub, d)
+        count = state["count"]
+        updates = {}
+        for key, g in grads.items():
+            if key in sub:
+                lr = self.lr(key, count)
+                updates[key] = tree_map(lambda x, lr=lr: -lr * x, d[key])
+            else:
+                updates[key] = tree_map(torch.zeros_like, g)
+        return updates, new_state
 
 
 class SceneOptimizer(_Adam):

@@ -436,7 +436,12 @@ def test_port_imports_no_jax():
         "bad = [n for n in sys.modules if n.startswith('poseprobe_tpu') and not n.startswith('poseprobe_tpu_torch')]\n"
         "bad += [n for n in sys.modules if n == 'optax' or n.startswith('jax.')]\n"
         "assert not bad, bad\n"
-        "print('ok', len([n for n in sys.modules if n.startswith('poseprobe_tpu_torch')]))\n")
+        "print('ok', ' '.join(sorted(n for n in sys.modules if n.startswith('poseprobe_tpu_torch'))))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+    loaded = set(out.stdout.split()[1:])
+    for name in ("ops._build", "ops.layout", "ops.grid", "ops.maskcache", "ops.fused_mlp", "models.deform",
+                 "models.object_sdf", "losses.object", "losses.projection", "train.trainer", "train.optim",
+                 "train.batching", "convert", "profile_step", "config.config", "data.synthetic"):
+        assert f"poseprobe_tpu_torch.{name}" in loaded, name
