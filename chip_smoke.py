@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `poseprobe_tpu_torch/csrc/` (three
+Builds the port's CUDA kernels from `poseprobe_tpu_torch/csrc/` (four
 sources, one nvcc each, in parallel) and holds each kernel against its plain
 PyTorch version on the card:
 * the fused-trunk kernels at the mid-phase fine render's 393,216 points and
@@ -13,7 +13,11 @@ PyTorch version on the card:
   channels (value), at the early step's point count, at 1024 x n_samples and
   at a ragged count, with points on voxel corners, on the border and outside;
   the 13-channel backward also with POSEPROBE_SCATTER_BARRIER=1 (the staged
-  scatter through `materialize`), against the twin and the direct scatter.
+  scatter through `materialize`), against the twin and the direct scatter;
+* the fused alpha-composite kernels (forward and hand-written backward) at the
+  early step's [1024 rays, chord-bound K samples], at the dense
+  [1024, n_samples], at ragged shapes, for a soft and a sharp NeuS sigmoid,
+  with saturated, grazing and masked rays.
 Beside each kernel's time stands the time of the one PyTorch call that
 computes the same function, where there is one (a copy for the layout
 kernels, `F.grid_sample` and its backward for the trilinear ones): timed and
@@ -26,7 +30,14 @@ that the kernels carried every trunk render and every grid lookup (launch
 counters), that one step's loss through the kernels agrees with the same
 step through the plain PyTorch versions, and that a step with
 POSEPROBE_SCATTER_BARRIER=1 (the scatter updates pass through `materialize`)
-gives the same loss.
+gives the same loss. Last it drives `JointTrainer.fit()` at the same scale
+with PnP pose seeding and the fused composite on: the PnP chain at
+construction, the early steps through the composite kernels, the activation
+of the third view (PnP against the probe, photometric gate, guarded warmup and
+fixed-ray scores rendered on the card), a mask-cache refresh and a BA-polish
+event, then the probe health check and a validation render. OpenCV is
+optional: without it PnP runs the numpy RANSAC and the BA polish and the match
+refinement decline, as in the reference; the script says which path ran.
 
 Prints the card (`nvidia-smi` name and power limit), the build time, errors
 and times, one JSON line `{"kernels": [...]}` and, last, one JSON line
@@ -349,6 +360,107 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int) -> list:
     return records
 
 
+def _composite_case(N: int, S: int, inv_s: float, dist: float, seed: int):
+    """Rays that start outside the surface and walk into it (the SDF falls by
+    |cos| * dist per sample, plus noise), with rays that never reach it, rays
+    deep inside from the first sample (alpha = 1, T falls to 1e-10), grazing
+    rays (alpha ~ 0), masked samples and wholly masked rays; cotangents for
+    the four outputs."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=DEVICE)  # noqa: E731
+    cos_term = -rand(N, S) * (rand(N, 1) > 0.1)                    # a tenth of the rays graze: cos = 0
+    start = rand(N, 1) * 0.6 - 0.1                                 # some rays start inside
+    sdf = start + torch.cumsum(cos_term * dist, dim=1) + (rand(N, S) - 0.5) * 0.2 * dist
+    mask = rand(N, S) > 0.15
+    mask[: N // 16] = False                                        # wholly masked rays
+    mask[N // 16: N // 8, S // 2:] = False                         # rays that leave the box early
+    rgb = rand(N, S, 3)
+    step = (torch.arange(S, device=DEVICE, dtype=torch.float32) * dist + rand(N, 1) * dist).contiguous()
+    scalars = torch.tensor([inv_s, dist], device=DEVICE)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=DEVICE)  # noqa: E731
+    cts = (randn(N, S), randn(N), randn(N, 3), randn(N))
+    return (sdf.contiguous(), cos_term.contiguous(), mask, rgb, step, scalars), cts
+
+
+def check_composite_kernels(fused_composite, compositing, n_rays: int, K: int, n_samples: int) -> list:
+    """composite_fwd / composite_bwd against the plain version (and its
+    autograd) at the early step's shape [n_rays, K], at the dense
+    [n_rays, n_samples], at a ragged shape, for a soft and a sharp inv_s;
+    records at [n_rays, K]. Rays with a sample whose transmittance lies within
+    1e-4 (relative) of the early-termination threshold are left out of the
+    comparison: the warp scan and cumprod round T differently there, and the
+    gate is a step."""
+    out_tol, grad_rel, grad_abs = 1e-5, 1e-4, 1e-6
+    dist = 0.0125
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for N, S in ((n_rays, K), (n_rays, n_samples), (1000, 7), (37, 1000)):
+        for inv_s in (20.0, 2000.0):
+            args, cts = _composite_case(N, S, inv_s, dist, seed=N * 7 + S)
+            outs = fused_composite.composite_fwd(*args)
+            refs = fused_composite.fused_alpha_composite_plain(*args[:5], args[5][0], args[5][1])
+            grads = fused_composite.composite_bwd(*args, *cts)
+            grefs = fused_composite.composite_bwd_plain(*args, *cts)
+            torch.cuda.synchronize()
+            alpha = torch.where(args[2], compositing.neus_alpha_from_sdf(
+                torch.ones(1, device=DEVICE), dist, args[0], args[1][..., None], 1.0 / inv_s), 0.0)
+            om = torch.clamp(1.0 - alpha, 1e-10, 1.0)
+            T = torch.cumprod(torch.cat([torch.ones_like(om[:, :1]), om[:, :-1]], dim=1), dim=1)
+            keep = ~((T / 1e-3 - 1.0).abs() < 1e-4).any(dim=1)
+            if not all(bool(torch.isfinite(t).all()) for t in (*outs, *grads)):
+                raise AssertionError(f"composite kernels: non-finite values at N={N} S={S} inv_s={inv_s}")
+            f_err = max(float((o[keep] - r[keep]).abs().max()) for o, r in zip(outs, refs))
+            b_err, b_ok = 0.0, True
+            for name, o, r in zip(("d_sdf", "d_cos", "d_rgb", "d_step"), grads[:4], grefs[:4]):
+                err = float((o[keep] - r[keep]).abs().max())
+                b_err = max(b_err, err)
+                b_ok &= err <= grad_rel * float(r[keep].abs().max()) + grad_abs
+            if bool(keep.all()):
+                # the scalar gradients sum over every ray, so they compare only when none is left out
+                err = float((grads[4] - grefs[4]).abs().max())
+                b_err = max(b_err, err)
+                b_ok &= err <= grad_rel * float(grefs[4].abs().max()) + grad_abs * N * S
+            print(f"composite N={N} S={S} inv_s={inv_s:g}: fwd max abs err {f_err:.3e} (tolerance {out_tol}), "
+                  f"bwd max abs err {b_err:.3e} (tolerance {grad_rel} of max |plain| + {grad_abs}), "
+                  f"{int((~keep).sum())} rays at the gate left out")
+            if not (f_err <= out_tol and b_ok):
+                raise AssertionError(f"composite kernel disagrees with its plain version at N={N} S={S} "
+                                     f"inv_s={inv_s}")
+            if (N, S) == (n_rays, K):
+                worst = {"fwd": max(worst["fwd"], f_err), "bwd": max(worst["bwd"], b_err)}
+
+    args, cts = _composite_case(n_rays, K, 20.0, dist, seed=11)
+    ns = float(n_rays * K)
+    src, line = "fused_composite.cu", "poseprobe_tpu/ops/pallas/fused_composite.py:84"
+    plain_fwd = lambda: fused_composite.fused_alpha_composite_plain(*args[:5], args[5][0], args[5][1])  # noqa: E731
+    records = [
+        # forward: sdf, cos, step, rgb (24 B) + mask (1 B) read, the weight written, per sample;
+        # two sigmoids, a quotient, the scan and four multiply-adds: ~60 operations
+        _record("composite_fwd", src, line, worst["fwd"],
+                _time_ms(lambda: fused_composite.composite_fwd(*args), iters=50),
+                _time_ms(plain_fwd, iters=50), ns * 60, ns * 29 + n_rays * 20, None, PEAK_F32_FLOPS),
+        # backward: the same inputs and the weight cotangent read (29 B), d_sdf, d_cos, d_step,
+        # d_rgb written (24 B), per sample; the forward's operations again plus the reverse scan
+        _record("composite_bwd", src, line, worst["bwd"],
+                _time_ms(lambda: fused_composite.composite_bwd(*args, *cts), iters=50),
+                _time_ms(lambda: fused_composite.composite_bwd_plain(*args, *cts), iters=50),
+                ns * 120, ns * 53 + n_rays * 28, None, PEAK_F32_FLOPS),
+    ]
+    # `ms` above is the wrapper (4 or 5 allocations, the launch, one sum): at this size the host's
+    # enqueue time. `kernel_ms`: the bare launches back to back on buffers made once.
+    lib, ptr, chk = fused_composite._lib(), fused_composite._ptr, fused_composite._check
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = [torch.empty_like(o) for o in fused_composite.composite_fwd(*args)]
+    grads = [torch.empty_like(t) for t in (args[0], args[1], args[3], args[4])] + [torch.empty((n_rays, 2), device=DEVICE)]
+    ins = [ptr(t) for t in args]
+    records[0]["kernel_ms"] = _time_ms(lambda: chk(lib, lib.composite_fwd(
+        *ins, n_rays, K, *[ptr(t) for t in outs], stream), "composite_fwd"), iters=200)
+    records[1]["kernel_ms"] = _time_ms(lambda: chk(lib, lib.composite_bwd(
+        *ins, *[ptr(t) for t in cts], n_rays, K, *[ptr(t) for t in grads], stream), "composite_bwd"), iters=200)
+    print(f"composite kernels alone, back to back: fwd {records[0]['kernel_ms']:.4f} ms, "
+          f"bwd {records[1]['kernel_ms']:.4f} ms")
+    return records
+
+
 def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
     """Early-phase steps (object branch on) of the bench-scale joint trainer.
     Returns the kernels' launch counts of the main-path runs."""
@@ -485,12 +597,157 @@ def drive_slice(fused_mlp, trainer_mod) -> dict:
     return launches
 
 
+def drive_fit(mods: dict, trainer_mod) -> dict:
+    """`JointTrainer.fit()` at bench scale across the activation of view 2,
+    with PnP seeding, the fused composite, a mask-cache refresh and a BA event
+    inside the run. Returns the kernels' launch counts of the `fit` call."""
+    from poseprobe_tpu_torch.config import config as cfg_mod
+    from poseprobe_tpu_torch.eval import evaluator
+    from poseprobe_tpu_torch.pose_init import pnp as pnp_mod
+    fused_mlp, grid_ops, layout, fused_composite = (mods[k] for k in ("fused_mlp", "grid", "layout",
+                                                                       "fused_composite"))
+
+    def counts():
+        return {"trunk_fwd": fused_mlp.fwd_launches, "trunk_bwd": fused_mlp.bwd_launches,
+                "trilinear_fwd": grid_ops.fwd_launches, "trilinear_bwd": grid_ops.bwd_launches,
+                "transpose2d": layout.transpose2d_launches, "transpose_slice": layout.transpose_slice_launches,
+                "composite_fwd": fused_composite.fwd_launches, "composite_bwd": fused_composite.bwd_launches}
+
+    def reset():
+        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+        grid_ops.fwd_launches = grid_ops.bwd_launches = 0
+        layout.transpose2d_launches = layout.transpose_slice_launches = layout.materialize_launches = 0
+        fused_composite.fwd_launches = fused_composite.bwd_launches = 0
+
+    activate_at, refresh_at, ba_at, n_steps = 12, 14, 16, 20
+    cfg, data = trainer_mod._bench_workload(SMALL, "bfloat16")
+    cfg = dataclasses.replace(
+        cfg,
+        camera=dataclasses.replace(cfg.camera, incremental_step=activate_at, activation_pose_warmup=20,
+                                   activation_warmup_photo_ratio=1.5,
+                                   ba_at_ratios=((ba_at + 0.5) / trainer_mod.MAX_ITER,)),
+        pnp=cfg_mod.PnPConfig(use_pnp=True),
+        object_model=dataclasses.replace(cfg.object_model, use_pallas_composite=True),
+        object_train=dataclasses.replace(cfg.object_train, maskcache_update_every=refresh_at))
+    print(f"fit: PnP path {pnp_mod.pnp_path()} (OpenCV {'found' if pnp_mod.pnp_path() == 'cv2' else 'not found'}: "
+          f"{'cv2.solvePnPRansac' if pnp_mod.pnp_path() == 'cv2' else 'numpy DLT RANSAC; BA polish and match refinement decline'})")
+    t0 = time.perf_counter()
+    tr = trainer_mod.JointTrainer(cfg, data, device=DEVICE)
+    torch.cuda.synchronize()
+    seed_err = float((tr.poses_pnp - tr.poses_gt).abs().max())
+    print(f"fit: joint trainer with the PnP chain built in {time.perf_counter() - t0:.2f} s; seeded poses within "
+          f"{seed_err:.4f} of GT (max abs entry), chord-bound K {tr._mask_k}")
+    if not (tr.n_active == 2 and tr.fix_first_pose and tr._ba_steps() == (ba_at,)
+            and math.isfinite(seed_err) and seed_err < 0.5):
+        raise AssertionError("the fit configuration did not seed two active views by PnP")
+
+    # time the parts of the activation event (PnP, warmup, fixed-ray scores) and the other
+    # host events around their entry points
+    spent = {k: 0.0 for k in ("pnp", "warmup", "score", "activation", "ba", "refresh")}
+    calls = {k: 0 for k in spent}
+
+    def timed(key, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            calls[key] += 1
+            return out
+        return call
+
+    originals = (pnp_mod.pnp_from_matches, evaluator.test_time_pose_optim, evaluator.photometric_pose_score)
+    pnp_mod.pnp_from_matches = timed("pnp", originals[0])
+    evaluator.test_time_pose_optim = timed("warmup", originals[1])
+    evaluator.photometric_pose_score = timed("score", originals[2])
+    tr.maybe_activate_view = timed("activation", tr.maybe_activate_view)      # counts every step's call
+    tr.polish_poses_ba = timed("ba", tr.polish_poses_ba)
+    tr.refresh_maskcache = timed("refresh", tr.refresh_maskcache)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    try:
+        hist = [dict(h) for h in tr.fit(n_steps, log_every=1)]
+    finally:
+        pnp_mod.pnp_from_matches, evaluator.test_time_pose_optim, evaluator.photometric_pose_score = originals
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fit_counts = counts()
+    events = spent["activation"] + spent["ba"] + spent["refresh"]
+    print(f"fit: {n_steps} early steps across the activation of view 2 in {dt:.2f} s, {events:.3f} s of it in host "
+          f"events ({(dt - events) / n_steps * 1e3:.2f} ms/step with the per-step metric read-back); activation "
+          f"event {spent['activation']:.3f} s: PnP {spent['pnp']:.3f} s ({calls['pnp']} solve), warmup "
+          f"{spent['warmup']:.3f} s ({calls['warmup']} x {cfg.camera.activation_pose_warmup} Adam iterations on 1024 "
+          f"rays), fixed-ray scores {spent['score']:.3f} s ({calls['score']} x 2048 rays), the rest match geometry "
+          f"and the chord-K re-bound; BA polish {spent['ba']:.3f} s; mask-cache refresh {spent['refresh']:.3f} s")
+    print(f"fit: launches {fit_counts}")
+    print(f"fit: loss {hist[0]['loss_total']:.5f} -> {hist[-1]['loss_total']:.5f}, psnr_obj "
+          f"{hist[-1]['psnr_obj']:.3f}, psnr_scene {hist[-1]['psnr_scene']:.3f}, active views "
+          f"{[h['n_active'] for h in hist]}")
+    if [h["n_active"] for h in hist] != [2] * activate_at + [3] * (n_steps - activate_at) or tr.n_active != 3:
+        raise AssertionError("view 2 was not activated at its step")
+    if not all(math.isfinite(v) for h in hist for v in h.values()):
+        raise AssertionError("non-finite metrics in fit")
+    if not (calls["pnp"] == 1 and calls["warmup"] >= 1 and calls["score"] >= 2 and calls["ba"] == 1
+            and calls["refresh"] == 1):
+        raise AssertionError(f"fit did not run PnP, the warmup, the scores, one BA event and one refresh: {calls}")
+    # every early step renders the object rays once: one composite forward and one backward
+    if not (fit_counts["composite_fwd"] == fit_counts["composite_bwd"] == n_steps):
+        raise AssertionError(f"the composite kernels did not carry every early step: {fit_counts}")
+    if min(fit_counts.values()) < n_steps:
+        raise AssertionError(f"a kernel of the early step was launched less than once a step: {fit_counts}")
+    if not torch.equal(tr.mask_arr, torch.ones_like(tr.mask_arr)) or tr._mask_k != tr._k_phase:
+        raise AssertionError("the mask-cache refresh left the plastic phase's all-true mask and chord K")
+    health = tr.check_probe_health()
+    t0 = time.perf_counter()
+    psnr = tr.validate(1)
+    torch.cuda.synchronize()
+    print(f"fit: probe health {health}; validation PSNR {psnr:.3f} over 1 test view in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (health["healthy"] and math.isfinite(psnr) and psnr > 0):
+        raise AssertionError("probe health or validation failed after fit")
+
+    # one early step's loss (three views active): composite kernels against the plain version
+    fused_cfg = tr.cfg
+    plain_cfg = dataclasses.replace(fused_cfg, object_model=dataclasses.replace(
+        fused_cfg.object_model, use_pallas_composite=False))
+    flags = tr.phase_flags(tr.global_step)
+    draws = tr.sample_draws(flags)
+    with torch.no_grad():
+        fused, _ = tr.joint_loss(tr.obj_params, tr.scene_params, tr.pose_params, tr.global_step, flags, draws)
+        tr.cfg = plain_cfg
+        plain, _ = tr.joint_loss(tr.obj_params, tr.scene_params, tr.pose_params, tr.global_step, flags, draws)
+        tr.cfg = fused_cfg
+    rel = abs(float(fused) - float(plain)) / abs(float(plain))
+    print(f"early-phase loss with the composite kernels {float(fused):.6f}, with the plain composite "
+          f"{float(plain):.6f} (rel diff {rel:.2e}, tolerance 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError("the early step's loss through the composite kernels disagrees with the plain version's")
+
+    # step time with the fused composite on and off, in turns, inside this one run
+    ms = {"fused": [], "plain": []}
+    for name in ("fused", "plain", "plain", "fused"):
+        tr.cfg = fused_cfg if name == "fused" else plain_cfg
+        tr.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            tr.step()
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / 6 * 1e3)
+    tr.cfg = fused_cfg
+    print(f"early step, 3 views active, ms/step in turns (fused, plain, plain, fused): fused composite "
+          f"{ms['fused'][0]:.2f} and {ms['fused'][1]:.2f}, plain composite {ms['plain'][0]:.2f} and {ms['plain'][1]:.2f}")
+    return {"fit": fit_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from poseprobe_tpu_torch.models import scene_nerf
-    from poseprobe_tpu_torch.ops import _build, fused_mlp, grid as grid_ops, layout, pe
+    from poseprobe_tpu_torch.ops import _build, compositing, fused_composite, fused_mlp, grid as grid_ops, layout, pe
     from poseprobe_tpu_torch.train import trainer as trainer_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -517,11 +774,14 @@ def main() -> int:
     records = check_trunk_kernels(fused_mlp, scene_nerf, pe)
     records += check_layout_kernels(layout, G ** 3, C, grid_ops.row_pad(C))
     records += check_trilinear_kernels(grid_ops, G, ot.N_rand * joint._mask_k, ot.N_rand * om.n_samples)
+    records += check_composite_kernels(fused_composite, compositing, ot.N_rand, joint._mask_k, om.n_samples)
     print("kernels:", json.dumps([r["name"] for r in records]))
 
     by_phase = drive_early(fused_mlp, grid_ops, layout, joint)
     del joint
     by_phase.update(drive_slice(fused_mlp, trainer_mod))
+    by_phase.update(drive_fit({"fused_mlp": fused_mlp, "grid": grid_ops, "layout": layout,
+                               "fused_composite": fused_composite}, trainer_mod))
     for rec in records:
         rec["launches_by_phase"] = {ph: c[rec["name"]] for ph, c in by_phase.items() if rec["name"] in c}
         rec["launches"] = sum(rec["launches_by_phase"].values())

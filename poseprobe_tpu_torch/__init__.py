@@ -7,14 +7,20 @@ module of `poseprobe_tpu`.
 
 Ported so far: the joint training step in its three phase programs -- early
 (object branch + scene), coarse and mid (scene only) -- with the trainers
-`train.trainer.JointTrainer` / `SceneTrainer` and `build_trainer()`, and the
-hand-written Hopper kernels under `csrc/`: the fused 8x256 scene trunk
-(`ops/fused_mlp.py`), the trilinear gather/scatter (`ops/grid.py`) and the
-layout kernels (`ops/layout.py`). Still raising `NotImplementedError`: PnP
-pose initialisation, depth consistency from fresh pixels, the TensoRF feature
-grid, `use_pallas_composite`, and `weight_surface_projection > 0`. Host pose
-events, evaluation, checkpoints, loaders and the CLIs are later slices
-(`ROADMAP.md`).
+`train.trainer.JointTrainer` / `SceneTrainer` and `build_trainer()`; the host
+loop `JointTrainer.fit` with PnP pose seeding (`pose_init/pnp.py`) and the
+host pose events (view activation with its gates, warmup and rescue, BA
+polish, re-registration, probe health, the chord-K re-bound; `core/align.py`,
+`pose_init/ba.py`, `pose_init/relpose.py`, the trainer-facing part of
+`eval/evaluator.py`); and the hand-written Hopper kernels under `csrc/`: the
+fused 8x256 scene trunk (`ops/fused_mlp.py`), the trilinear gather/scatter
+(`ops/grid.py`), the layout kernels (`ops/layout.py`) and the fused
+alpha-composite, forward and backward (`ops/fused_composite.py`). Still
+raising `NotImplementedError`: depth consistency from fresh pixels, the
+TensoRF feature grid, and `weight_surface_projection > 0`. Full evaluation,
+checkpoints, loaders and the CLIs are later slices (`ROADMAP.md`). OpenCV is
+optional: without it PnP runs a numpy RANSAC, and the BA polish and the match
+refinement decline.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``. On a CUDA tensor each hand-written kernel launches (or the

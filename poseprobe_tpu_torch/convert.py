@@ -93,3 +93,28 @@ def adam_state_to_numpy(state: dict | None) -> dict | None:
         return None
     return {"count": state["count"], "mu": tree_to_numpy(state["mu"]),
             "nu": tree_to_numpy(state["nu"])}
+
+
+def load_trainer_state(trainer, state, mask_arr=None, mask_k=None, k_phase=None) -> None:
+    """Load a JAX `TrainState` (leaves as numpy arrays) into the port's trainer:
+    params, Adam states, the seeded poses, the step and the number of active
+    views; for a joint trainer also the object branch and, where given, the
+    mask cache (`mask_arr` [X, Y, Z] bool), its lane budget `mask_k` and the
+    plastic-phase chord bound `k_phase`, so that a state taken after a host
+    pose event carries over whole."""
+    device = trainer.device
+    trainer.scene_params = scene_params_from_jax(state.scene_params, device)
+    trainer.pose_params = pose_params_from_jax(state.pose_params, device)
+    trainer.opt_scene_state = adam_state_from_jax(state.opt_scene, device)
+    trainer.opt_pose_state = adam_state_from_jax(state.opt_pose, device)
+    trainer.poses_pnp = torch.as_tensor(np.array(state.poses_pnp, dtype=np.float32), device=device)
+    trainer.global_step = int(state.step)
+    trainer.n_active = int(state.n_active)
+    if "obj" in trainer.GROUPS:
+        trainer.obj_params = object_params_from_jax(state.obj_params, device)
+        trainer.opt_obj_state = object_adam_state_from_jax(state.opt_obj, device)
+        if mask_arr is not None:
+            trainer.mask_arr = torch.as_tensor(np.array(mask_arr, dtype=bool), device=device)
+        trainer._mask_k = None if mask_k is None else int(mask_k)
+        if k_phase is not None:
+            trainer._k_phase = int(k_phase)

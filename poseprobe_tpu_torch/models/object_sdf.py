@@ -11,9 +11,13 @@ Rendering works on dense [n_rays, n_samples] tensors with an in-box mask
 through `ops/grid.py`'s trilinear sampler, i.e. through the hand-written
 kernels on the card. Random draws are injected (`jitter` [n_rays, 1]).
 
-Not ported yet: the TensoRF feature grid (``grid_type="tensorf"``), the fused
-alpha-composite kernel (``use_pallas_composite=True``) — both raise
-`NotImplementedError` — and the mesh helpers of the evaluation slice
+With ``use_pallas_composite=True`` (the reference's name for the switch) the
+compositing tail of `render` -- NeuS alpha, transmittance, weights and the
+per-ray colour and step sums -- runs through `ops/fused_composite.py`, i.e.
+through its hand-written forward and backward kernels on the card.
+
+Not ported yet: the TensoRF feature grid (``grid_type="tensorf"``), which
+raises `NotImplementedError`, and the mesh helpers of the evaluation slice
 (`mesh_color_forward`, `extract_sdf_volume`).
 """
 from __future__ import annotations
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops import compositing, grid as grid_ops, maskcache, pe, ray_sampling
+from ..ops import compositing, fused_composite, grid as grid_ops, maskcache, pe, ray_sampling
 from . import deform as deform_mod
 from .mlp import apply_mlp, init_mlp
 
@@ -71,7 +75,7 @@ class ObjectConfig:
     beta_cap: float = 0.0
     world_bound_scale: float = 1.05
     fast_color_thres: float = 0.0
-    # the fused alpha-composite kernel (not ported)
+    # the fused alpha-composite kernel (ops/fused_composite.py)
     use_pallas_composite: bool = False
     # free-space skipping (ops/maskcache.py)
     use_maskcache: bool = False
@@ -134,9 +138,6 @@ def _check_ported(cfg: ObjectConfig) -> None:
     if cfg.grid_type != "dense":
         raise NotImplementedError(f"grid_type={cfg.grid_type!r}: the TensoRF feature grid is not "
                                   "ported yet (ROADMAP.md, modules to port, item 6)")
-    if cfg.use_pallas_composite:
-        raise NotImplementedError("use_pallas_composite=True: the fused alpha-composite kernel is not "
-                                  "ported yet (ROADMAP.md, modules to port, item 5; kernel 2.3)")
 
 
 def _grid_axes(cfg: ObjectConfig):
@@ -314,17 +315,28 @@ def render(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor, rays_d: torch.
 
     alpha = compositing.neus_alpha_from_sdf(viewdirs[:, None, :], dist, sdf_final, gradient, s_val)
     alpha = torch.where(mask, alpha, 0.0)
-    weights, alphainv_last = compositing.alpha2weights(alpha)
-    if cfg.fast_color_thres > 0:
-        alpha = torch.where(weights > cfg.fast_color_thres, alpha, 0.0)
+    if cfg.use_pallas_composite and cfg.fast_color_thres <= 0:
+        # fused path: alpha, transmittance, weights and the (rgb, step) sums in
+        # one kernel; it reads the colours, so the colour head runs first
+        true_cos = torch.sum(viewdirs[:, None, :] * gradient, dim=-1)
+        cos_term = -torch.clamp(-true_cos, min=0.0)
+        rgb = _color_head(params, cfg, pts, viewdirs, gradient, progress, lo, hi, k0=k0_feat)
+        weights, alphainv_last, rgb_sum, n_step = fused_composite.fused_alpha_composite(
+            sdf_final, cos_term, mask, rgb, step, 1.0 / s_val, dist)
+        w = weights[..., None]
+    else:
         weights, alphainv_last = compositing.alpha2weights(alpha)
-    rgb = _color_head(params, cfg, pts, viewdirs, gradient, progress, lo, hi, k0=k0_feat)
+        if cfg.fast_color_thres > 0:
+            alpha = torch.where(weights > cfg.fast_color_thres, alpha, 0.0)
+            weights, alphainv_last = compositing.alpha2weights(alpha)
+        rgb = _color_head(params, cfg, pts, viewdirs, gradient, progress, lo, hi, k0=k0_feat)
+        w = weights[..., None]
+        rgb_sum = (w * rgb).sum(dim=1)
+        n_step = (weights * step).sum(dim=1)
 
-    w = weights[..., None]
     cum_weights = w.sum(dim=1)                                   # [N, 1]
-    rgb_marched = torch.clamp((w * rgb).sum(dim=1) + (1.0 - cum_weights) * bg, 0.0, 1.0)
+    rgb_marched = torch.clamp(rgb_sum + (1.0 - cum_weights) * bg, 0.0, 1.0)
     normal_marched = (w * (gradient / (safe_norm(gradient, keepdim=True) + 1e-6))).sum(dim=1)
-    n_step = (weights * step).sum(dim=1)
     d_norm = torch.clamp(torch.linalg.norm(rays_d, dim=-1), min=1e-12)
     depth = samp.t_min / d_norm + n_step
     return {

@@ -19,7 +19,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("fused_trunk", "layout", "trilinear")
+SOURCES = ("fused_composite", "fused_trunk", "layout", "trilinear")
 
 
 def build(names=SOURCES, force: bool = False) -> dict:

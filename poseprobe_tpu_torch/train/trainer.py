@@ -16,35 +16,46 @@ terms, the shell prior and the match-reprojection term, mixed as
 plus the mask cache (`refresh_maskcache`) and progressive grid scaling
 (`scale_volume_grid`, `maybe_pg_scale`).
 
+`JointTrainer.fit` is the host loop around the step, with the reference's
+discrete events in the reference's order: the one-shot probe health check at
+the end of the object phase, incremental view activation (PnP from the probe,
+the scene or both; the px / holdout / photometric gates; the guarded
+photometric warmup with its match guard; the rescue tournament; the
+rescue-only match refinement), progressive grid scaling, re-registration, the
+match-based BA polish, the mask-cache refresh, and the plastic chord-K
+re-bound after every pose event. The events' pose arithmetic runs on the host
+in numpy float64 (`core/align.py`, `pose_init/`); their renders (surface
+anchors, warmup, fixed-ray scores, validation) run on the trainer's device.
+
 Randomness is injected: `step(draws)` takes every random number of the step
 as tensors (`sample_draws` makes them from the trainer's generators when the
 caller passes none), so a test can feed this step and the JAX step the same
-numbers. `fit` is a plain loop over steps with the grid-scaling and
-mask-cache cadence.
+numbers.
 
 Not ported yet, and raising `NotImplementedError` where a config asks for
-them: PnP pose initialisation (`pnp.use_pnp` / `use_identical`), depth
-consistency from fresh pixels (the corres term off), the TensoRF feature grid,
-`use_pallas_composite`, and the surface-feature loss
-(`weight_surface_projection > 0`). The host pose events (view activation,
-warmup, rescue, BA polish, probe health, the plastic chord-K re-bound) and the
-`lax.scan` supersteps are later slices.
+them: depth consistency from fresh pixels (the corres term off), the TensoRF
+feature grid, and the surface-feature loss (`weight_surface_projection > 0`).
+The `lax.scan` supersteps have no counterpart (`fit` takes no `superstep`),
+and checkpoints (`host_extras`) are a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from ..config.config import ExperimentConfig
-from ..core import pose as pose_ops, rays as rays_mod
+from ..core import align as align_mod, pose as pose_ops, rays as rays_mod
 from ..core.tree import tree_leaves, tree_unflatten
 from ..data.base import SceneData
+from ..eval import evaluator
 from ..losses import (common as loss_common, object as object_losses_mod,
                       projection as projection_losses, scene as scene_losses)
 from ..models import object_sdf, pose_refine, scene_nerf
 from ..ops import compositing, grid as grid_ops, maskcache, ray_sampling
+from ..pose_init import ba as ba_mod, pnp as pnp_mod
 from . import batching
 from .optim import ObjectOptimizer, PoseOptimizer, SceneOptimizer
 
@@ -54,16 +65,39 @@ MAX_ITER = 60000
 FINE_START_RATIO = 0.3
 
 
+class ProbeHealthError(RuntimeError):
+    """The object probe died during its training phase (default-on invariant).
+
+    Raised at the end of the object phase when the raw SDF grid shows a
+    catastrophic signature. The probe is the method's thesis: a run that loses
+    it must abort, not silently pass on warmup- or BA-carried poses.
+
+    Signatures:
+    * evaporation -- frac_neg ~ 0: no negative voxels, no interior, PnP
+      anchors come from an empty surface;
+    * filled box -- frac_neg ~ 1: raw grid negative out to the bbox faces,
+      mesh extraction empty.
+    Disable only for probe-less or scene-only experiments via
+    ``object_train.probe_health_check=False``.
+    """
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
 class SceneTrainer:
-    """Owns the device data, scene/pose params, optimizer states and the step."""
+    """Owns the device data, scene/pose params, optimizer states and the step.
+
+    With ``pnp.use_pnp`` the poses are seeded by the PnP chain against the
+    cube-initialised probe SDF (with ``use_identical``, by the first view's
+    pose), as in the reference; the host pose events that follow the seeding
+    belong to `JointTrainer.fit`."""
 
     GROUPS = ("scene", "pose")
 
     def __init__(self, cfg: ExperimentConfig, data: SceneData, seed: int | None = None,
                  device="cuda"):
-        if cfg.pnp.use_pnp or cfg.pnp.use_identical:
-            raise NotImplementedError("PnP pose initialisation is not ported yet: "
-                                      "use PnPConfig(use_pnp=False) (noisy-GT init)")
         self.cfg, self.data = cfg, data
         self.device = torch.device(device)
         seed = cfg.seed if seed is None else seed
@@ -97,7 +131,12 @@ class SceneTrainer:
         self.scene_params = scene_nerf.init_scene_params(init_gen, sm, self.device)
         self.pose_params = pose_refine.init_pose_params(self.n_train, self.device)
         pose_noise = pose_refine.make_pose_noise(init_gen, self.n_train, cfg.camera.noise)
-        self.poses_pnp = pose_ops.compose_pair(pose_noise.to(self.device), self.poses_gt)
+        # pose initialisation: the PnP chain (host) or noisy GT
+        if cfg.pnp.use_pnp or cfg.pnp.use_identical:
+            self.poses_pnp = dev(pnp_mod.initialize_poses_pnp(
+                self._probe_params(seed), cfg.object_model, data, use_identical=cfg.pnp.use_identical))
+        else:
+            self.poses_pnp = pose_ops.compose_pair(pose_noise.to(self.device), self.poses_gt)
 
         rot_window = int(sc.max_iter * sc.ratio_end_joint_nerf_pose_refinement)
         trans_window = (None if sc.ratio_end_pose_trans is None
@@ -109,17 +148,32 @@ class SceneTrainer:
         self.opt_pose_state = self.opt_pose.init(self.pose_params)
 
         self.global_step = 0
+        self.best_val = -1.0
         self.n_active = 2 if (cfg.camera.incremental and self.n_train > 2) else self.n_train
         self.fine_start = (int(sc.max_iter * sm.ratio_start_fine_sampling_at_x)
                            if sm.ratio_start_fine_sampling_at_x is not None else 0)
         self.depth_cons_start = (int(sc.max_iter * sc.start_ratio_depth_cons)
                                  if sc.start_ratio_depth_cons is not None else -1)
 
+    def _probe_params(self, seed: int) -> dict:
+        """The object probe's initial params: the cube SDF with the voxels
+        near the cameras masked out (a function of `seed` alone)."""
+        om = self.cfg.object_model
+        obj = object_sdf.init_object_params(torch.Generator().manual_seed(seed + 3), om, self.device)
+        cam_centers = _np(pose_ops.invert(self.poses_gt)[:, :3, 3])
+        return object_sdf.maskout_near_cam_vox(obj, om, cam_centers, self.data.near)
+
     @property
     def fix_first_pose(self) -> bool:
         if self.cfg.camera.fix_first_pose is not None:
             return bool(self.cfg.camera.fix_first_pose)
         return bool(self.cfg.pnp.use_pnp or self.cfg.pnp.use_identical)
+
+    def current_pose_host(self) -> np.ndarray:
+        """Host-float64 pose composition [n_train, 3, 4] for the metric, eval
+        and pose-event paths (`core/align.py` says why not the device's)."""
+        return align_mod.current_pose_pnp_host(_np(self.pose_params["se3_refine"]),
+                                               _np(self.poses_pnp), fix_first=self.fix_first_pose)
 
     def phase_flags(self, step: int) -> dict:
         cfg = self.cfg
@@ -266,7 +320,34 @@ class SceneTrainer:
         return {k: v.detach() for k, v in metrics.items()}
 
     def fit(self, num_steps: int) -> list:
+        """`num_steps` steps, no host events (those are `JointTrainer.fit`'s)."""
         return [self.step() for _ in range(num_steps)]
+
+    def validate(self, n_views: int = 5) -> float:
+        """Validation PSNR over (up to) `n_views` test views rendered in the
+        optimized frame: align the current train poses to GT, backtrack the
+        test poses through the inverse sim3, render, and return the mean PSNR.
+        Updates `best_val`."""
+        data, sm = self.data, self.cfg.scene_model
+        if len(data.i_test) == 0:
+            return float("nan")
+        _, sim3 = evaluator.align_train_poses(self.current_pose_host(), _np(self.poses_gt))
+        # before fine sampling starts training the fine MLP is untrained: score
+        # the coarse output. progress must match training: the BARF-masked PE
+        # bands have untrained weights until the c2f window closes.
+        fine_trained = bool(sm.fine_sampling and self.global_step >= self.fine_start)
+        progress = min(self.global_step / sm.max_iter, 1.0)
+        psnrs = []
+        for i in data.i_test[:n_views]:
+            pose_t = align_mod.backtrack_from_aligning_the_trajectory(data.poses_gt_w2c[i][None], sim3)[0]
+            out = evaluator.render_full(self.scene_params, sm, pose_t, data.Ks[i], self.H, self.W,
+                                        (data.near, data.far), use_fine=fine_trained, progress=progress)
+            gt = torch.as_tensor(np.asarray(data.images[i]), dtype=torch.float32, device=self.device)
+            mse = float(((out["rgb"] - gt) ** 2).mean())
+            psnrs.append(-10.0 * math.log10(max(mse, 1e-12)))
+        val = float(np.mean(psnrs))
+        self.best_val = max(self.best_val, val)
+        return val
 
 
 class JointTrainer(SceneTrainer):
@@ -300,10 +381,9 @@ class JointTrainer(SceneTrainer):
         self.obj_matches = dev(data.obj_matches)
 
         om = cfg.object_model
-        obj_params = object_sdf.init_object_params(torch.Generator().manual_seed(seed + 3), om,
-                                                   self.device)
-        cam_centers = pose_ops.invert(self.poses_gt)[:, :3, 3].cpu().numpy()
-        self.obj_params = object_sdf.maskout_near_cam_vox(obj_params, om, cam_centers, data.near)
+        self.obj_params = self._probe_params(seed)
+        self._probe_checked = False     # the one-shot end-of-object-phase invariant
+        self._metrics_hist: list = []
         self.opt_obj = ObjectOptimizer(ot)
         self.opt_obj_state = self.opt_obj.init(self.obj_params)
 
@@ -314,8 +394,8 @@ class JointTrainer(SceneTrainer):
         self._mask_k = None
         self._k_phase = None
         if om.use_maskcache:
-            all_poses = np.concatenate([self.poses_gt.cpu().numpy(), self.poses_pnp.cpu().numpy()])
-            all_Ks = np.concatenate([self.Ks.cpu().numpy()] * 2)
+            all_poses = np.concatenate([_np(self.poses_gt), _np(self.poses_pnp)])
+            all_Ks = np.concatenate([_np(self.Ks)] * 2)
             self._k_phase = min(om.n_samples, maskcache.max_inbbox_lanes(
                 all_poses, all_Ks, self.H, self.W, om.xyz_min_np, om.xyz_max_np,
                 om.stepsize * om.voxel_size))
@@ -439,9 +519,9 @@ class JointTrainer(SceneTrainer):
         per-ray chord bound over all training views (`max_inbbox_lanes`), so
         every in-box sample of every ray survives compaction --
         content-identical to the dense path -- while the lanes the
-        box-diagonal budget wastes are cut. (Re-bounding K after pose drift,
-        `update_plastic_chord_k`, belongs to the host pose events and is not
-        ported yet.) Past the phase, occupancy is rebuilt from the mapped grid
+        box-diagonal budget wastes are cut; past step 0 the bound is taken
+        again for the current poses (`update_plastic_chord_k`: joint
+        refinement drifts poses between refreshes too). Past the phase, occupancy is rebuilt from the mapped grid
         thresholded at the current NeuS sharpness and the configured K takes
         over."""
         om = self.cfg.object_model
@@ -449,6 +529,8 @@ class JointTrainer(SceneTrainer):
             self.mask_arr = torch.ones(self.obj_params["sdf_grid"].shape[1:], dtype=torch.bool,
                                        device=self.device)
             self._mask_k = self._k_phase
+            if self.global_step > 0:
+                self.update_plastic_chord_k()
             return
         s_val = float(compositing.s_val_schedule(min(self.global_step, om.N_iters), om.s_ratio,
                                                  om.s_start, om.step_start))
@@ -467,18 +549,401 @@ class JointTrainer(SceneTrainer):
         if self.cfg.object_model.use_maskcache:
             self.refresh_maskcache()
 
-    def fit(self, num_steps: int) -> list:
-        ot = self.cfg.object_train
-        out = []
-        for _ in range(num_steps):
+    # ------------------------------------------------------------ pose events
+
+    def _set_poses(self, poses_pnp: np.ndarray, zero_refine: int = 0) -> None:
+        """Write new seeded poses; restart the first `zero_refine` refinement rows from zero."""
+        self.poses_pnp = torch.as_tensor(np.asarray(poses_pnp), dtype=torch.float32, device=self.device)
+        if zero_refine:
+            refine = self.pose_params["se3_refine"].clone()
+            refine[:zero_refine] = 0.0
+            self.pose_params = dict(self.pose_params, se3_refine=refine)
+
+    def _render_state(self, step: int) -> dict:
+        """BARF progress and fine flag that match the scene's training at `step`."""
+        sm = self.cfg.scene_model
+        return dict(progress=min(step / sm.max_iter, 1.0),
+                    use_fine=bool(sm.fine_sampling and step >= self.fine_start))
+
+    def reregister_poses(self) -> None:
+        """Re-run PnP for all active views against scene-NeRF depth.
+
+        Activation-time PnP against the deformable probe SDF injects per-view
+        translation error (probe-scale ambiguity). Once the scene NeRF's depth
+        is sharp, one re-PnP against it snaps every pose back into the common
+        gauge; the refinement params restart from zero and the pose optimizer
+        keeps polishing. Each view is solved independently against the fixed
+        current scene (anchors = depth under the neighbour's current pose): a
+        chained solve would re-accumulate drift along the chain.
+        """
+        cfg = self.cfg
+        cur = self.current_pose_host()
+        Ks, scene_matches = _np(self.Ks), _np(self.scene_matches)
+        poses_pnp = _np(self.poses_pnp).copy()
+        poses_pnp[0] = cur[0]
+        for i in range(1, self.n_active):
+            prev = i - 1
+            solved = pnp_mod.pnp_from_scene_depth(
+                self.scene_params, cfg.scene_model, scene_matches[i], Ks[i], cur[prev],
+                depth_range=(self.data.near, self.data.far), **self._render_state(self.global_step))
+            # pnp_from_scene_depth falls back to the neighbour's pose on
+            # failure; in that case keep view i's own current pose instead
+            poses_pnp[i] = cur[i] if np.allclose(solved, cur[prev]) else solved
+        self._set_poses(poses_pnp, zero_refine=self.n_active)
+
+    def _ba_steps(self) -> tuple:
+        return tuple(int(r * self.cfg.scene_model.max_iter) for r in self.cfg.camera.ba_at_ratios)
+
+    def update_plastic_chord_k(self) -> None:
+        """Re-bound the plastic-phase chord K for the current poses.
+
+        The init-time bound (GT + PnP seeds + margin) is not invariant under
+        training: an activation warmup can accept a pose with a large transient
+        translation excursion, moving a camera close enough that its in-box
+        chords exceed K -- far samples then silently truncate, the probe's far
+        side starves, and the mask and render losses carve the SDF empty.
+        Called from every host pose event; K only grows and is capped by the
+        dense budget."""
+        om = self.cfg.object_model
+        if not om.use_maskcache or self._k_phase is None:
+            return
+        if self.global_step > self.cfg.object_train.N_iters:
+            return
+        poses = np.concatenate([_np(self.poses_gt), self.current_pose_host()], axis=0)
+        Ks = np.concatenate([_np(self.Ks)] * 2, axis=0)
+        k = min(om.n_samples, maskcache.max_inbbox_lanes(
+            poses, Ks, self.H, self.W, om.xyz_min_np, om.xyz_max_np, om.stepsize * om.voxel_size))
+        if k > self._k_phase:
+            print(f"[maskcache {self.global_step}] plastic chord K {self._k_phase} -> {k} "
+                  f"(pose drift re-bound)")
+            self._k_phase = k
+            if self._mask_k is not None:
+                self._mask_k = k
+
+    def check_probe_health(self) -> dict:
+        """End-of-object-phase probe invariant (see `ProbeHealthError`).
+
+        Fires once when the host loop crosses object_train.N_iters; returns
+        the measured raw-grid stats and raises `ProbeHealthError` on the
+        evaporation / filled-box signatures unless
+        cfg.object_train.probe_health_check is off."""
+        raw = _np(self.obj_params["sdf_grid"])
+        n_neg = int((raw < 0).sum())
+        frac_neg = float(n_neg) / raw.size
+        beta = float(object_sdf.softplus10(self.obj_params["sdf_beta"]))
+        stats = {"frac_neg": frac_neg, "n_neg": n_neg, "map_beta": beta,
+                 "raw_min": float(raw.min()), "raw_max": float(raw.max())}
+        evaporated = n_neg < 8 or frac_neg < 1e-4
+        filled = frac_neg > 0.98
+        stats["healthy"] = not (evaporated or filled)
+        if stats["healthy"] or not self.cfg.object_train.probe_health_check:
+            if not stats["healthy"]:
+                print(f"[trainer] WARNING probe health check disabled but probe is unhealthy: {stats}")
+            return stats
+        kind = ("EVAPORATED (no negative SDF voxels -> no interior, PnP anchors come from nothing)"
+                if evaporated else
+                "FILLED BOX (negative out to the bbox faces -> mesh extraction empty)")
+        raise ProbeHealthError(
+            f"object probe {kind} at the end of the object phase (step {self.global_step}): {stats}. "
+            "A run without a live probe must not count as a pass. For the filled-box basin try "
+            "weight_shell=1.0, shell_margin=0.05; healthy dynamics collapse map_beta to ~0.01-0.5 "
+            "within ~300 steps (map_beta > ~2 with frac_neg draining is the collapse signature). "
+            "Disable only for probe-less experiments via object_train.probe_health_check=False.")
+
+    def _ba_observations(self, n_act: int):
+        """Match packs -> BA observations for the active views (chain scene +
+        object pairs plus (i-2, i) skip pairs)."""
+        scene_matches, obj_matches = _np(self.scene_matches), _np(self.obj_matches)
+        packs, pairs = [], []
+        for i in range(1, self.n_train):
+            j = int(self.pair_j[i])
+            packs += [scene_matches[i], obj_matches[i]]
+            pairs += [(j, i), (j, i)]
+        if self.data.ba_matches is not None and len(self.data.ba_matches):
+            for pack, ab in zip(self.data.ba_matches, self.data.ba_pairs):
+                packs.append(np.asarray(pack))
+                pairs.append((int(ab[0]), int(ab[1])))
+        return ba_mod.observations_from_packs(packs, pairs, n_act)
+
+    def polish_poses_ba(self) -> dict:
+        """Match-based bundle-adjustment pose polish (host event).
+
+        See `pose_init/ba.py`: triangulate the load-time match packs from the
+        current poses, LM-refine every non-anchor active view, write the
+        polished poses into `poses_pnp`, and restart the refinement rows from
+        zero (the `reregister_poses` handoff). Unlike scene-depth
+        re-registration, the matches cannot co-adapt to wrong poses. Without
+        OpenCV the polish declines and the poses stay."""
+        n_act = self.n_active
+        obs = self._ba_observations(n_act)
+        cur = self.current_pose_host()
+        polished, info = ba_mod.polish_poses_matches(cur[:n_act], _np(self.Ks)[:n_act], obs,
+                                                     fix_first=self.fix_first_pose)
+        if not info["applied"]:
+            print(f"[ba {self.global_step}] polish skipped: {info}")
+            return info
+        poses_pnp = _np(self.poses_pnp).copy()
+        poses_pnp[:n_act] = polished
+        self._set_poses(poses_pnp, zero_refine=n_act)
+        moved = float(np.abs(polished - cur[:n_act]).max())
+        print(f"[ba {self.global_step}] polished {n_act} poses from {len(obs)} pair packs: med reproj "
+              f"{info['med_reproj_px']:.2f} px, {info['rounds']} rounds, max pose delta {moved:.4f}")
+        return info
+
+    def maybe_activate_view(self, step: int) -> None:
+        """Incremental activation + PnP of the newly added view (host event)."""
+        cfg = self.cfg
+        cam = cfg.camera
+        if not cam.incremental or self.n_active >= self.n_train:
+            return
+        if step == 0 or step % cam.incremental_step != 0:
+            return
+        new_idx = self.n_active  # next train view
+        cur = self.current_pose_host()
+        Ks, obj_matches, scene_matches = _np(self.Ks), _np(self.obj_matches), _np(self.scene_matches)
+        depth_range = (self.data.near, self.data.far)
+        rstate = self._render_state(step)
+        pnp_mod.LAST_QUALITY = None  # refreshed by solve_pnp below
+        if cfg.pnp.use_identical:
+            new_pose = cur[new_idx - 1]
+        elif cfg.pnp.use_pnp and cfg.pnp.anchor == "scene":
+            # scene-gauge anchors: depth rendered by the scene branch at the
+            # previous view's match pixels (avoids the probe-scale ambiguity)
+            new_pose = pnp_mod.pnp_from_scene_depth(
+                self.scene_params, cfg.scene_model, scene_matches[new_idx], Ks[new_idx],
+                cur[new_idx - 1], depth_range=depth_range, **rstate)
+        elif cfg.pnp.use_pnp and cfg.pnp.anchor == "object_scaled":
+            # probe anchors with one median scene/probe depth-ratio rescale
+            new_pose = pnp_mod.pnp_from_matches_scalefixed(
+                self.obj_params, cfg.object_model, obj_matches[new_idx], Ks[new_idx],
+                cur[new_idx - 1], inverse_y=self.data.inverse_y, near=self.data.near,
+                far=self.data.far, scene_params=self.scene_params, scene_cfg=cfg.scene_model, **rstate)
+        elif cfg.pnp.use_pnp:
+            new_pose = pnp_mod.pnp_from_matches(
+                self.obj_params, cfg.object_model, obj_matches[new_idx], Ks[new_idx],
+                cur[new_idx - 1], inverse_y=self.data.inverse_y, near=self.data.near,
+                far=self.data.far, extra_packs=[scene_matches[new_idx]])
+        else:
+            # no-PnP protocols seed from poses_pnp = noise o GT
+            new_pose = _np(self.poses_pnp[new_idx])
+        q = pnp_mod.LAST_QUALITY
+        if q is not None:
+            qtag = (f"pnp med_reproj {q['med_reproj_px']:.1f}px n {q['n_pts']}"
+                    f"{' FALLBACK' if q.get('fallback') else ''}")
+        elif cfg.pnp.use_identical:
+            qtag = "seed (prev view)"
+        elif cfg.pnp.use_pnp:
+            qtag = "pnp (no-ransac)"
+        else:
+            qtag = "seed (gt+noise)" if cam.noise else "seed (gt)"
+        # pre-warmup/rescue: the anchor-scale-true start for the match refinement below
+        pnp_pose0 = np.asarray(new_pose).copy()
+        self._log_activation_error(step, new_idx, cur, new_pose, qtag)
+
+        gate = cam.activation_warmup_gate_px
+        photo_ratio = cam.activation_warmup_photo_ratio
+        holdout_gate = cam.activation_warmup_holdout_px
+
+        def photo_score(pose, idx):
+            return evaluator.photometric_pose_score(
+                self.scene_params, cfg.scene_model, pose, self.Ks[idx], self.images[idx],
+                depth_range, **rstate)
+
+        def warmup(pose, **kw):
+            return _np(evaluator.test_time_pose_optim(
+                self.scene_params, cfg.scene_model, pose, self.Ks[new_idx], self.images[new_idx],
+                depth_range, n_iters=cam.activation_pose_warmup, lr=cam.activation_warmup_lr,
+                rand_rays=min(1024, self.H * self.W),
+                center_anchor=cam.activation_warmup_center_anchor, **rstate, **kw))
+
+        # warmup gate: a PnP pose that already reprojects tightly is better
+        # than anything a blurry early-BARF render can align
+        do_warmup = cam.activation_pose_warmup > 0
+        if do_warmup and gate > 0 and q is not None and not q.get("fallback", False) \
+                and q["med_reproj_px"] <= gate:
+            skip_msg = f"PnP med reproj {q['med_reproj_px']:.1f}px <= gate {gate:g}px"
+            do_warmup = False
+            hold = q.get("holdout_reproj_px", 0.0)
+            if holdout_gate > 0 and hold > holdout_gate:
+                # geometric second opinion: the solve fits its own anchors
+                # but does not generalize across a holdout split -> degenerate
+                do_warmup = True
+                print(f"[activate {step}] view {new_idx}: holdout gate re-arms warmup "
+                      f"(xval reproj {hold:.1f}px > {holdout_gate:g}px)")
+            elif holdout_gate > 0:
+                skip_msg += f", holdout {hold:.1f}px <= {holdout_gate:g}px"
+            if not do_warmup and photo_ratio > 0:
+                # photometric second opinion: a degenerate PnP solve reprojects
+                # tightly but renders wrong -- compare the new view's fixed-ray
+                # MSE against the previous, already-trained view as the scale
+                # for "consistent with the scene"
+                s_new = photo_score(new_pose, new_idx)
+                s_ref = photo_score(cur[new_idx - 1], new_idx - 1)
+                if s_new > photo_ratio * max(s_ref, 1e-8):
+                    do_warmup = True
+                    print(f"[activate {step}] view {new_idx}: photo gate re-arms warmup "
+                          f"(mse {s_new:.4f} > {photo_ratio:g}x ref {s_ref:.4f})")
+                else:
+                    skip_msg += f", photo mse {s_new:.4f} <= {photo_ratio:g}x ref {s_ref:.4f}"
+            if not do_warmup:
+                print(f"[activate {step}] view {new_idx}: warmup skipped ({skip_msg})")
+        if do_warmup:
+            # photometric warmup: align the new view against the current
+            # scene before the joint loss sees it (cuts the PnP t-injection)
+            warm_pose = warmup(new_pose, rot_only=cam.activation_warmup_rot_only)
+            if photo_ratio > 0 or holdout_gate > 0:
+                # guarded: only accept the warmup if it scores better on the
+                # same fixed rays (the early-BARF render can be too blurry to
+                # align against, degrading good PnP poses)
+                s_pnp = photo_score(new_pose, new_idx)
+                s_warm = photo_score(warm_pose, new_idx)
+                accept = s_warm <= s_pnp
+                why = f"mse pnp {s_pnp:.4f} -> warm {s_warm:.4f}"
+                mg = cam.activation_warmup_match_guard
+                if accept and mg > 0 and q is not None and "world_pts" in q:
+                    # match-anchor guard: the photometric score can prefer a
+                    # corrupted pose; the activation's own PnP anchors are the
+                    # co-adaptation-free referee
+                    med_warm = pnp_mod.reproj_for_pose(q, warm_pose)
+                    lim = max(mg * max(q["med_reproj_px"], 0.5), cam.match_guard_px_floor)
+                    if med_warm > lim:
+                        accept = False
+                        why += (f"; match guard REJECTS: warm reproj {med_warm:.1f}px > {lim:.1f}px "
+                                f"(pnp {q['med_reproj_px']:.1f}px)")
+                    else:
+                        why += f", warm reproj {med_warm:.1f}px <= {lim:.1f}px"
+                if accept:
+                    new_pose = warm_pose
+                print(f"[activate {step}] view {new_idx}: warmup "
+                      f"{'accepted' if accept else 'REJECTED'} ({why})")
+            else:
+                new_pose = warm_pose
+            self._log_activation_error(step, new_idx, cur, new_pose, "warmup")
+        rescue_ratio = cam.activation_rescue_ratio
+        if rescue_ratio > 0:
+            # catastrophic-PnP rescue: a degenerate RANSAC solve can land far
+            # outside the warmup's basin -- if the settled pose still renders
+            # much worse than the previous trained view, restart from that
+            # view's pose
+            s_final = photo_score(new_pose, new_idx)
+            s_ref = photo_score(cur[new_idx - 1], new_idx - 1)
+            if s_final > rescue_ratio * max(s_ref, 1e-8):
+                prev_pose = np.asarray(cur[new_idx - 1])
+                cands = [(s_final, new_pose, "kept"),
+                         (photo_score(prev_pose, new_idx), prev_pose, "prev")]
+                if cam.activation_pose_warmup > 0:
+                    # full-SE3 warmup: consecutive views differ in both R and
+                    # t, so the rot-only constraint does not apply here
+                    warm_prev = warmup(prev_pose)
+                    cands.append((photo_score(warm_prev, new_idx), warm_prev, "warm-prev"))
+                s_best, new_pose, tag = min(cands, key=lambda c: c[0])
+                print(f"[activate {step}] view {new_idx}: rescue tournament (mse {s_final:.4f} > "
+                      f"{rescue_ratio:g}x ref {s_ref:.4f}) -> {tag} (mse {s_best:.4f})")
+                if tag != "kept":
+                    self._log_activation_error(step, new_idx, cur, new_pose, f"rescue:{tag}")
+        mr_gate = cam.activation_match_refine_px
+        if mr_gate > 0 and cfg.pnp.use_pnp and not cfg.pnp.use_identical:
+            # Scoped to the PnP-activation regime: no-PnP protocols seed from
+            # noise-composed GT and must not be silently snapped to match
+            # geometry. LM over the new view's 6-dof pose on its own match
+            # packs against the trusted views
+            # (pose_init/ba.refine_view_matches); accepted only when the
+            # converged median residual is below the gate.
+            poses_now = np.asarray(cur).copy()
+            poses_now[new_idx] = new_pose
+            obs_act = self._ba_observations(new_idx + 1)
+            # rescue-only trigger: a settled pose already consistent with the
+            # packs is left alone. At weak conditioning several poses fit the
+            # packs equally well, so "refining" a consistent pose can hop into
+            # a wrong-but-consistent basin; refinement is for poses that are
+            # measurably inconsistent (residuals in the tens of px).
+            med_settled = ba_mod.view_match_med_px(poses_now, Ks, obs_act, new_idx)
+            if med_settled <= mr_gate:
+                print(f"[activate {step}] view {new_idx}: match refine skipped (settled pose "
+                      f"consistent, med {med_settled:.2f}px <= {mr_gate:g}px)")
+                obs_act = []  # fall through without refining
+            # start order matters (strict-improvement tie-break in ba.py): the
+            # raw PnP pose first -- its anchors pin the translation scale along
+            # the narrow-baseline near-null direction where several basins
+            # converge to ~equal match cost
+            refined, mr = ba_mod.refine_view_matches(
+                poses_now, Ks, obs_act, new_idx,
+                starts=[("pnp", pnp_pose0), ("settled", new_pose),
+                        ("prev", np.asarray(cur[new_idx - 1]))])
+            if mr["applied"] and mr["med_px"] <= mr_gate:
+                moved = float(np.abs(refined - new_pose).max())
+                new_pose = refined
+                print(f"[activate {step}] view {new_idx}: match refine accepted (start {mr['start']}, "
+                      f"med {mr['med_px']:.2f}px <= {mr_gate:g}px, max delta {moved:.4f})")
+                self._log_activation_error(step, new_idx, cur, new_pose, "match-refine")
+            elif mr["applied"]:
+                print(f"[activate {step}] view {new_idx}: match refine declined "
+                      f"(med {mr['med_px']:.2f}px > {mr_gate:g}px)")
+        poses_pnp = _np(self.poses_pnp).copy()
+        poses_pnp[new_idx] = new_pose
+        self._set_poses(poses_pnp)
+        self.n_active += 1
+        # the settled pose may sit far from the init-time camera set; keep the
+        # plastic-phase chord K sound for it (see update_plastic_chord_k)
+        self.update_plastic_chord_k()
+
+    def _log_activation_error(self, step, new_idx, cur, new_pose, tag) -> None:
+        """Print the activated view's relative pose error against GT
+        (gauge-free): the solved (new o prev^-1) against GT's, which isolates
+        this activation's error from global gauge drift. Host-only."""
+        def rel(a, b):  # a o b^{-1}
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            R = a[:, :3] @ b[:, :3].T
+            return R, a[:, 3] - R @ b[:, 3]
+
+        gt = _np(self.poses_gt)
+        R_s, t_s = rel(new_pose, cur[new_idx - 1])
+        R_g, t_g = rel(gt[new_idx], gt[new_idx - 1])
+        fro = np.linalg.norm(R_s - R_g)
+        dR = np.degrees(2.0 * np.arcsin(np.clip(fro / (2.0 * np.sqrt(2.0)), 0.0, 1.0)))
+        dt = float(np.linalg.norm(t_s - t_g)) * 100.0
+        print(f"[activate {step}] view {new_idx} ({tag}): rel-pose error R {dR:.2f}deg t {dt:.2f}")
+
+    def fit(self, num_steps: int, log_every: int = 0, callback=None) -> list:
+        """Host loop: `num_steps` steps with the host events before each, in
+        the reference's order. With `log_every`, the metrics of every
+        `log_every`-th step are brought to the host, checked for a non-finite
+        loss, appended to the history (which is returned) and passed to
+        `callback`. There is no `superstep`: the reference's K-step `lax.scan`
+        programs amortise a dispatch cost that eager PyTorch does not have in
+        that form."""
+        ot, cam = self.cfg.object_train, self.cfg.camera
+        rereg_at = (int(cam.reregister_at_ratio * self.cfg.scene_model.max_iter)
+                    if cam.reregister_at_ratio is not None else -1)
+        end_step = self.global_step + num_steps
+        while self.global_step < end_step:
             step = self.global_step
+            if not self._probe_checked and 0 < ot.N_iters <= step:
+                # one-shot, set before the raise: a caller that catches the
+                # error can resume without raising again at each step
+                self._probe_checked = True
+                self.check_probe_health()
+            self.maybe_activate_view(step)
             self.maybe_pg_scale(step)
+            if step == rereg_at and step > 0:
+                self.reregister_poses()
+            if step > 0 and step in self._ba_steps():
+                self.polish_poses_ba()
             if (self.cfg.object_model.use_maskcache and step > 0
                     and step <= ot.N_iters + ot.maskcache_update_every
                     and step % ot.maskcache_update_every == 0):
                 self.refresh_maskcache()
-            out.append(self.step())
-        return out
+            metrics = self.step()
+            if log_every and self.global_step % log_every == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                if not np.isfinite(host.get("loss_total", 0.0)):
+                    raise FloatingPointError(f"non-finite loss at step {self.global_step}: {host}")
+                host["step"] = self.global_step
+                host["n_active"] = self.n_active
+                self._metrics_hist.append(host)
+                if callback is not None:
+                    callback(host)
+        return self._metrics_hist
 
 
 def _leafify(tree):

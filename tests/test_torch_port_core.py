@@ -443,5 +443,7 @@ def test_port_imports_no_jax():
     loaded = set(out.stdout.split()[1:])
     for name in ("ops._build", "ops.layout", "ops.grid", "ops.maskcache", "ops.fused_mlp", "models.deform",
                  "models.object_sdf", "losses.object", "losses.projection", "train.trainer", "train.optim",
-                 "train.batching", "convert", "profile_step", "config.config", "data.synthetic"):
+                 "train.batching", "convert", "profile_step", "config.config", "data.synthetic",
+                 "ops.fused_composite", "core.align", "pose_init.pnp", "pose_init.ba", "pose_init.relpose",
+                 "eval.evaluator"):
         assert f"poseprobe_tpu_torch.{name}" in loaded, name

@@ -12,7 +12,11 @@ order (and dW/db with f32 atomics), so a value near a bf16 rounding boundary
 may land one bf16 ulp (2^-8 relative) away, and such flips propagate through
 the layers. Layout kernels: copies, bit-identical. Trilinear kernels: float32
 with sums in another order (the backward adds with atomics): 1e-5 of the
-twin's max |value| + 1e-6.
+twin's max |value| + 1e-6. Composite kernels: float32, the transmittance by a
+warp scan instead of a cumprod: outputs 1e-5 abs, gradients 1e-4 of the plain
+version's largest + 1e-6; rays with a sample whose transmittance lies within
+1e-4 (relative) of the early-termination threshold 1e-3 are left out, since
+the gate is a step and the two products round differently.
 """
 import os
 
@@ -21,8 +25,8 @@ import pytest
 import torch
 
 from poseprobe_tpu_torch.models import scene_nerf
-from poseprobe_tpu_torch.ops import fused_mlp, grid as grid_ops, layout, pe
-from poseprobe_tpu_torch.train.trainer import build_scene_trainer, build_trainer
+from poseprobe_tpu_torch.ops import compositing, fused_composite, fused_mlp, grid as grid_ops, layout, pe
+from poseprobe_tpu_torch.train.trainer import JointTrainer, _bench_workload, build_scene_trainer, build_trainer
 
 torch.set_num_threads(1)
 
@@ -287,3 +291,130 @@ def test_early_step_runs_through_the_kernels():
     m = tr.step()
     assert all(np.isfinite(v.item()) for v in m.values()), m
     assert tuple(b - a for a, b in zip(before, counts())) == (1, 1, 3, 3, 1, 1, 0)
+
+
+# ---------------------------------------------------------------- fused alpha-composite
+
+
+def _composite_case(N, S, inv_s, dist, seed):
+    """Rays walking into a surface, with grazing rays, rays that start inside
+    (alpha = 1), masked samples and wholly masked rays; cotangents of the four outputs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=g, device="cuda")  # noqa: E731
+    cos = -rand(N, S) * (rand(N, 1) > 0.1)
+    sdf = rand(N, 1) * 0.6 - 0.1 + torch.cumsum(cos * dist, dim=1) + (rand(N, S) - 0.5) * 0.2 * dist
+    mask = rand(N, S) > 0.15
+    mask[: N // 16] = False
+    mask[N // 16: N // 8, S // 2:] = False
+    step = (torch.arange(S, device="cuda", dtype=torch.float32) * dist + rand(N, 1) * dist).contiguous()
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    args = (sdf.contiguous(), cos.contiguous(), mask, rand(N, S, 3), step, torch.tensor([inv_s, dist], device="cuda"))
+    return args, (randn(N, S), randn(N), randn(N, 3), randn(N))
+
+
+def _away_from_gate(args, rel=1e-4):
+    sdf, cos, mask, _, _, scalars = args
+    alpha = torch.where(mask, compositing.neus_alpha_from_sdf(
+        torch.ones(1, device="cuda"), scalars[1], sdf, cos[..., None], 1.0 / scalars[0]), 0.0)
+    om = torch.clamp(1.0 - alpha.double(), 1e-10, 1.0)
+    T = torch.cumprod(torch.cat([torch.ones_like(om[:, :1]), om[:, :-1]], dim=1), dim=1)
+    return ~((T / 1e-3 - 1.0).abs() < rel).any(dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inv_s", [20.0, 2000.0])
+@pytest.mark.parametrize("N,S", [(1024, 76), (1024, 113), (1000, 7), (3, 33), (37, 1000), (1, 1)])
+def test_composite_kernels_match_plain_version(N, S, inv_s):
+    _need_card()
+    args, cts = _composite_case(N, S, inv_s, 0.0125, seed=N + S)
+    before = (fused_composite.fwd_launches, fused_composite.bwd_launches)
+    outs = fused_composite.composite_fwd(*args)
+    grads = fused_composite.composite_bwd(*args, *cts)
+    torch.cuda.synchronize()
+    assert (fused_composite.fwd_launches, fused_composite.bwd_launches) == (before[0] + 1, before[1] + 1)
+    refs = fused_composite.fused_alpha_composite_plain(*args[:5], args[5][0], args[5][1])
+    grefs = fused_composite.composite_bwd_plain(*args, *cts)
+    keep = _away_from_gate(args)
+    assert int((~keep).sum()) <= 3
+    for o, r in zip(outs, refs):
+        assert torch.isfinite(o).all() and (o[keep] - r[keep]).abs().max() <= 1e-5
+    for o, r in zip(grads[:4], grefs[:4]):
+        assert torch.isfinite(o).all()
+        assert (o[keep] - r[keep]).abs().max() <= 1e-4 * r[keep].abs().max() + 1e-6
+    if bool(keep.all()):
+        # the scalar gradients are sums over every sample, of either sign
+        assert torch.isfinite(grads[4]).all()
+        assert (grads[4] - grefs[4]).abs().max() <= 1e-4 * grefs[4].abs().max() + 1e-6 * N * S
+
+
+@pytest.mark.cuda
+def test_fused_composite_autograd_runs_the_backward_kernel():
+    """`fused_alpha_composite` on CUDA tensors: forward and backward kernels
+    (one launch each), gradients to sdf, cos_term, rgb, step and a tensor
+    `inv_s` equal to autograd of the plain version; missing cotangents are zeros."""
+    _need_card()
+    args, cts = _composite_case(512, 40, 64.0, 0.0125, seed=9)
+    sdf, cos, mask, rgb, step, scalars = args
+    keep = _away_from_gate(args)
+    results = []
+    for fn in (fused_composite.fused_alpha_composite, fused_composite.fused_alpha_composite_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (sdf, cos, rgb, step)]
+        inv_s = torch.tensor(64.0, device="cuda", requires_grad=True)
+        before = (fused_composite.fwd_launches, fused_composite.bwd_launches)
+        out = fn(leaves[0], leaves[1], mask, leaves[2], leaves[3], inv_s, 0.0125)
+        # only two of the four outputs reach the loss
+        loss = (out[2][keep] * cts[2][keep]).sum() + (out[1][keep] * cts[1][keep]).sum()
+        # `step` reaches neither output: zeros from the kernel, None from the plain version's autograd
+        grads = torch.autograd.grad(loss, leaves + [inv_s], allow_unused=True)
+        results.append([torch.zeros_like(p) if g is None else g for p, g in zip(leaves + [inv_s], grads)])
+        counted = (fused_composite.fwd_launches - before[0], fused_composite.bwd_launches - before[1])
+        assert counted == ((1, 1) if fn is fused_composite.fused_alpha_composite else (0, 0))
+    for a, b in zip(results[0][:4], results[1][:4]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-6
+    # d_inv_s = sum(d_sdf * sdf + d_cos * cos) / inv_s, terms of either sign: held to
+    # 5e-5 of the summed magnitudes of its terms, not of the cancelled result
+    d_sdf, d_cos = results[1][0], results[1][1]
+    terms = float(((d_sdf * sdf).abs() + (d_cos * cos).abs()).sum()) / 64.0
+    assert abs(float(results[0][4]) - float(results[1][4])) <= 5e-5 * terms + 1e-7
+
+
+@pytest.mark.cuda
+def test_composite_wrapper_raises_on_what_the_kernel_does_not_take():
+    _need_card()
+    args, cts = _composite_case(8, 5, 20.0, 0.0125, seed=0)
+    sdf, cos, mask, rgb, step, scalars = args
+    with pytest.raises(ValueError, match="cos_term"):
+        fused_composite.composite_fwd(sdf, cos.double(), mask, rgb, step, scalars)
+    with pytest.raises(ValueError, match="scalars"):
+        fused_composite.composite_fwd(sdf, cos, mask, rgb, step, scalars.cpu())
+    with pytest.raises(ValueError, match="ct_w"):
+        fused_composite.composite_bwd(*args, cts[0][:, :4].contiguous(), *cts[1:])
+    big = torch.zeros((1, fused_composite.MAX_SAMPLES + 1), device="cuda")
+    with pytest.raises(ValueError, match="outside"):
+        fused_composite.composite_fwd(big, big, big > 0, big[..., None].expand(-1, -1, 3).contiguous(), big, scalars)
+    empty = fused_composite.composite_fwd(*(t[:0].contiguous() for t in args[:5]), scalars)
+    assert [tuple(t.shape) for t in empty] == [(0, 5), (0,), (0, 3), (0,)]
+
+
+@pytest.mark.cuda
+def test_early_step_with_the_fused_composite_runs_through_its_kernels():
+    """With `use_pallas_composite=True` every early step launches the
+    composite forward and backward once, and its loss equals the unfused
+    step's on the same draws (1e-5 relative)."""
+    _need_card()
+    import dataclasses
+    cfg, data = _bench_workload(True, "bfloat16")
+    fused_cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(cfg.object_model, use_pallas_composite=True))
+    tr = JointTrainer(fused_cfg, data, device="cuda")
+    tr.global_step = 1
+    flags = tr.phase_flags(1)
+    draws = tr.sample_draws(flags)
+    with torch.no_grad():
+        tr.cfg = cfg
+        plain, _ = tr.joint_loss(tr.obj_params, tr.scene_params, tr.pose_params, 1, flags, draws)
+        tr.cfg = fused_cfg
+    before = (fused_composite.fwd_launches, fused_composite.bwd_launches)
+    m = tr.step(draws)
+    assert all(np.isfinite(v.item()) for v in m.values()), m
+    assert abs(m["loss_total"].item() - plain.item()) <= 1e-5 * abs(plain.item())
+    assert (fused_composite.fwd_launches - before[0], fused_composite.bwd_launches - before[1]) == (1, 1)

@@ -115,7 +115,7 @@ def test_cube_init_maskout_and_param_tree():
     assert np.array_equal(np.asarray(jm), tm.numpy()) and (tm == 1.0).sum() > 0
 
 
-@pytest.mark.parametrize("over", [dict(grid_type="tensorf"), dict(use_pallas_composite=True)])
+@pytest.mark.parametrize("over", [dict(grid_type="tensorf")])
 def test_unported_object_options_raise(over):
     _, tp, _, _ = _object_state()
     o, d, v = _rays(4)
