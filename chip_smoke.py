@@ -21,7 +21,8 @@ PyTorch version on the card:
 Beside each kernel's time stands the time of the one PyTorch call that
 computes the same function, where there is one (a copy for the layout
 kernels, `F.grid_sample` and its backward for the trilinear ones): timed and
-checked here, used nowhere in the port.
+checked here, used nowhere in the port. `materialize` is also timed beside the
+copy designs it was chosen against, and the trunk backward's two kernels apart.
 Then it drives the training step at bench scale (bf16 trunk): a few
 coarse-phase and mid-phase steps of the scene-only trainer
 (`build_scene_trainer`) and a few early-phase steps of the joint trainer
@@ -67,6 +68,8 @@ REL_TOL = 2e-2                         # max abs error allowed, as a fraction of
 TRI_REL_TOL, TRI_ABS_TOL = 1e-5, 1e-6  # trilinear kernels: float32 sums in another order (atomics)
 DEVICE = "cuda"
 SMALL = False                          # bench scale
+# the copy designs `materialize_kernel` was chosen against (`materialize_design` in csrc/layout.cu)
+MATERIALIZE_DESIGNS = {"unroll4_4_blocks_per_sm": 1, "unroll4_8_blocks_per_sm": 2, "bulk_ring_2_blocks_per_sm": 3}
 
 
 def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -183,7 +186,28 @@ def check_trunk_kernels(fused_mlp, scene_nerf, pe) -> list:
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
             print(f"{name} N={n}: kernel {ms[kind]:.3f} ms, twin {ms[kind + '_plain']:.3f} ms, "
                   f"bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
+        records["trunk_bwd"].update(_trunk_bwd_parts(fused_mlp, enc, g_feat, g_dens, feat, acts, w, b, L, skip))
     return [records["trunk_fwd"], records["trunk_bwd"]]
+
+
+def _trunk_bwd_parts(fused_mlp, enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int) -> dict:
+    """The backward's two kernels timed apart on buffers made once. Also
+    prints, on its own line, the floor of this two-kernel design: g written
+    once by the chain and read once by dW, the stored activations read by
+    both, the other inputs and outputs once, at the HBM rate."""
+    n = enc.shape[0]
+    out = fused_mlp._bwd_outputs(n, w, b, L)
+    launch = lambda kernels: fused_mlp._bwd_launch(  # noqa: E731
+        enc, g_feat, g_dens, feat, acts, w, out, L, skip, kernels)
+    parts = {"chain_ms": _time_ms(lambda: launch(("chain",))), "dw_ms": _time_ms(lambda: launch(("dw",)))}
+    nb = lambda t: float(t.numel() * t.element_size())  # noqa: E731
+    denc, dw, db, gsave = out
+    floor_bytes = (2 * nb(acts) + 2 * nb(gsave) + nb(g_feat) + nb(feat) + nb(g_dens) + 2 * nb(enc) + nb(w)
+                   + nb(dw) + nb(db))
+    print(f"trunk_bwd N={n} by kernel: chain {parts['chain_ms']:.3f} ms, dW {parts['dw_ms']:.3f} ms")
+    print(f"trunk_bwd N={n}: floor of the two-kernel design {floor_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms "
+          f"({floor_bytes / 1e9:.3f} GB at {PEAK_HBM_BYTES / 1e12:.2f} TB/s)")
+    return parts
 
 
 def check_layout_kernels(layout, V: int, C: int, P: int) -> list:
@@ -200,13 +224,25 @@ def check_layout_kernels(layout, V: int, C: int, P: int) -> list:
         x = rand(v, p)
         if not torch.equal(layout.transpose_slice(x, c), layout.transpose_slice_plain(x, c)):
             raise AssertionError(f"transpose_slice differs from its twin at {(v, p, c)}")
-    for shape in ((V, P), (100_003, C), (7,), (3, 5, 7, 11)):
-        x = rand(*shape)
+    # a copy block moves 16 B x 256 threads = 4096 B: sizes around it and around 4 blocks (a bulk-ring
+    # chunk); the designs `materialize` was chosen against are held to the twin at the same shapes
+    lib, stream = layout._lib(), torch.cuda.current_stream().cuda_stream
+    for shape, dtype in (((V, P), torch.float32), ((100_003, C), torch.float32), ((7,), torch.float32),
+                         ((3, 5, 7, 11), torch.float32), ((4096 - 16,), torch.uint8), ((4096 + 16,), torch.uint8),
+                         ((16384 - 16,), torch.uint8), ((16384,), torch.uint8), ((16384 + 16,), torch.uint8),
+                         ((16385,), torch.uint8)):
+        x = (rand(*shape) * 50).to(dtype)
         y = layout.materialize(x)
         if not (torch.equal(y, x) and y.data_ptr() != x.data_ptr()):
             raise AssertionError(f"materialize differs from its twin at {shape}")
+        for design in MATERIALIZE_DESIGNS.values():
+            y = torch.zeros_like(x)
+            layout._check(lib, lib.materialize_design(x.data_ptr(), y.data_ptr(), x.numel() * x.element_size(),
+                                                      design, stream), "materialize_design")
+            if not torch.equal(y, x):
+                raise AssertionError(f"materialize design {design} differs from the twin at {shape}")
     torch.cuda.synchronize()
-    print("layout kernels: bit-identical to their twins at every shape")
+    print("layout kernels and the materialize designs: bit-identical to their twins at every shape")
     # the early step: [C, V] -> [V, C] rows for the gather, [V, P] -> [C, V] after the scatter
     # four inputs in turn (184 to 226 MB in all, against 50 MB of L2), so the times are device-memory times
     xts, xss = [rand(C, V) for _ in range(4)], [rand(V, P) for _ in range(4)]
@@ -220,10 +256,43 @@ def check_layout_kernels(layout, V: int, C: int, P: int) -> list:
                 timed(lambda x: layout.transpose_slice(x, C), xss),
                 timed(lambda x: layout.transpose_slice_plain(x, C), xss),
                 0.0, nb(xss[0]) + V * C * 4.0, timed(lambda x: x[:, :C].t().contiguous(), xss)),
-        _record("materialize", src, "poseprobe_tpu/ops/pallas/layout.py:73", 0.0,
-                timed(layout.materialize, xss), timed(layout.materialize_plain, xss),
-                0.0, nb(xss[0]) * 2, timed(lambda x: x.clone(), xss)),
+        _materialize_record(layout, src, xss, timed, nb(xss[0]) * 2),
     ]
+
+
+def _materialize_record(layout, src: str, xs, timed, nbytes: float) -> dict:
+    """The copy kernel against one PyTorch copy on the same rotating inputs,
+    each reading the mean of two taken in turns (forward, then backward
+    order): `ms` the wrapper (allocation, checks, launch) against `x.clone()`
+    (`library_ms`); `kernel_ms` its bare launches into preallocated outputs
+    against `y.copy_(x)` into the same outputs (`copy_ms`), and beside them
+    the bare launches of the other designs (`designs_ms`)."""
+    lib, stream = layout._lib(), torch.cuda.current_stream().cuda_stream
+    pairs = list(zip(xs, [torch.empty_like(x) for x in xs]))
+    half = int(nbytes // 2)
+    bare = lambda pair: layout._check(lib, lib.materialize(  # noqa: E731
+        pair[0].data_ptr(), pair[1].data_ptr(), half, stream), "materialize")
+    design = lambda d: lambda pair: layout._check(lib, lib.materialize_design(  # noqa: E731
+        pair[0].data_ptr(), pair[1].data_ptr(), half, d, stream), "materialize_design")
+    runs = [("wrapper", layout.materialize, xs), ("clone", lambda x: x.clone(), xs),
+            ("kernel", bare, pairs), ("copy_", lambda pair: pair[1].copy_(pair[0]), pairs)]
+    runs += [(name, design(d), pairs) for name, d in MATERIALIZE_DESIGNS.items()]
+    t = {name: [] for name, _, _ in runs}
+    for order in (runs, runs[::-1]):
+        for name, fn, ins in order:
+            t[name].append(timed(fn, ins))
+    print("materialize in turns (forward, backward order): "
+          + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in t.items()) + " ms")
+    mean = {k: sum(v) / 2 for k, v in t.items()}
+    rec = _record("materialize", src, "poseprobe_tpu/ops/pallas/layout.py:73", 0.0, mean["wrapper"],
+                  timed(layout.materialize_plain, xs), 0.0, nbytes, mean["clone"])
+    rec.update(kernel_ms=mean["kernel"], copy_ms=mean["copy_"],
+               designs_ms={name: mean[name] for name in MATERIALIZE_DESIGNS})
+    print(f"materialize bare launches {rec['kernel_ms']:.4f} ms against y.copy_(x) {rec['copy_ms']:.4f} ms; designs "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rec["designs_ms"].items()) + " ms")
+    if rec["ms"] > rec["library_ms"]:
+        print(f"note: materialize {rec['ms']:.4f} ms is slower than x.clone() {rec['library_ms']:.4f} ms in this call")
+    return rec
 
 
 def _trilinear_case(grid_ops, G: int, C: int, N: int, lo, hi, seed: int):

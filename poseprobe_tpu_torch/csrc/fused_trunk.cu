@@ -1,4 +1,4 @@
-// Fused scene-NeRF trunk for Hopper (sm_90a): forward, backward chain, split-K dW.
+// Fused scene-NeRF trunk for Hopper (sm_90a): forward, backward chain, dW.
 //
 // Replaces the Pallas TPU kernels `_trunk_fwd_call` and `_trunk_bwd_call` of
 // poseprobe_tpu/ops/pallas/fused_mlp.py. The Python side
@@ -11,14 +11,21 @@
 // Biases are consecutive [NO_l] slices of `b`. Activations and the stored
 // hidden layers are [N, 256]; enc and denc are [N, 64].
 //
-// Products are warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) with
-// fragments loaded by ldmatrix from shared memory. Shared-memory rows are
-// padded by 16 bytes so the eight 16-byte rows an ldmatrix reads fall in
-// different banks.
+// The forward uses warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate)
+// with fragments loaded by ldmatrix from shared memory whose rows are padded
+// by 16 bytes, so the eight 16-byte rows an ldmatrix reads fall in different
+// banks. The backward's two kernels use warpgroup wgmma fed through mbarrier
+// rings: the chain by TMA (weights) and bulk copies (mask tiles; g in
+// registers), dW by TMA (both operands in shared memory); each has its own
+// section below.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <array>
 
 namespace {
 
@@ -27,26 +34,15 @@ typedef __nv_bfloat16 bf16;
 constexpr int H = 256;         // trunk width
 constexpr int KIN = 64;        // padded encoding width
 constexpr int DENS_PAD = 128;  // extra columns of the last layer (density in the first)
-constexpr int T = 128;         // points per block (forward and chain)
+constexpr int T = 128;         // points per block (forward)
 constexpr int NB = 128;        // output columns per pass
 constexpr int KC = 32;         // reduction rows per streamed weight chunk
 constexpr int THREADS = 256;   // 8 warps: 4 along the points x 2 along the columns
 constexpr int LDA = H + 8;     // shared row stride (elements) of [T][H] tiles
 constexpr int LDE = KIN + 8;   // of [T][KIN] tiles
 constexpr int LDW = NB + 8;    // of the forward weight chunk [KC][NB]
-constexpr int LDWT = KC + 8;   // of the backward weight chunk [NB][KC]
-
-// split-K dW kernel
-constexpr int DW_TK = 64;      // dW tile rows (input features)
-constexpr int DW_TN = 128;     // dW tile columns (output features)
-constexpr int DW_TC = 32;      // points per streamed chunk
-constexpr int LDAS = DW_TK + 8;
-constexpr int LDBS = DW_TN + 8;
 
 constexpr size_t FWD_SMEM = sizeof(bf16) * (2 * T * LDA + T * LDE + 2 * KC * LDW);
-constexpr size_t CHAIN_SMEM = sizeof(bf16) * (2 * T * LDA + T * LDE + 2 * NB * LDWT)
-                              + sizeof(float) * (T + H);
-constexpr size_t DW_SMEM = sizeof(bf16) * 2 * DW_TC * (LDAS + LDBS);
 
 __host__ __device__ __forceinline__ int layer_in(int l, int skip) {
   return l == 0 ? KIN : (l == skip ? H + KIN : H);
@@ -108,28 +104,15 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p, int ld, int lane) {
   ldsm_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
 }
-// A fragment of the transpose of a row-major [k][m] tile; p -> element (k0, m0)
-__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* p, int ld, int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  ldsm_x4_t(a, p + (r + (j >> 1) * 8) * ld + (j & 1) * 8);
-}
 // B fragments of two adjacent n-tiles from a row-major [k][n] tile; p -> (k0, n0).
 // b[0], b[1] feed n-tile n0, b[2], b[3] n-tile n0 + 8.
 __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* p, int ld, int lane) {
   const int j = lane >> 3, r = lane & 7;
   ldsm_x4_t(b, p + (r + (j & 1) * 8) * ld + (j >> 1) * 8);
 }
-// the same from a row-major [n][k] tile; p -> (n0, k0)
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* p, int ld, int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  ldsm_x4(b, p + (r + (j >> 1) * 8) * ld + (j & 1) * 8);
-}
 
 __device__ __forceinline__ void store_bf16x2(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // forward weight chunk: rows k0..k0+KC-1, columns n0..n0+NB-1 of w_l [K][NO] -> [KC][LDW]
@@ -140,18 +123,6 @@ __device__ __forceinline__ void load_w_kn(bf16* dst, const bf16* wl, int NO, int
     const int i = tid + it * THREADS;
     const int r = i / (NB / 8), c = (i % (NB / 8)) * 8;
     cp_async16(dst + r * LDW + c, wl + (long)(k0 + r) * NO + n0 + c, 16);
-  }
-}
-
-// backward weight chunk: rows n0..n0+nrows-1 (input features of the layer),
-// columns c0..c0+KC-1 (its output features) of w_l [K][NO] -> [NB][LDWT]
-__device__ __forceinline__ void load_w_nk(bf16* dst, const bf16* wl, int NO, int n0, int nrows,
-                                          int c0, int tid) {
-#pragma unroll
-  for (int it = 0; it < NB * KC / 8 / THREADS; ++it) {
-    const int i = tid + it * THREADS;
-    const int r = i / (KC / 8), c = (i % (KC / 8)) * 8;
-    if (r < nrows) cp_async16(dst + r * LDWT + c, wl + (long)(n0 + r) * NO + c0 + c, 16);
   }
 }
 
@@ -291,312 +262,739 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------ backward chain
 
-// One block per T points. g (the current layer's pre-activation gradient,
-// bf16) stays in shared memory; each layer computes gx = g W^T over the layer's
-// 256 feature outputs in 128-column passes and masks it with the stored
-// activation into the next g. Every layer's g is saved for the dW kernel.
-__global__ void __launch_bounds__(THREADS, 1)
-    trunk_bwd_chain_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ gfeat,
-                           const bf16* __restrict__ gdens, const bf16* __restrict__ feat,
-                           const bf16* __restrict__ acts, const bf16* __restrict__ w,
-                           bf16* __restrict__ denc, bf16* __restrict__ gsave,
-                           float* __restrict__ dw, float* __restrict__ db, int n, int L,
-                           int skip) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* g0 = reinterpret_cast<bf16*>(smem_raw);
-  bf16* g1 = g0 + T * LDA;
-  bf16* encg = g1 + T * LDA;             // bf16 enc gradient of the skip layer
-  bf16* wbuf = encg + T * LDE;           // [2][NB][LDWT]
-  float* gd_s = reinterpret_cast<float*>(wbuf + 2 * NB * LDWT);  // [T] density gradient
-  float* db_s = gd_s + T;                // [H] this block's db column sums
+// wgmma (sm_90a) primitives. A comes from registers: the f32 accumulator of
+// one product, masked and packed to bf16, is exactly the A fragment of the
+// next layer's k16 slices, so g never returns to shared memory between layers.
+// B is a K-major weight tile in shared memory with the 128-byte swizzle.
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, q = lane & 3;
-  const long row0 = (long)blockIdx.x * T;
-  const int rows = n - row0 < T ? (int)(n - row0) : T;
-  const long w_last = w_offset(L - 1, L, skip);
-  const int NO_last = H + DENS_PAD;
-
-  // last layer: g = [feat > 0 ? gfeat : 0 | gdens]; padded rows are zero
-  bf16* gcur = g0;
-  bf16* gnxt = g1;
-  bf16* gs_last = gsave + ((long)(L - 1) * n + row0) * H;
-  for (int i = tid; i < T * (H / 8); i += THREADS) {
-    const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-    uint4 out = make_uint4(0, 0, 0, 0);
-    if (r < rows) {
-      const uint4 gv = *reinterpret_cast<const uint4*>(gfeat + (row0 + r) * H + c);
-      const uint4 fv = *reinterpret_cast<const uint4*>(feat + (row0 + r) * H + c);
-      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
-      const bf16* fp = reinterpret_cast<const bf16*>(&fv);
-      bf16* op = reinterpret_cast<bf16*>(&out);
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_operand(float (&d)[R]) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        op[e] = __bfloat162float(fp[e]) > 0.f ? gp[e] : __float2bfloat16(0.f);
-      *reinterpret_cast<uint4*>(gs_last + (long)r * H + c) = out;
-    }
-    *reinterpret_cast<uint4*>(gcur + r * LDA + c) = out;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t* a, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t* a, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// mbarrier, bulk copies, named barriers, register reallocation
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// waits for the completion of the phase of parity `parity`; traps (a launch
+// error, not a hang) after 2^24 polls, which only a fault in the pipeline's
+// bookkeeping can cause. One asm statement: a C++ loop around the poll would
+// be a divergent path between wgmma batches, and ptxas then serializes them.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1, P2;\n.reg .u32 tries;\nmov.u32 tries, 0;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "add.u32 tries, tries, 1;\n"
+      "setp.gt.u32 P2, tries, 16777216;\n"
+      "@P2 trap;\n"
+      "bra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// global -> shared, completion counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// a [64 rows x 64 bf16] box of a 2-D tensor map at (x, y), 128-byte swizzle
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+// shared -> global, tracked by this thread's bulk groups
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void named_bar(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Backward chain: one block per CH_T = 128 points, two consumer warpgroups of
+// 64 points each and one producer warpgroup (warp 8 streams weight tiles,
+// warp 9 the per-layer mask tiles; warps 10-11 leave at once).
+//
+// Layer l (from L-1 down) computes gx = g_l W_l^T over its K_l inputs in
+// passes of 128 columns (64 for the encoding part of the skip layer and for
+// layer 0) with wgmma m64nNk16, A = g_l in registers (64 x 32-bit per thread
+// for the 256-wide reduction), B = weight tiles [N inputs x 64 outputs] from a
+// RING-stage ring that the producer fills by TMA straight from the packed
+// weights (64 x 64 boxes of two tensor maps, 128-byte swizzle: a row of the
+// packed [K, NO] layer is K-major for this product). The epilogue adds the density column's term (last layer), masks with the stored
+// activation a_{l-1} (bulk-copied a layer ahead into a padded mask slot: 528-
+// byte rows, so the accumulator-layout reads have no bank conflicts), sums db
+// in f32 by shuffles and shared atomics (one global atomic per column per
+// warpgroup), and writes the bf16 g over the mask it has just read. The
+// accumulator layout of one product is the A-fragment layout of the next, so
+// each thread reloads its next A from the positions it wrote; one bulk store
+// per row sends the slot to gsave, and the slot goes back to the producer once
+// the stores have read it, during the next layer's first products.
+// Rows past n are zero in g from the start and stay zero.
+constexpr int CH_T = 128;
+constexpr int CH_THREADS = 384;
+constexpr int RING = 4;
+constexpr int TILE_K = 64;                        // layer outputs per weight tile (128-byte rows)
+constexpr int TILE_BYTES = 128 * TILE_K * 2;      // largest tile: 128 inputs x 64 outputs
+constexpr int LDM = H + 8;                        // mask slot row stride (elements)
+constexpr int SLOT_ELEMS = 64 * LDM;
+constexpr size_t CHAIN_SMEM = 1024 + RING * TILE_BYTES + 4 * SLOT_ELEMS * sizeof(bf16) +
+                              16 * 256 * sizeof(uint32_t) + (H + KIN + 4 * H) * sizeof(float) +
+                              (2 * RING + 8) * sizeof(uint64_t);
+
+struct ChainMaps {
+  CUtensorMap hidden;  // layers 0..L-2 as one [rows, 256] matrix: W_l[k] is row w_offset(l) / 256 + k
+  CUtensorMap last;    // layer L-1, [K, 256 + DENS_PAD]
+};
+
+__device__ __forceinline__ uint32_t mask_pack(float v0, float v1, uint32_t m) {
+  const float2 mf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&m));
+  __nv_bfloat162 o = __floats2bfloat162_rn(mf.x > 0.f ? v0 : 0.f, mf.y > 0.f ? v1 : 0.f);
+  return *reinterpret_cast<uint32_t*>(&o);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float v0, float v1) {
+  __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<uint32_t*>(&o);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+// Adds the column sums of a pass to s: v[2j + e] is this thread's partial (its
+// two rows) of column c0 + 8j + 2q + e. A reduce-scatter over the warp's 8
+// row groups: each exchange halves what a lane holds (16 + 8 + 4 shuffles,
+// against 3 per column for a full butterfly), and each lane ends with the
+// sums of 4 distinct columns, added with 4 shared atomics.
+__device__ __forceinline__ void colsum32_add(float* s, int c0, float (&v)[32], int lane) {
+  const bool b2 = lane & 4, b3 = lane & 8, b4 = lane & 16;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float keep = b2 ? v[i + 16] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, b2 ? v[i] : v[i + 16], 4);
   }
-  if (tid < T) gd_s[tid] = tid < rows ? __bfloat162float(gdens[row0 + tid]) : 0.f;
-  __syncthreads();
-
-  // db of the last layer (its g is exact in bf16) and the density column of its dW
-  {
-    float s = 0.f;
-    for (int r = 0; r < T; ++r) s += __bfloat162float(gcur[r * LDA + tid]);
-    atomicAdd(db + (long)(L - 1) * H + tid, s);
-    float sd = gd_s[lane] + gd_s[lane + 32] + gd_s[lane + 64] + gd_s[lane + 96];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sd += __shfl_xor_sync(0xffffffffu, sd, o);
-    if (tid == 0) atomicAdd(db + (long)(L - 1) * H + H, sd);
-    const int K_last = layer_in(L - 1, skip);
-    for (int k = tid; k < K_last; k += THREADS) {
-      float sw = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float x = k < H ? __bfloat162float(acts[((long)(L - 2) * n + row0 + r) * H + k])
-                              : __bfloat162float(enc[(row0 + r) * KIN + (k - H)]);
-        sw += x * gd_s[r];
-      }
-      atomicAdd(dw + w_last + (long)k * NO_last + H, sw);
-    }
+  for (int i = 0; i < 8; ++i) {
+    const float keep = b3 ? v[i + 8] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, b3 ? v[i] : v[i + 8], 8);
   }
-
-  for (int l = L - 1; l >= 0; --l) {
-    const int K = layer_in(l, skip), NO = layer_out(l, L);
-    const bf16* wl = w + w_offset(l, L, skip);
-    const bf16* a_prev = l > 0 ? acts + ((long)(l - 1) * n + row0) * H : nullptr;
-    for (int i = tid; i < H; i += THREADS) db_s[i] = 0.f;
-
-    for (int cb = 0; cb * NB < K; ++cb) {
-      const int ncols = min(NB, K - cb * NB);
-      const bool active = wn * 64 < ncols;
-      float acc[2][8][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < 4; ++i) {
+    const float keep = b4 ? v[i + 4] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, b4 ? v[i] : v[i + 4], 16);
+  }
+  const int base = (b2 ? 16 : 0) + (b3 ? 8 : 0) + (b4 ? 4 : 0);  // v[t] is column index base + t
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-      constexpr int nk = H / KC;
-      load_w_nk(wbuf, wl, NO, cb * NB, ncols, 0, tid);
-      cp_async_commit();
-      for (int c = 0; c < nk; ++c) {
-        if (c + 1 < nk) load_w_nk(wbuf + ((c + 1) & 1) * NB * LDWT, wl, NO, cb * NB, ncols, (c + 1) * KC, tid);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        const bf16* ws = wbuf + (c & 1) * NB * LDWT;
-        if (active) {
-#pragma unroll
-          for (int kk = 0; kk < KC; kk += 16) {
-            uint32_t a[2][4];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              load_a(a[mt], gcur + (wm * 32 + mt * 16) * LDA + c * KC + kk, LDA, lane);
-#pragma unroll
-            for (int np = 0; np < 4; ++np) {
-              uint32_t bb[4];
-              load_b_nk(bb, ws + (wn * 64 + np * 16) * LDWT + kk, LDWT, lane);
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                mma16816(acc[mt][2 * np], a[mt], bb[0], bb[1]);
-                mma16816(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
-              }
-            }
-          }
-        }
-        __syncthreads();
-      }
-
-      if (active) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int k = cb * NB + wn * 64 + nt * 8 + 2 * q;  // input feature of layer l
-          float wd0 = 0.f, wd1 = 0.f;  // the last layer's density column enters gx too
-          if (l == L - 1) {
-            wd0 = __bfloat162float(wl[(long)k * NO + H]);
-            wd1 = __bfloat162float(wl[(long)(k + 1) * NO + H]);
-          }
-          float cs0 = 0.f, cs1 = 0.f;
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              const int r = wm * 32 + mt * 16 + g + hr * 8;
-              float v0 = acc[mt][nt][2 * hr], v1 = acc[mt][nt][2 * hr + 1];
-              if (l == L - 1) {
-                v0 += gd_s[r] * wd0;
-                v1 += gd_s[r] * wd1;
-              }
-              if (l == 0) {
-                if (r < rows) {
-                  __nv_bfloat162 d = __floats2bfloat162_rn(v0, v1);
-                  if (skip > 0) {
-                    const float2 e = load_bf16x2(encg + r * LDE + k);
-                    const float2 df = __bfloat1622float2(d);
-                    d = __floats2bfloat162_rn(df.x + e.x, df.y + e.y);
-                  }
-                  *reinterpret_cast<__nv_bfloat162*>(denc + (row0 + r) * KIN + k) = d;
-                }
-              } else if (k >= H) {
-                store_bf16x2(encg + r * LDE + (k - H), v0, v1);
-              } else {
-                float2 m = make_float2(0.f, 0.f);
-                if (r < rows) m = load_bf16x2(a_prev + (long)r * H + k);
-                v0 = m.x > 0.f ? v0 : 0.f;
-                v1 = m.y > 0.f ? v1 : 0.f;
-                store_bf16x2(gnxt + r * LDA + k, v0, v1);
-                cs0 += v0;
-                cs1 += v1;
-              }
-            }
-          }
-          if (l > 0 && k < H) {
-#pragma unroll
-            for (int o = 4; o < 32; o <<= 1) {
-              cs0 += __shfl_xor_sync(0xffffffffu, cs0, o);
-              cs1 += __shfl_xor_sync(0xffffffffu, cs1, o);
-            }
-            if (g == 0) {
-              atomicAdd(db_s + k, cs0);
-              atomicAdd(db_s + k + 1, cs1);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (l > 0) {
-      for (int i = tid; i < H; i += THREADS) atomicAdd(db + (long)(l - 1) * H + i, db_s[i]);
-      bf16* gs = gsave + ((long)(l - 1) * n + row0) * H;
-      for (int i = tid; i < T * (H / 8); i += THREADS) {
-        const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-        if (r < rows)
-          *reinterpret_cast<uint4*>(gs + (long)r * H + c) =
-              *reinterpret_cast<const uint4*>(gnxt + r * LDA + c);
-      }
-      bf16* t = gcur;
-      gcur = gnxt;
-      gnxt = t;
-    }
-    __syncthreads();
+  for (int t = 0; t < 4; ++t) {
+    const int idx = base + t;
+    atomicAdd(s + c0 + 8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1), v[t]);
   }
 }
 
-// --------------------------------------------------------------- split-K dW
+struct ChainCtx {
+  uint32_t ring;         // shared address of the weight ring
+  uint64_t* full;
+  uint64_t* empty;
+  int lane, wq;          // lane, warp in the warpgroup
+};
 
-// Block (tile, split): dW_l[k0:k0+64, n0:n0+128] += sum over a slice of the
-// points of inp_l[p, k] * g_l[p, n], with inp_l the layer input (enc, a stored
-// activation, or both for the skip layer) and g_l from the chain kernel. The
-// feature part (n < 256) only; the chain kernel adds the density column.
-__global__ void __launch_bounds__(THREADS)
-    trunk_bwd_dw_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ acts,
-                        const bf16* __restrict__ gsave, float* __restrict__ dw, int n, int L,
-                        int skip, int rows_per_split) {
+// warp 0 of the warpgroup issued the bulk stores of a mask slot; once they
+// have read it, the slot goes back to the producer
+__device__ __forceinline__ void release_slot(uint64_t*& pending, const ChainCtx& cx) {
+  if (pending == nullptr) return;
+  if (cx.wq == 0) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncwarp();
+    if (cx.lane == 0) mbar_arrive(pending);
+  }
+  pending = nullptr;
+}
+
+// acc = g (64 rows, 256-deep, registers) x the next 4 ring tiles (N columns)
+template <int N>
+__device__ __forceinline__ void chain_mma(float (&acc)[N / 2], const uint32_t (&A)[64], int& t,
+                                          const ChainCtx& cx, uint64_t*& pending) {
+  fence_operand(acc);
+#pragma unroll
+  for (int kt = 0; kt < H / TILE_K; ++kt) {
+    const int s = t % RING;
+    mbar_wait(cx.full + s, (t / RING) & 1);
+    const uint32_t b = cx.ring + s * TILE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE_K / 16; ++kk) {
+      if constexpr (N == 128)
+        wgmma_m64n128_rs(acc, &A[16 * kt + 4 * kk], desc_sw128(b + 32 * kk), (kt | kk) != 0);
+      else
+        wgmma_m64n64_rs(acc, &A[16 * kt + 4 * kk], desc_sw128(b + 32 * kk), (kt | kk) != 0);
+    }
+    wgmma_commit();
+    if (kt > 0) {
+      wgmma_wait<1>();
+      mbar_arrive(cx.empty + (t - 1) % RING);
+    }
+    ++t;
+  }
+  wgmma_wait<0>();
+  mbar_arrive(cx.empty + (t - 1) % RING);
+  fence_operand(acc);
+  release_slot(pending, cx);  // the previous layer's stores ran during these products
+}
+
+__global__ void __launch_bounds__(CH_THREADS, 1)
+    trunk_bwd_chain_kernel(const bf16* __restrict__ gfeat, const bf16* __restrict__ gdens,
+                           const bf16* __restrict__ feat, const bf16* __restrict__ acts,
+                           const bf16* __restrict__ w, const __grid_constant__ ChainMaps maps,
+                           bf16* __restrict__ denc, bf16* __restrict__ gsave, float* __restrict__ db,
+                           int n, int L, int skip) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* as = reinterpret_cast<bf16*>(smem_raw);  // [2][DW_TC][LDAS]
-  bf16* bs = as + 2 * DW_TC * LDAS;              // [2][DW_TC][LDBS]
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  bf16* slots = reinterpret_cast<bf16*>(base + RING * TILE_BYTES);  // [wg][2][64][LDM]
+  uint32_t* genc_s = reinterpret_cast<uint32_t*>(slots + 4 * SLOT_ELEMS);  // [16][256]
+  float* wd_s = reinterpret_cast<float*>(genc_s + 16 * 256);           // [H + KIN]
+  float* db_s = wd_s + H + KIN;                                          // [wg][2][H]
+  uint64_t* full = reinterpret_cast<uint64_t*>(db_s + 4 * H);
+  uint64_t* empty = full + RING;
+  uint64_t* mfull = empty + RING;  // [wg * 2 + slot]
+  uint64_t* mempty = mfull + 4;
 
-  // locate this block's (layer, k0, n0)
-  int tile = blockIdx.x, l = 0;
-  for (; l < L; ++l) {
-    const int nt = (layer_in(l, skip) / DW_TK) * (H / DW_TN);
-    if (tile < nt) break;
-    tile -= nt;
-  }
-  const int k0 = (tile / (H / DW_TN)) * DW_TK, n0 = (tile % (H / DW_TN)) * DW_TN;
-  const int NO = layer_out(l, L);
-  float* dwl = dw + w_offset(l, L, skip);
-  const bf16* src;
-  int ld;
-  if (l == 0) {
-    src = enc + k0;
-    ld = KIN;
-  } else if (l == skip && k0 >= H) {
-    src = enc + (k0 - H);
-    ld = KIN;
-  } else {
-    src = acts + (long)(l - 1) * n * H + k0;
-    ld = H;
-  }
-  const bf16* gl = gsave + (long)l * n * H + n0;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wk = warp & 1, wn = warp >> 1;  // rows wk*32.., columns wn*32.. of the tile
-  const long p_begin = (long)blockIdx.y * rows_per_split;
-  const long p_end = p_begin + rows_per_split < n ? p_begin + rows_per_split : (long)n;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  auto load_chunk = [&](int buf, long p0) {
-    bf16* ad = as + buf * DW_TC * LDAS;
-    bf16* bd = bs + buf * DW_TC * LDBS;
-    // A: DW_TC points x 64 features = 256 pieces of 16 B
-    {
-      const int r = tid / (DW_TK / 8), c = (tid % (DW_TK / 8)) * 8;
-      const long p = p0 + r;
-      cp_async16(ad + r * LDAS + c, src + (p < p_end ? p : p_begin) * ld + c, p < p_end ? 16 : 0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long row0 = (long)blockIdx.x * CH_T;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);  // every consumer thread arrives: no divergent path among the products
     }
-    // B: DW_TC points x 128 outputs = 512 pieces
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int i = tid + it * THREADS;
-      const int r = i / (DW_TN / 8), c = (i % (DW_TN / 8)) * 8;
-      const long p = p0 + r;
-      cp_async16(bd + r * LDBS + c, gl + (p < p_end ? p : p_begin) * H + c, p < p_end ? 16 : 0);
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(mfull + i, 1);
+      mbar_init(mempty + i, 1);
     }
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int nchunks = p_end > p_begin ? (int)((p_end - p_begin + DW_TC - 1) / DW_TC) : 0;
-  if (nchunks > 0) load_chunk(0, p_begin);
-  cp_async_commit();
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) load_chunk((c + 1) & 1, p_begin + (long)(c + 1) * DW_TC);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* ad = as + (c & 1) * DW_TC * LDAS;
-    const bf16* bd = bs + (c & 1) * DW_TC * LDBS;
-#pragma unroll
-    for (int kk = 0; kk < DW_TC; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) load_a_t(a[mt], ad + kk * LDAS + wk * 32 + mt * 16, LDAS, lane);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bb[4];
-        load_b_kn(bb, bd + kk * LDBS + wn * 32 + np * 16, LDBS, lane);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma16816(acc[mt][2 * np], a[mt], bb[0], bb[1]);
-          mma16816(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producers
+    // 128 x 56 + 256 x 224 = 384 x 168, the registers the block was launched with;
+    // the mask producer spills at 40
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (warp == 8 && lane == 0) {
+      // weight tiles W_l[c0 .. c0 + rows, 64 kt .. 64 kt + 64] in the order the
+      // consumers take them; a 128-row tile is two 64-row boxes one under the other
+      int t = 0;
+      for (int l = L - 1; l >= 0; --l) {
+        const int K = layer_in(l, skip);
+        const CUtensorMap* map = l == L - 1 ? &maps.last : &maps.hidden;
+        const int row0 = l == L - 1 ? 0 : (int)(w_offset(l, L, skip) / H);
+        for (int c0 = 0; c0 < K;) {
+          const int rows = K - c0 >= 128 ? 128 : 64;
+          for (int kt = 0; kt < H / TILE_K; ++kt, ++t) {
+            const int s = t % RING;
+            mbar_wait(empty + s, ((t / RING) & 1) ^ 1);
+            mbar_expect_tx(full + s, rows * TILE_K * sizeof(bf16));
+            for (int h = 0; h < rows / 64; ++h)
+              tma_load_2d(ring + s * (TILE_BYTES / 2) + h * 64 * TILE_K, map, kt * TILE_K, row0 + c0 + 64 * h,
+                          full + s);
+          }
+          c0 += rows;
+        }
+      }
+    } else if (warp == 9) {
+      // mask tiles: load 0 gfeat, 1 feat, m >= 2 the activation a_{L-m} of layer L+1-m
+      for (int m = 0; m <= L; ++m) {
+        const int s = m & 1;
+        for (int wg = 0; wg < 2; ++wg) {
+          const long r0 = row0 + wg * 64;
+          const int rows = (int)max(0L, min(64L, (long)n - r0));
+          mbar_wait(mempty + wg * 2 + s, ((m >> 1) & 1) ^ 1);
+          if (lane == 0) mbar_expect_tx(mfull + wg * 2 + s, rows * H * sizeof(bf16));
+          __syncwarp();
+          const bf16* src = m == 0 ? gfeat : (m == 1 ? feat : acts + (long)(L - m) * n * H);
+          bf16* dst = slots + (wg * 2 + s) * SLOT_ELEMS;
+          for (int r = lane; r < rows; r += 32)
+            bulk_load(dst + r * LDM, src + (r0 + r) * H, H * sizeof(bf16), mfull + wg * 2 + s);
         }
       }
     }
-    __syncthreads();
+    return;
   }
-  if (nchunks == 0) return;
 
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int k = k0 + wk * 32 + mt * 16 + g;
-      const int col = n0 + wn * 32 + nt * 8 + 2 * q;
-      atomicAdd(dwl + (long)k * NO + col, acc[mt][nt][0]);
-      atomicAdd(dwl + (long)k * NO + col + 1, acc[mt][nt][1]);
-      atomicAdd(dwl + (long)(k + 8) * NO + col, acc[mt][nt][2]);
-      atomicAdd(dwl + (long)(k + 8) * NO + col + 1, acc[mt][nt][3]);
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  const int wg = warp >> 2, wq = warp & 3;
+  const int q = lane & 3;
+  const int r_lo = wq * 16 + (lane >> 2), r_hi = r_lo + 8;  // rows of this thread in the WG tile
+  const long wrow0 = row0 + wg * 64;
+  const int wg_rows = (int)max(0L, min(64L, (long)n - wrow0));
+  const bool v_lo = r_lo < wg_rows, v_hi = r_hi < wg_rows;
+  const ChainCtx cx{smem_u32(ring), full, empty, lane, wq};
+  const float gd_lo = v_lo ? __bfloat162float(gdens[wrow0 + r_lo]) : 0.f;
+  const float gd_hi = v_hi ? __bfloat162float(gdens[wrow0 + r_hi]) : 0.f;
+  {
+    const int K_last = layer_in(L - 1, skip);
+    const bf16* w_last = w + w_offset(L - 1, L, skip);
+    for (int k = tid; k < K_last; k += 256) wd_s[k] = __bfloat162float(w_last[(long)k * (H + DENS_PAD) + H]);
+    for (int i = tid; i < 4 * H; i += 256) db_s[i] = 0.f;
+  }
+  named_bar(3, 256);
+
+  float* db_w = db_s + wg * 2 * H;  // this warpgroup's column sums, by layer parity
+  const int wtid = tid & 127;
+  uint64_t* pending = nullptr;  // mask slot still read by its bulk stores
+  // the WG's mask slot is stored to gsave rows [wrow0, wrow0 + wg_rows); `release`
+  // goes back to the producer when the stores have read it (see release_slot)
+  auto store_slot = [&](const bf16* slot, bf16* dst, uint64_t* release) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_bar(1 + wg, 128);
+    if (wq == 0) {
+      for (int r = lane; r < wg_rows; r += 32) bulk_store(dst + (long)r * H, slot + r * LDM, H * sizeof(bf16));
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
+    pending = release;
+  };
+  // db of `layer` (the WG's column sums in db_w[layer & 1]) -> global
+  auto flush_db = [&](int layer) {
+    named_bar(1 + wg, 128);
+    float* s = db_w + (layer & 1) * H;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      atomicAdd(db + (long)layer * H + wtid + 128 * i, s[wtid + 128 * i]);
+      s[wtid + 128 * i] = 0.f;
+    }
+  };
+
+  uint32_t A[64];
+  // layer L-1: g = [feat > 0 ? gfeat : 0 | gdens] (bf16 exact), saved and summed
+  {
+    bf16* sg = slots + (wg * 2 + 0) * SLOT_ELEMS;
+    const bf16* sf = slots + (wg * 2 + 1) * SLOT_ELEMS;
+    mbar_wait(mfull + wg * 2 + 0, 0);
+    mbar_wait(mfull + wg * 2 + 1, 0);
+    float* dbl = db_w + ((L - 1) & 1) * H;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float cs[32];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        // columns 128 p + 8 j + 2 q: half h of k16 slice s, rows r_lo and r_hi
+        const int s = 8 * p + j / 2, h = j % 2, c = 128 * p + 8 * j + 2 * q;
+        uint32_t* plo = reinterpret_cast<uint32_t*>(sg + r_lo * LDM + c);
+        uint32_t* phi = reinterpret_cast<uint32_t*>(sg + r_hi * LDM + c);
+        const uint32_t glo = v_lo ? *plo : 0u, ghi = v_hi ? *phi : 0u;
+        const uint32_t flo = v_lo ? *reinterpret_cast<const uint32_t*>(sf + r_lo * LDM + c) : 0u;
+        const uint32_t fhi = v_hi ? *reinterpret_cast<const uint32_t*>(sf + r_hi * LDM + c) : 0u;
+        const float2 a = unpack_bf16(glo), b = unpack_bf16(ghi);
+        A[4 * s + 2 * h] = mask_pack(a.x, a.y, flo);
+        A[4 * s + 2 * h + 1] = mask_pack(b.x, b.y, fhi);
+        *plo = A[4 * s + 2 * h];
+        *phi = A[4 * s + 2 * h + 1];
+        const float2 ma = unpack_bf16(A[4 * s + 2 * h]), mb = unpack_bf16(A[4 * s + 2 * h + 1]);
+        cs[2 * j] = ma.x + mb.x;
+        cs[2 * j + 1] = ma.y + mb.y;
+      }
+      colsum32_add(dbl, 128 * p, cs, lane);
+    }
+    float sd = q == 0 ? gd_lo + gd_hi : 0.f;  // each row once
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) sd += __shfl_xor_sync(0xffffffffu, sd, o);
+    if (lane == 0) atomicAdd(db + (long)(L - 1) * H + H, sd);
+    store_slot(sg, gsave + ((long)(L - 1) * n + wrow0) * H, mempty + wg * 2 + 0);
+    release_slot(pending, cx);  // at once: this slot takes a_{L-2}, which layer L-1 needs
+    if (wq == 0 && lane == 0) mbar_arrive(mempty + wg * 2 + 1);  // feat was read before store_slot's barrier
+    flush_db(L - 1);
+  }
+
+  int t = 0, m = 2;
+  for (int l = L - 1; l >= 0; --l) {
+    const bool dens = l == L - 1;
+    if (l > 0) {
+      // passes over gx[:, 0:128] and gx[:, 128:256], masked by a_{l-1} into g_{l-1}
+      bf16* slot = slots + (wg * 2 + (m & 1)) * SLOT_ELEMS;
+      float* dbl = db_w + ((l - 1) & 1) * H;
+      float acc[64];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        chain_mma<128>(acc, A, t, cx, pending);
+        if (p == 0) mbar_wait(mfull + wg * 2 + (m & 1), (m >> 1) & 1);
+        float cs[32];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 128 * p + 8 * j + 2 * q;
+          float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+          if (dens) {
+            const float w0 = wd_s[c], w1 = wd_s[c + 1];
+            v0 += gd_lo * w0;
+            v1 += gd_lo * w1;
+            v2 += gd_hi * w0;
+            v3 += gd_hi * w1;
+          }
+          uint32_t* plo = reinterpret_cast<uint32_t*>(slot + r_lo * LDM + c);
+          uint32_t* phi = reinterpret_cast<uint32_t*>(slot + r_hi * LDM + c);
+          const float2 mlo = unpack_bf16(*plo), mhi = unpack_bf16(*phi);
+          v0 = mlo.x > 0.f ? v0 : 0.f;
+          v1 = mlo.y > 0.f ? v1 : 0.f;
+          v2 = mhi.x > 0.f ? v2 : 0.f;
+          v3 = mhi.y > 0.f ? v3 : 0.f;
+          // accumulator chunk j = 2s + h is half h of the next layer's k16 slice s: the
+          // same thread holds the same positions of g as A fragment and as accumulator
+          *plo = pack_bf16(v0, v1);
+          *phi = pack_bf16(v2, v3);
+          cs[2 * j] = v0 + v2;
+          cs[2 * j + 1] = v1 + v3;
+        }
+        colsum32_add(dbl, 128 * p, cs, lane);
+      }
+      if (layer_in(l, skip) > H) {
+        // the skip layer's encoding inputs: bf16 gx kept per thread for layer 0
+        float acc2[32];
+        chain_mma<64>(acc2, A, t, cx, pending);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v0 = acc2[4 * j], v1 = acc2[4 * j + 1], v2 = acc2[4 * j + 2], v3 = acc2[4 * j + 3];
+          if (dens) {
+            const int c = H + 8 * j + 2 * q;
+            const float w0 = wd_s[c], w1 = wd_s[c + 1];
+            v0 += gd_lo * w0;
+            v1 += gd_lo * w1;
+            v2 += gd_hi * w0;
+            v3 += gd_hi * w1;
+          }
+          genc_s[(2 * j) * 256 + tid] = pack_bf16(v0, v1);
+          genc_s[(2 * j + 1) * 256 + tid] = pack_bf16(v2, v3);
+        }
+      }
+      // the next A fragments: g as this thread just wrote it, k16 slice s, half h
+      // (columns 16 s + 8 h + 2 q), rows r_lo / r_hi
+#pragma unroll
+      for (int s = 0; s < 16; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 16 * s + 8 * h + 2 * q;
+          A[4 * s + 2 * h] = *reinterpret_cast<const uint32_t*>(slot + r_lo * LDM + c);
+          A[4 * s + 2 * h + 1] = *reinterpret_cast<const uint32_t*>(slot + r_hi * LDM + c);
+        }
+      store_slot(slot, gsave + ((long)(l - 1) * n + wrow0) * H, mempty + wg * 2 + (m & 1));
+      ++m;
+      flush_db(l - 1);
+    } else {
+      // layer 0: denc = bf16(gx) + bf16(the skip layer's encoding part), in bf16
+      float acc2[32];
+      chain_mma<64>(acc2, A, t, cx, pending);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * q;
+        const float2 elo = unpack_bf16(genc_s[(2 * j) * 256 + tid]);
+        const float2 ehi = unpack_bf16(genc_s[(2 * j + 1) * 256 + tid]);
+        const float2 dlo = unpack_bf16(pack_bf16(acc2[4 * j], acc2[4 * j + 1]));
+        const float2 dhi = unpack_bf16(pack_bf16(acc2[4 * j + 2], acc2[4 * j + 3]));
+        if (v_lo)
+          *reinterpret_cast<uint32_t*>(denc + (wrow0 + r_lo) * KIN + c) = pack_bf16(dlo.x + elo.x, dlo.y + elo.y);
+        if (v_hi)
+          *reinterpret_cast<uint32_t*>(denc + (wrow0 + r_hi) * KIN + c) = pack_bf16(dhi.x + ehi.x, dhi.y + ehi.y);
+      }
+    }
+  }
+  if (wq == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");  // gsave written
+}
+
+// ------------------------------------------------------------------------ dW
+
+// dW_l = inp_l^T g_l over the points, inp_l the layer input (enc, a stored
+// activation, or both for the skip layer) and g_l the chain kernel's gsave.
+// A block takes one tile of dW_l, 128 input features (64 for layer 0 and the
+// skip layer's encoding part) x all 256 outputs, over one slice of the points:
+// two consumer warpgroups each run wgmma m64n256k16 with both operands in
+// shared memory, MN-major (the point index is the reduction and neither
+// operand has it contiguous: the descriptors' transpose bits), f32
+// accumulators in registers (128 per thread). A producer warp feeds a
+// DW_STAGES-stage ring of 64-point chunks by TMA (inp [64 points x 64
+// features] per warpgroup, g [64 points x 256] as four 64-column boxes, all
+// with the 128-byte swizzle; points past n arrive as zeros). Tiles run
+// fastest in the grid, so the blocks of one point slice read g_l together
+// and L2 serves the second read. The last layer's tiles also take its density
+// column, dW[k, 256] = sum_p inp[p, k] g_dens[p], from the same A chunks.
+// Each block adds its partial tile with f32 atomics.
+constexpr int DW_PTS = 64;
+constexpr int DW_STAGES = 4;
+constexpr int DW_THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
+constexpr int DW_A_BYTES = DW_PTS * 64 * 2;
+constexpr int DW_B_BYTES = DW_PTS * H * 2;
+constexpr int DW_STAGE = 2 * DW_A_BYTES + DW_B_BYTES + 1024;  // + g_dens chunk, 1024-aligned stages
+constexpr size_t DW_SMEM = 1024 + DW_STAGES * DW_STAGE + 2 * DW_STAGES * sizeof(uint64_t);
+
+__device__ __forceinline__ void wgmma_m64n256_ss_t(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// MN-major operand with the 128-byte swizzle: 64-element atoms along M/N
+// `lbo` bytes apart, 8-deep groups along the reduction 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t saddr, uint32_t lbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, int z, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+      "[%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, int x, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(smem_u32(bar))
+      : "memory");
+}
+
+struct DwMaps {
+  CUtensorMap acts;  // [L-1][n][256] bf16, box 64 x 64 points, 128-byte swizzle
+  CUtensorMap enc;   // [1][n][64]
+  CUtensorMap g;     // [L][n][256] (gsave)
+  CUtensorMap gd;    // [n] g_dens, box 64 points, no swizzle
+};
+
+// (layer, first input feature, rows) of tile `tile` of the dW grid
+__host__ __device__ __forceinline__ int dw_tiles_of(int K) { return (K + 127) / 128; }
+__device__ __forceinline__ void dw_tile(int tile, int L, int skip, int& l, int& k0, int& rows) {
+  for (l = 0; l < L; ++l) {
+    const int K = layer_in(l, skip), nt = dw_tiles_of(K);
+    if (tile < nt) break;
+    tile -= nt;
+  }
+  k0 = tile * 128;
+  rows = min(128, layer_in(l, skip) - k0);
+}
+
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    trunk_bwd_dw_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, int n, int L, int skip,
+                        int rows_per_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + DW_STAGES * DW_STAGE);
+  uint64_t* empty = full + DW_STAGES;
+
+  int l, k0, rows;
+  dw_tile(blockIdx.x, L, skip, l, k0, rows);
+  const int NO = layer_out(l, L);
+  const bool dens = l == L - 1;
+  const long p_begin = (long)blockIdx.y * rows_per_split;
+  const long p_end = min((long)n, p_begin + rows_per_split);
+  const int nch = p_end > p_begin ? (int)((p_end - p_begin + DW_PTS - 1) / DW_PTS) : 0;
+  if (nch == 0) return;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer
+    if (lane == 0) {
+      const uint32_t bytes = (rows / 64) * DW_A_BYTES + DW_B_BYTES + (dens ? DW_PTS * 2 : 0);
+      for (int c = 0; c < nch; ++c) {
+        const int s = c % DW_STAGES;
+        unsigned char* st = base + s * DW_STAGE;
+        const int p = (int)(p_begin + (long)c * DW_PTS);
+        mbar_wait(empty + s, ((c / DW_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, bytes);
+        for (int h = 0; h < rows / 64; ++h) {
+          const int k = k0 + 64 * h;
+          if (l == 0 || k >= H)
+            tma_load(st + h * DW_A_BYTES, &maps.enc, k - (l == 0 ? 0 : H), p, 0, full + s);
+          else
+            tma_load(st + h * DW_A_BYTES, &maps.acts, k, p, l - 1, full + s);
+        }
+        for (int i = 0; i < H / 64; ++i)
+          tma_load(st + 2 * DW_A_BYTES + i * (DW_B_BYTES / 4), &maps.g, 64 * i, p, l, full + s);
+        if (dens) tma_load_1d(st + 2 * DW_A_BYTES + DW_B_BYTES, &maps.gd, p, full + s);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns input features k0 + 64 wg .. A warpgroup past
+  // a 64-row tile's end multiplies whatever its A slot holds and drops the
+  // result: no branch around the products, which ptxas would serialize.
+  const int wg = warp >> 2, wq = warp & 3, wtid = tid & 127;
+  float acc[128];
+  float sd = 0.f;  // density column: feature wtid % 64, points (wtid / 64) * 32.. of each chunk
+  auto products = [&](int c) {
+    const int s = c % DW_STAGES;
+    mbar_wait(full + s, (c / DW_STAGES) & 1);
+    unsigned char* st = base + s * DW_STAGE;
+    const uint32_t a = smem_u32(st + wg * DW_A_BYTES), b = smem_u32(st + 2 * DW_A_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW_PTS / 16; ++kk)
+      wgmma_m64n256_ss_t(acc, desc_mn_sw128(a + 2048 * kk, DW_A_BYTES),
+                         desc_mn_sw128(b + 2048 * kk, DW_B_BYTES / 4), (c | kk) != 0);
+    wgmma_commit();
+  };
+  auto density = [&](int c) {
+    const unsigned char* st = base + (c % DW_STAGES) * DW_STAGE;
+    const bf16* as = reinterpret_cast<const bf16*>(st + wg * DW_A_BYTES);
+    const bf16* gds = reinterpret_cast<const bf16*>(st + 2 * DW_A_BYTES + DW_B_BYTES);
+    const int k = wtid % 64;
+#pragma unroll 8
+    for (int i = 0; i < DW_PTS / 2; ++i) {
+      const int p = (wtid / 64) * (DW_PTS / 2) + i;
+      sd += __bfloat162float(as[p * 64 + (((k >> 3) ^ (p & 7)) << 3) + (k & 7)]) * __bfloat162float(gds[p]);
+    }
+  };
+  fence_operand(acc);
+  products(0);
+  for (int c = 1; c < nch; ++c) {
+    products(c);
+    wgmma_wait<1>();  // chunk c - 1 is read
+    if (dens) density(c - 1);
+    mbar_arrive(empty + (c - 1) % DW_STAGES);
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if (dens) density(nch - 1);
+  mbar_arrive(empty + (nch - 1) % DW_STAGES);
+  if (64 * wg >= rows) return;
+
+  float* dwl = dw + w_offset(l, L, skip) + (long)(k0 + 64 * wg) * NO;
+  const int r_lo = wq * 16 + (lane >> 2), q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = 8 * j + 2 * q;
+    atomicAdd(dwl + (long)r_lo * NO + col, acc[4 * j]);
+    atomicAdd(dwl + (long)r_lo * NO + col + 1, acc[4 * j + 1]);
+    atomicAdd(dwl + (long)(r_lo + 8) * NO + col, acc[4 * j + 2]);
+    atomicAdd(dwl + (long)(r_lo + 8) * NO + col + 1, acc[4 * j + 3]);
+  }
+  if (dens) atomicAdd(dwl + (long)(wtid % 64) * NO + H, sd);
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point: nothing links libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)fn : nullptr;
+}
+
+// bf16 tensor of `rank` dims (innermost first, packed), boxes of `box`; out of range reads as zeros
+int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rank, std::array<cuuint64_t, 3> dims,
+             std::array<cuuint32_t, 3> box, bool swizzle) {
+  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims.data(),
+                            strides, box.data(), elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -621,32 +1019,57 @@ int trunk_fwd(const void* enc, const void* w, const void* b, void* feat, void* d
   return cudaGetLastError();
 }
 
-int trunk_bwd_chain(const void* enc, const void* gfeat, const void* gdens, const void* feat,
-                    const void* acts, const void* w, void* denc, void* gsave, void* dw, void* db,
-                    int n, int L, int skip, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_chain_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)CHAIN_SMEM);
-  if (err != cudaSuccess) return err;
-  const int blocks = (n + T - 1) / T;
-  trunk_bwd_chain_kernel<<<blocks, THREADS, CHAIN_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)enc, (const bf16*)gfeat, (const bf16*)gdens, (const bf16*)feat,
-      (const bf16*)acts, (const bf16*)w, (bf16*)denc, (bf16*)gsave, (float*)dw, (float*)db, n, L,
-      skip);
-  return cudaGetLastError();
+int trunk_bwd_chain(const void* gfeat, const void* gdens, const void* feat, const void* acts,
+                    const void* w, void* denc, void* gsave, void* db, int n, int L, int skip, void* stream) {
+  static EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  ChainMaps maps;
+  const long last = w_offset(L - 1, L, skip);
+  int err = make_map(encode, &maps.hidden, w, 2, {(cuuint64_t)H, (cuuint64_t)(last / H), 1}, {TILE_K, 64, 1}, true);
+  if (!err)
+    err = make_map(encode, &maps.last, (const bf16*)w + last, 2,
+                   {(cuuint64_t)(H + DENS_PAD), (cuuint64_t)layer_in(L - 1, skip), 1}, {TILE_K, 64, 1}, true);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)CHAIN_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + CH_T - 1) / CH_T;
+  trunk_bwd_chain_kernel<<<blocks, CH_THREADS, CHAIN_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)gfeat, (const bf16*)gdens, (const bf16*)feat, (const bf16*)acts, (const bf16*)w, maps,
+      (bf16*)denc, (bf16*)gsave, (float*)db, n, L, skip);
+  return (int)cudaGetLastError();
 }
 
-int trunk_bwd_dw(const void* enc, const void* acts, const void* gsave, void* dw, int n, int L,
-                 int skip, int splits, void* stream) {
+int trunk_bwd_dw(const void* enc, const void* acts, const void* gsave, const void* gdens, void* dw, int n,
+                 int L, int skip, void* stream) {
+  static EncodeTiled encode = encode_tiled();
+  static int sms = 0;
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  DwMaps maps;
+  const cuuint64_t N = (cuuint64_t)n;
+  int err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)(L - 1)}, {64, DW_PTS, 1}, true);
+  if (!err) err = make_map(encode, &maps.enc, enc, 3, {(cuuint64_t)KIN, N, 1}, {64, DW_PTS, 1}, true);
+  if (!err) err = make_map(encode, &maps.g, gsave, 3, {(cuuint64_t)H, N, (cuuint64_t)L}, {64, DW_PTS, 1}, true);
+  if (!err) err = make_map(encode, &maps.gd, gdens, 1, {N, 1, 1}, {DW_PTS, 1, 1}, false);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)DW_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // about two waves of one block per SM, every slice a whole number of chunks
   int tiles = 0;
-  for (int l = 0; l < L; ++l) tiles += (layer_in(l, skip) / DW_TK) * (H / DW_TN);
-  const long per = ((long)n + splits - 1) / splits;
-  const int rows_per_split = (int)((per + DW_TC - 1) / DW_TC * DW_TC);
-  dim3 grid(tiles, splits);
-  trunk_bwd_dw_kernel<<<grid, THREADS, DW_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)enc, (const bf16*)acts, (const bf16*)gsave, (float*)dw, n, L, skip,
-      rows_per_split);
-  return cudaGetLastError();
+  for (int l = 0; l < L; ++l) tiles += dw_tiles_of(layer_in(l, skip));
+  const int chunks = (n + DW_PTS - 1) / DW_PTS;
+  const int splits = std::max(1, std::min(2 * sms / tiles, chunks));
+  const int rows_per_split = (chunks + splits - 1) / splits * DW_PTS;
+  trunk_bwd_dw_kernel<<<dim3(tiles, splits), DW_THREADS, DW_SMEM, (cudaStream_t)stream>>>(
+      maps, (float*)dw, n, L, skip, rows_per_split);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

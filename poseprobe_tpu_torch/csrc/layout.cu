@@ -82,15 +82,112 @@ __global__ void tiled_transpose_kernel(const float* __restrict__ in, float* __re
   }
 }
 
-// 16 bytes per thread where both pointers allow it, bytes for the rest
-__global__ void materialize_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                                   long long nbytes, long long nvec) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int4* in4 = (const int4*)in;
-  int4* out4 = (int4*)out;
-  for (long long i = t; i < nvec; i += stride) out4[i] = in4[i];
-  for (long long i = nvec * 16 + t; i < nbytes; i += stride) out[i] = in[i];
+// One 16-byte vector per thread in a single pass over a grid of nbytes / 4 KB
+// blocks (no grid-stride loop), loaded and stored with the streaming hints
+// (evict-first: nothing is read again); the last nbytes % 16 bytes one by one.
+// The designs below are what it was chosen against (`materialize_design`).
+constexpr int COPY_THREADS = 256;
+
+__global__ void __launch_bounds__(COPY_THREADS)
+    materialize_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                       long long nbytes, long long nvec) {
+  const long long i = (long long)blockIdx.x * COPY_THREADS + threadIdx.x;
+  if (i < nvec) __stcs((int4*)out + i, __ldcs((const int4*)in + i));
+  if (i < nbytes - nvec * 16) out[nvec * 16 + i] = in[nvec * 16 + i];
+}
+
+// ------------------------------------------------ copy designs, for comparison
+// Two other ways to keep bytes in flight, kept so that chip_smoke.py can time
+// them beside materialize_kernel on the same buffers; nothing in the port calls
+// them. The last nbytes % 16 bytes are copied by block 0 one by one.
+
+// Four independent 16-byte loads per thread before their four stores, in a
+// grid-stride loop over a grid sized to the SM count.
+constexpr int UNROLL = 4;
+
+__global__ void __launch_bounds__(COPY_THREADS)
+    copy_unrolled_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, long long nbytes,
+                         long long nvec) {
+  const int4* vin = (const int4*)in;
+  int4* vout = (int4*)out;
+  const long long stride = (long long)gridDim.x * COPY_THREADS * UNROLL;
+  for (long long i0 = (long long)blockIdx.x * COPY_THREADS * UNROLL + threadIdx.x; i0 < nvec; i0 += stride) {
+    int4 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (i0 + u * COPY_THREADS < nvec) v[u] = __ldcs(vin + i0 + u * COPY_THREADS);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (i0 + u * COPY_THREADS < nvec) __stcs(vout + i0 + u * COPY_THREADS, v[u]);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < nbytes - nvec * 16) out[nvec * 16 + threadIdx.x] = in[nvec * 16 + threadIdx.x];
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A ring of BULK_STAGES shared-memory chunks per block: one thread bulk-copies
+// chunks global -> shared (completion on an mbarrier per stage) BULK_STAGES - 1
+// ahead, and each full chunk shared -> global; a stage is loaded again once the
+// store out of it has read it (cp.async.bulk.wait_group.read).
+constexpr int BULK_STAGES = 4;
+constexpr int BULK_CHUNK = 16384;
+constexpr int BULK_SMEM = BULK_STAGES * BULK_CHUNK;
+
+__global__ void __launch_bounds__(32)
+    copy_bulk_ring_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, long long nbytes,
+                          long long nvec) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ uint64_t full[BULK_STAGES];
+  const long long body = nvec * 16;
+  if (threadIdx.x == 0) {
+    const long long nch = (body + BULK_CHUNK - 1) / BULK_CHUNK;
+    const long long mine = nch > blockIdx.x ? (nch - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+    for (int s = 0; s < BULK_STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(full + s)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    auto span = [&](long long k, long long& off) {
+      off = (blockIdx.x + k * gridDim.x) * (long long)BULK_CHUNK;
+      return (uint32_t)min((long long)BULK_CHUNK, body - off);
+    };
+    auto load = [&](long long k) {
+      long long off;
+      const uint32_t bytes = span(k, off);
+      const int s = (int)(k % BULK_STAGES);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(full + s)),
+                   "r"(bytes)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+              smem_u32(ring + s * BULK_CHUNK)),
+          "l"(in + off), "r"(bytes), "r"(smem_u32(full + s))
+          : "memory");
+    };
+    for (long long k = 0; k < min((long long)BULK_STAGES - 1, mine); ++k) load(k);
+    for (long long k = 0; k < mine; ++k) {
+      const int s = (int)(k % BULK_STAGES);
+      const uint32_t parity = (uint32_t)((k / BULK_STAGES) & 1);
+      asm volatile(
+          "{\n.reg .pred P1;\nWAIT:\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+          "@!P1 bra WAIT;\n}\n" ::"r"(smem_u32(full + s)),
+          "r"(parity)
+          : "memory");
+      long long off;
+      const uint32_t bytes = span(k, off);
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(out + off),
+                   "r"(smem_u32(ring + s * BULK_CHUNK)), "r"(bytes)
+                   : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      if (k + BULK_STAGES - 1 < mine) {
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");  // the store of chunk k - 1
+        load(k + BULK_STAGES - 1);
+      }
+    }
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+  if (blockIdx.x == 0 && threadIdx.x < nbytes - body) out[body + threadIdx.x] = in[body + threadIdx.x];
 }
 
 int tiled(const float* in, float* out, long long A, long long B, long long ld, cudaStream_t stream) {
@@ -140,11 +237,39 @@ int transpose_slice(const void* x, void* out, long long V, long long P, long lon
 int materialize(const void* x, void* out, long long nbytes, void* stream) {
   if (nbytes == 0) return 0;
   const long long nvec = nbytes / 16;
-  long long blocks = (nvec + 255) / 256;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  materialize_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+  const long long blocks = nvec > 0 ? (nvec + COPY_THREADS - 1) / COPY_THREADS : 1;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  materialize_kernel<<<(unsigned)blocks, COPY_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)x, (uint8_t*)out, nbytes, nvec);
+  return (int)cudaGetLastError();
+}
+
+// The same copy by one of the designs materialize_kernel was chosen against:
+// design 1 and 2 copy_unrolled_kernel over 4 and 8 blocks of 256 per SM,
+// design 3 copy_bulk_ring_kernel over 2 blocks per SM.
+int materialize_design(const void* x, void* out, long long nbytes, int design, void* stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (nbytes == 0) return 0;
+  const uint8_t* in = (const uint8_t*)x;
+  uint8_t* o = (uint8_t*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long nvec = nbytes / 16;
+  if (design == 1 || design == 2) {
+    copy_unrolled_kernel<<<sms * 4 * design, COPY_THREADS, 0, st>>>(in, o, nbytes, nvec);
+  } else if (design == 3) {
+    cudaError_t err = cudaFuncSetAttribute(copy_bulk_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           BULK_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    copy_bulk_ring_kernel<<<sms * 2, 32, BULK_SMEM, st>>>(in, o, nbytes, nvec);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

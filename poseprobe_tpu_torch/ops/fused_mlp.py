@@ -25,27 +25,37 @@ What bounds it on an H100: the 491,264 MACs per point make the forward
 989 TFLOP/s bf16 peak, while the stored activations are 7 x N x 256 x 2 B
 ~ 1.4 GB each way, ~0.55 ms of the 3.35 TB/s HBM for the whole forward: the
 forward is bound by bytes, the backward (twice the products, the same
-activation bytes plus the per-layer g) nearly balanced. The design keeps
-every per-layer intermediate that is not stored in shared memory: a block
-owns 128 points, their activation stays in shared memory double-buffered
-between layers (2 x 66 KB) with the encoding tile beside it, and weights
-stream from L2 (the 1.1 MB trunk stays L2-resident; one 256x256 layer is
-128 KB, too large to keep every layer in the 227 KB a block may use) in
-32-row chunks through a two-stage cp.async ring. Products are warp-level
+activation bytes plus the per-layer g) nearly balanced.
+
+Forward: a block owns 128 points, their activation stays in shared memory
+double-buffered between layers (2 x 66 KB) with the encoding tile beside it,
+and weights stream from L2 (the 1.1 MB trunk stays L2-resident; one 256x256
+layer is 128 KB, too large to keep every layer in the 227 KB a block may use)
+in 32-row chunks through a two-stage cp.async ring. Products are warp-level
 `mma.sync` m16n8k16 bf16 with f32 accumulators fed by `ldmatrix`.
 
-The backward carries no sum across blocks the way the TPU's sequential grid
-does. Per-block f32 partial sums of dW reduced by a second kernel would be
-deterministic, but dW is 2 MB of f32 per 128-point block (6 GB at 393,216
-points), so the backward is two kernels instead: a per-tile chain kernel walks the
-layers backwards, writes each layer's bf16 g to a scratch buffer, denc to
-its output and the f32 db partial sums (and the density column of the last
-layer's dW) with atomicAdd; then a split-K kernel computes dW = inp^T g for
-every layer, each block reducing one 64x128 tile of dW over a slice of the
-points and adding it with atomicAdd. f32 atomics make dW and db sum in a
-run-dependent order: results agree with the twin to f32 rounding before the
-final bf16 rounding, so a dW or db element may differ by one bf16 ulp
-between runs.
+Backward: blocks carry no sum across each other the way the TPU's sequential
+grid does (dW is 2 MB of f32 per 128-point block), so it is two kernels.
+* The chain kernel walks the layers backwards for 128 points per block: two
+  consumer warpgroups of 64 points run `wgmma` m64nNk16 with g in registers
+  (the masked f32 accumulator of one layer, packed to bf16, is the next
+  layer's A fragment) and weight tiles from a 4-stage ring that a producer
+  warp fills by TMA straight from the packed weights (a row of a packed
+  [K, NO] layer is K-major for gx = g W^T; two tensor maps with the 128-byte
+  swizzle, encoded per call in C). Another producer warp bulk-copies the
+  ReLU' mask tile a layer ahead; the epilogue adds the density column's
+  term, masks, sums db and writes g over the mask it read, and per-row bulk
+  stores send it to a scratch buffer `gsave` for dW.
+* The dW kernel computes dW_l = inp_l^T g_l with `wgmma` m64n256k16 on two
+  shared-memory operands (both MN-major), 128 x 256 tiles over slices of the
+  points fed by TMA, and takes the last layer's density column from the same
+  chunks.
+g goes to device memory once and comes back once, and the activations are
+read by both kernels: ~6 GB at 393,216 points, ~1.8 ms, is this design's
+floor beside the 0.78 ms operations bound. db and dW are summed with f32
+atomics in a run-dependent order: results agree with the twin to f32
+rounding before the final bf16 rounding, so a dW or db element may differ by
+one bf16 ulp between runs.
 """
 from __future__ import annotations
 
@@ -182,7 +192,7 @@ def trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
 @functools.lru_cache(maxsize=None)
 def _lib():
     return _build.declare(_build.load("fused_trunk"), trunk_fwd="ppppppiiip",
-                          trunk_bwd_chain="ppppppppppiiip", trunk_bwd_dw="ppppiiiip")
+                          trunk_bwd_chain="ppppppppiiip", trunk_bwd_dw="pppppiiip")
 
 
 def _check_inputs(L: int, skip: int, w, b, **tensors) -> None:
@@ -224,12 +234,6 @@ def trunk_fwd(enc, w, b, L: int, skip: int, store_acts: bool = True):
     return feat, dens, acts
 
 
-def dw_splits(N: int) -> int:
-    """Point slices of the split-K dW kernel: enough blocks to fill the card
-    without making the atomic epilogue dominate."""
-    return max(1, min(16, -(-N // 16384)))
-
-
 def trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
     """Backward of `trunk_fwd`: g_feat [N, H] bf16, g_dens [N] bf16 ->
     (denc [N, IN_PAD] bf16, dw f32 packed, db f32 packed). Kernels on CUDA
@@ -243,21 +247,39 @@ def trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
             or acts.shape != (L - 1, N, H)
             or {t.dtype for t in (enc, g_feat, g_dens, feat, acts, w)} != {torch.bfloat16}):
         raise ValueError("trunk_bwd: unexpected shapes or dtypes")
-    denc = torch.empty((N, IN_PAD), dtype=torch.bfloat16, device=enc.device)
-    dw = torch.zeros(w.numel(), dtype=torch.float32, device=enc.device)
-    db = torch.zeros(b.numel(), dtype=torch.float32, device=enc.device)
+    out = _bwd_outputs(N, w, b, L)
     if N == 0:
-        return denc, dw, db
-    gsave = torch.empty((L, N, H), dtype=torch.bfloat16, device=enc.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(enc.device).cuda_stream
-    _check(lib, lib.trunk_bwd_chain(_ptr(enc), _ptr(g_feat), _ptr(g_dens), _ptr(feat),
-                                    _ptr(acts), _ptr(w), _ptr(denc), _ptr(gsave), _ptr(dw),
-                                    _ptr(db), N, L, skip, stream), "trunk_bwd_chain")
-    _check(lib, lib.trunk_bwd_dw(_ptr(enc), _ptr(acts), _ptr(gsave), _ptr(dw), N, L, skip,
-                                 dw_splits(N), stream), "trunk_bwd_dw")
+        return out[:3]
+    _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L, skip)
     bwd_launches += 1
-    return denc, dw, db
+    return out[:3]
+
+
+def _bwd_outputs(N: int, w, b, L: int):
+    """The backward's buffers: (denc, dw, db) and the scratch `gsave`, each
+    layer's g [L, N, H] bf16 that the chain kernel writes for the dW kernel."""
+    dev = w.device
+    return (torch.empty((N, IN_PAD), dtype=torch.bfloat16, device=dev),
+            torch.zeros(w.numel(), dtype=torch.float32, device=dev),
+            torch.zeros(b.numel(), dtype=torch.float32, device=dev),
+            torch.empty((L, N, H), dtype=torch.bfloat16, device=dev))
+
+
+def _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L: int, skip: int,
+               kernels=("chain", "dw")) -> None:
+    """Launches the backward's kernels named in `kernels` on the buffers `out`
+    of `_bwd_outputs`, inputs already checked by `trunk_bwd`; dw and db are
+    added to, so they start at zero. Counts nothing: `trunk_bwd` does."""
+    denc, dw, db, gsave = out
+    N, lib = enc.shape[0], _lib()
+    stream = torch.cuda.current_stream(enc.device).cuda_stream
+    if "chain" in kernels:
+        _check(lib, lib.trunk_bwd_chain(_ptr(g_feat), _ptr(g_dens), _ptr(feat), _ptr(acts), _ptr(w),
+                                        _ptr(denc), _ptr(gsave), _ptr(db), N, L, skip, stream),
+               "trunk_bwd_chain")
+    if "dw" in kernels:
+        _check(lib, lib.trunk_bwd_dw(_ptr(enc), _ptr(acts), _ptr(gsave), _ptr(g_dens), _ptr(dw), N, L,
+                                     skip, stream), "trunk_bwd_dw")
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,7 @@ def materialize_plain(x: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _lib():
     return _build.declare(_build.load("layout"), transpose2d="ppllp", transpose_slice="pplllp",
-                          materialize="pplp")
+                          materialize="pplp", materialize_design="pplip")
 
 
 def _check_matrix(name: str, x: torch.Tensor) -> None:
@@ -58,7 +58,9 @@ def _check_matrix(name: str, x: torch.Tensor) -> None:
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    # the raw handle: a torch.cuda.Stream object per call costs the copy wrapper
+    # about as much host time as its launch
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def transpose2d(x: torch.Tensor) -> torch.Tensor:

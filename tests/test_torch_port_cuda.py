@@ -57,7 +57,8 @@ def _inputs(n, seed=0, n_layers=L, skip=SKIP):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,n_layers,skip", [
     (393_216, L, SKIP), (100_003, L, SKIP), (1, L, SKIP),
-    (5_000, 2, 1), (5_000, 3, 1), (5_000, 4, 3),     # skip on the last layer
+    (63, L, SKIP), (64, L, SKIP), (65, L, SKIP), (129, L, SKIP),    # around the 64-row warpgroup tile
+    (5_000, 2, 1), (5_000, 3, 1), (5_000, 4, 3), (5_000, 8, 7),     # skip on the last layer
 ])
 def test_trunk_kernels_match_twin(n, n_layers, skip):
     _need_card()
@@ -78,6 +79,30 @@ def test_trunk_kernels_match_twin(n, n_layers, skip):
     for o, r in zip(out, ref):
         _close(o, r)
     assert (fused_mlp.fwd_launches, fused_mlp.bwd_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_layers,skip", [(100_003, L, SKIP), (5_000, 8, 7), (65, 2, 1)])
+def test_trunk_bwd_density_column_and_last_db_match_twin(n, n_layers, skip):
+    """The last layer's g is exact in bf16 (the feat mask and the bf16
+    cotangents), so its db and the density column of its dW (the dW kernel's
+    extra dot with g_dens) differ from the twin only by the order of the f32
+    sums: element by element within 1e-4 relative + 1e-4 of the largest."""
+    _need_card()
+    layers, enc, g = _inputs(n, n_layers=n_layers, skip=skip)
+    w, b = fused_mlp.pack_params(layers, skip)
+    x = torch.nn.functional.pad(enc.to(torch.bfloat16), (0, fused_mlp.IN_PAD - enc.shape[1])).contiguous()
+    feat, _, acts = fused_mlp.trunk_fwd_plain(x, w, b, n_layers, skip)
+    g_feat = (torch.randn((n, 256), generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    g_dens = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    _, dw, db = fused_mlp.trunk_bwd(x, g_feat, g_dens, feat, acts, w, b, n_layers, skip)
+    _, dw_ref, db_ref = fused_mlp.trunk_bwd_plain(x, g_feat, g_dens, feat, acts, w, b, n_layers, skip)
+    torch.cuda.synchronize()
+    K, NO, wo, bo = fused_mlp.layout(n_layers, skip, 256)[-1]
+    col, col_ref = dw[wo:wo + K * NO].view(K, NO)[:, 256], dw_ref[wo:wo + K * NO].view(K, NO)[:, 256]
+    for o, r in ((col, col_ref), (db[bo:], db_ref[bo:])):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+    assert not dw[wo:wo + K * NO].view(K, NO)[:, 257:].any()
 
 
 @pytest.mark.cuda
@@ -147,10 +172,17 @@ def test_transpose_slice_kernel_is_bit_exact(V, P, C):
     assert layout.transpose_slice_launches == before + 1
 
 
+# a block of the copy kernel moves 16 B x 256 threads = 4096 B; 16384 B = 4 blocks = one bulk-ring chunk
+_COPY_SHAPES = [((884_736, 16), torch.float32), ((100_003, 13), torch.float32),
+                ((7,), torch.float32), ((3, 5, 7, 11), torch.float32),
+                ((1_000_003,), torch.uint8), ((4099, 3), torch.bfloat16),
+                ((4096 - 16,), torch.uint8), ((4096 + 16,), torch.uint8),
+                ((16384 - 16,), torch.uint8), ((16384,), torch.uint8),
+                ((16384 + 16,), torch.uint8), ((16385,), torch.uint8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype", [((884_736, 16), torch.float32), ((100_003, 13), torch.float32),
-                                         ((7,), torch.float32), ((3, 5, 7, 11), torch.float32),
-                                         ((1_000_003,), torch.uint8), ((4099, 3), torch.bfloat16)])
+@pytest.mark.parametrize("shape,dtype", _COPY_SHAPES)
 def test_materialize_kernel_is_bit_exact(shape, dtype):
     _need_card()
     x = (_randn(*shape, seed=2) * 50).to(dtype)
@@ -159,6 +191,22 @@ def test_materialize_kernel_is_bit_exact(shape, dtype):
     torch.cuda.synchronize()
     assert out.data_ptr() != x.data_ptr() and out.dtype == dtype and torch.equal(out, x)
     assert layout.materialize_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", [1, 2, 3])
+@pytest.mark.parametrize("shape,dtype", _COPY_SHAPES)
+def test_materialize_designs_are_bit_exact(shape, dtype, design):
+    """The copy designs `materialize` was chosen against (timed beside it by
+    chip_smoke.py) copy every byte, the ragged tail included."""
+    _need_card()
+    x = (_randn(*shape, seed=2) * 50).to(dtype)
+    out = torch.zeros_like(x)
+    lib = layout._lib()
+    layout._check(lib, lib.materialize_design(x.data_ptr(), out.data_ptr(), x.numel() * x.element_size(), design,
+                                              torch.cuda.current_stream().cuda_stream), "materialize_design")
+    torch.cuda.synchronize()
+    assert torch.equal(out, x)
 
 
 @pytest.mark.cuda

@@ -149,3 +149,37 @@ def test_nerf_forward_f32_matches_jax():
                                    rtol=1e-5, atol=1e-5)
     for a, b in zip(jax.tree.leaves(g_j), jax.tree.leaves(jax.tree.map(lambda t: t.grad, tp))):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the packed layout as the backward chain kernel's tensor maps read it
+
+
+@pytest.mark.parametrize("L_,skip", [(8, 4), (8, 7), (3, 1), (2, 1)])
+def test_packed_weights_read_as_the_chain_kernels_two_maps(L_, skip):
+    """The chain kernel reads the weights through two 2-D tensor maps over the
+    packed buffer: layers 0..L-2 as one [rows, 256] matrix in which row
+    w_offset(l) / 256 + k is W_l[k], and the last layer as [K, 256 + 128]
+    from its offset. Both bases are 16-byte aligned, every row stride a
+    multiple of 16 bytes, and each 64-row box of a layer stays inside it."""
+    gen = torch.Generator().manual_seed(0)
+    layers = []
+    for l in range(L_):
+        k_in = 63 if l == 0 else (256 + 63 if l == skip else 256)
+        k_out = 257 if l == L_ - 1 else 256
+        layers.append({"w": torch.randn((k_in, k_out), generator=gen), "b": torch.randn(k_out, generator=gen)})
+    w, _ = t_fused.pack_params(layers, skip)
+    lay = t_fused.layout(L_, skip, 256)
+    last = lay[-1][2]
+    hidden = w[:last].view(-1, 256)
+    for l, (K, NO, wo, _) in enumerate(lay):
+        assert wo * 2 % 16 == 0 and NO * 2 % 16 == 0 and K % 64 == 0
+        Wl = w[wo:wo + K * NO].view(K, NO)
+        ref = torch.nn.functional.pad(layers[l]["w"].to(torch.bfloat16), (0, 0, 0, K - layers[l]["w"].shape[0]))
+        if l < L_ - 1:
+            assert NO == 256 and wo % 256 == 0
+            assert torch.equal(hidden[wo // 256:wo // 256 + K], Wl)
+            assert torch.equal(Wl, ref)
+        else:
+            assert NO == 256 + t_fused.DENS_PAD and wo + K * NO == w.numel()
+            assert torch.equal(Wl[:, :256], ref[:, 1:]) and torch.equal(Wl[:, 256], ref[:, 0])
