@@ -22,7 +22,8 @@ Beside each kernel's time stands the time of the one PyTorch call that
 computes the same function, where there is one (a copy for the layout
 kernels, `F.grid_sample` and its backward for the trilinear ones): timed and
 checked here, used nowhere in the port. `materialize` is also timed beside the
-copy designs it was chosen against, and the trunk backward's two kernels apart.
+copy designs it was chosen against, the trunk forward also without stored
+activations, and the trunk backward's two kernels apart.
 Then it drives the training step at bench scale (bf16 trunk): a few
 coarse-phase and mid-phase steps of the scene-only trainer
 (`build_scene_trainer`) and a few early-phase steps of the joint trainer
@@ -186,8 +187,34 @@ def check_trunk_kernels(fused_mlp, scene_nerf, pe) -> list:
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
             print(f"{name} N={n}: kernel {ms[kind]:.3f} ms, twin {ms[kind + '_plain']:.3f} ms, "
                   f"bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
+        records["trunk_fwd"].update(_trunk_fwd_no_acts(fused_mlp, enc, w, b, L, skip, 2 * macs))
         records["trunk_bwd"].update(_trunk_bwd_parts(fused_mlp, enc, g_feat, g_dens, feat, acts, w, b, L, skip))
     return [records["trunk_fwd"], records["trunk_bwd"]]
+
+
+def _trunk_fwd_no_acts(fused_mlp, enc, w, b, L: int, skip: int, flops: float) -> dict:
+    """The forward without stored activations (the visibility and eval
+    renders): checked bit for bit against the stored call's feat and density,
+    and timed. Also prints, each on its own line, this call's bound and the
+    weight bytes the forward's blocks read from L2 in one call (every
+    128-point block streams the packed trunk's 256 feature columns once)."""
+    n = enc.shape[0]
+    feat, dens, acts = fused_mlp.trunk_fwd(enc, w, b, L, skip)
+    feat2, dens2, acts2 = fused_mlp.trunk_fwd(enc, w, b, L, skip, store_acts=False)
+    torch.cuda.synchronize()
+    if not (acts2 is None and torch.equal(feat2, feat) and torch.equal(dens2, dens)):
+        raise AssertionError("trunk_fwd without stored activations differs from the stored call")
+    ms = _time_ms(lambda: fused_mlp.trunk_fwd(enc, w, b, L, skip, store_acts=False))
+    nbytes = float(enc.numel() * 2 + (w.numel() + b.numel()) * 2 + feat.numel() * 2 + dens.numel() * 4)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    blocks = -(-n // 128)
+    per_block = sum(K for K, *_ in fused_mlp.layout(L, skip, fused_mlp.H)) * fused_mlp.H * 2
+    print(f"trunk_fwd N={n} without stored activations: kernel {ms:.3f} ms; bit-identical feat and density")
+    print(f"trunk_fwd N={n} without stored activations: bound {bound_ms:.3f} ms "
+          f"({bound_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
+    print(f"trunk_fwd N={n}: weights read from L2 {blocks * per_block / 1e9:.3f} GB per call "
+          f"({blocks} blocks x {per_block} B)")
+    return {"no_acts_ms": ms}
 
 
 def _trunk_bwd_parts(fused_mlp, enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int) -> dict:

@@ -11,13 +11,14 @@
 // Biases are consecutive [NO_l] slices of `b`. Activations and the stored
 // hidden layers are [N, 256]; enc and denc are [N, 64].
 //
-// The forward uses warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate)
-// with fragments loaded by ldmatrix from shared memory whose rows are padded
-// by 16 bytes, so the eight 16-byte rows an ldmatrix reads fall in different
-// banks. The backward's two kernels use warpgroup wgmma fed through mbarrier
-// rings: the chain by TMA (weights) and bulk copies (mask tiles; g in
-// registers), dW by TMA (both operands in shared memory); each has its own
-// section below.
+// All three kernels issue warpgroup wgmma (bf16 in, f32 accumulate) on tiles
+// that TMA or bulk copies bring into shared memory through mbarrier rings,
+// with a producer warp ahead of two consumer warpgroups of 64 points each.
+// The forward and the backward chain read their weight tiles by TMA straight
+// from the packed `w` through the same two tensor maps; the forward takes its
+// activations as wgmma's A operand from registers (the accumulator layout of
+// one layer is the A layout of the next) and sends them out by TMA stores;
+// dW takes both operands from shared memory. Each has its own section below.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -34,15 +35,6 @@ typedef __nv_bfloat16 bf16;
 constexpr int H = 256;         // trunk width
 constexpr int KIN = 64;        // padded encoding width
 constexpr int DENS_PAD = 128;  // extra columns of the last layer (density in the first)
-constexpr int T = 128;         // points per block (forward)
-constexpr int NB = 128;        // output columns per pass
-constexpr int KC = 32;         // reduction rows per streamed weight chunk
-constexpr int THREADS = 256;   // 8 warps: 4 along the points x 2 along the columns
-constexpr int LDA = H + 8;     // shared row stride (elements) of [T][H] tiles
-constexpr int LDE = KIN + 8;   // of [T][KIN] tiles
-constexpr int LDW = NB + 8;    // of the forward weight chunk [KC][NB]
-
-constexpr size_t FWD_SMEM = sizeof(bf16) * (2 * T * LDA + T * LDE + 2 * KC * LDW);
 
 __host__ __device__ __forceinline__ int layer_in(int l, int skip) {
   return l == 0 ? KIN : (l == skip ? H + KIN : H);
@@ -62,210 +54,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a * b for one 16x8x16 tile
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte global->shared copy; src_bytes 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A fragment (16x16) of a row-major [m][k] tile; p -> element (m0, k0)
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p, int ld, int lane) {
-  ldsm_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
-}
-// B fragments of two adjacent n-tiles from a row-major [k][n] tile; p -> (k0, n0).
-// b[0], b[1] feed n-tile n0, b[2], b[3] n-tile n0 + 8.
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* p, int ld, int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  ldsm_x4_t(b, p + (r + (j & 1) * 8) * ld + (j >> 1) * 8);
-}
-
-__device__ __forceinline__ void store_bf16x2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// forward weight chunk: rows k0..k0+KC-1, columns n0..n0+NB-1 of w_l [K][NO] -> [KC][LDW]
-__device__ __forceinline__ void load_w_kn(bf16* dst, const bf16* wl, int NO, int k0, int n0,
-                                          int tid) {
-#pragma unroll
-  for (int it = 0; it < KC * NB / 8 / THREADS; ++it) {
-    const int i = tid + it * THREADS;
-    const int r = i / (NB / 8), c = (i % (NB / 8)) * 8;
-    cp_async16(dst + r * LDW + c, wl + (long)(k0 + r) * NO + n0 + c, 16);
-  }
-}
-
-// ------------------------------------------------------------------- forward
-
-// One block per T points. The layer input (enc tile, or the previous
-// activation) stays in shared memory; the output of each 128-column pass is
-// bias + ReLU + bf16 in registers and written to the other activation buffer.
-__global__ void __launch_bounds__(THREADS, 1)
-    trunk_fwd_kernel(const bf16* __restrict__ enc, const bf16* __restrict__ w,
-                     const bf16* __restrict__ b, bf16* __restrict__ feat,
-                     float* __restrict__ dens, bf16* __restrict__ acts, int n, int L, int skip) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* act0 = reinterpret_cast<bf16*>(smem_raw);
-  bf16* act1 = act0 + T * LDA;
-  bf16* enc_s = act1 + T * LDA;
-  bf16* wbuf = enc_s + T * LDE;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;  // rows wm*32.., columns wn*64.. of a pass
-  const int g = lane >> 2, q = lane & 3;
-  const long row0 = (long)blockIdx.x * T;
-  const int rows = n - row0 < T ? (int)(n - row0) : T;
-
-  for (int i = tid; i < T * (KIN / 8); i += THREADS) {
-    const int r = i / (KIN / 8), c = (i % (KIN / 8)) * 8;
-    cp_async16(enc_s + r * LDE + c, enc + (row0 + min(r, rows - 1)) * KIN + c,
-               r < rows ? 16 : 0);
-  }
-  cp_async_commit();
-
-  bf16* cur = act0;
-  bf16* nxt = act1;
-  long w_off = 0;
-  for (int l = 0; l < L; ++l) {
-    const int K = layer_in(l, skip), NO = layer_out(l, L);
-    const bf16* wl = w + w_off;
-    const bf16* bl = b + (long)l * H;
-    for (int cb = 0; cb < NO / NB; ++cb) {
-      const bool dens_pass = cb * NB >= H;  // last layer: only its first column is real
-      const bool active = !dens_pass || wn == 0;
-      float acc[2][8][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-      const int nk = K / KC;
-      load_w_kn(wbuf, wl, NO, 0, cb * NB, tid);
-      cp_async_commit();
-      for (int c = 0; c < nk; ++c) {
-        if (c + 1 < nk) load_w_kn(wbuf + ((c + 1) & 1) * KC * LDW, wl, NO, (c + 1) * KC, cb * NB, tid);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        const bf16* ws = wbuf + (c & 1) * KC * LDW;
-        const int k0 = c * KC;
-        const bf16* A;
-        int lda;
-        if (l == 0) {
-          A = enc_s + k0;
-          lda = LDE;
-        } else if (k0 >= H) {  // skip layer: rows H.. of its weight multiply the encoding
-          A = enc_s + (k0 - H);
-          lda = LDE;
-        } else {
-          A = cur + k0;
-          lda = LDA;
-        }
-        if (active) {
-#pragma unroll
-          for (int kk = 0; kk < KC; kk += 16) {
-            uint32_t a[2][4];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              load_a(a[mt], A + (wm * 32 + mt * 16) * lda + kk, lda, lane);
-#pragma unroll
-            for (int np = 0; np < 4; ++np) {
-              if (dens_pass && np > 0) continue;
-              uint32_t bb[4];
-              load_b_kn(bb, ws + kk * LDW + wn * 64 + np * 16, LDW, lane);
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                mma16816(acc[mt][2 * np], a[mt], bb[0], bb[1]);
-                mma16816(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
-              }
-            }
-          }
-        }
-        __syncthreads();
-      }
-
-      if (!dens_pass) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = cb * NB + wn * 64 + nt * 8 + 2 * q;
-          const float b0 = __bfloat162float(bl[col]), b1 = __bfloat162float(bl[col + 1]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const int r = wm * 32 + mt * 16 + g;
-            store_bf16x2(nxt + r * LDA + col, fmaxf(acc[mt][nt][0] + b0, 0.f),
-                         fmaxf(acc[mt][nt][1] + b1, 0.f));
-            store_bf16x2(nxt + (r + 8) * LDA + col, fmaxf(acc[mt][nt][2] + b0, 0.f),
-                         fmaxf(acc[mt][nt][3] + b1, 0.f));
-          }
-        }
-      } else if (wn == 0 && q == 0) {
-        const float bd = __bfloat162float(bl[H]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int r = wm * 32 + mt * 16 + g;
-          if (r < rows) dens[row0 + r] = acc[mt][0][0] + bd;
-          if (r + 8 < rows) dens[row0 + r + 8] = acc[mt][0][2] + bd;
-        }
-      }
-    }
-    __syncthreads();
-
-    // hidden activation -> acts[l] (if stored); last layer's ReLU'd feat -> feat
-    bf16* dst = l < L - 1 ? (acts ? acts + ((long)l * n + row0) * H : nullptr) : feat + row0 * H;
-    if (dst) {
-      for (int i = tid; i < T * (H / 8); i += THREADS) {
-        const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-        if (r < rows)
-          *reinterpret_cast<uint4*>(dst + (long)r * H + c) =
-              *reinterpret_cast<const uint4*>(nxt + r * LDA + c);
-      }
-    }
-    bf16* t = cur;
-    cur = nxt;
-    nxt = t;
-    w_off += (long)K * NO;
-  }
-}
-
-// ------------------------------------------------------------ backward chain
-
-// wgmma (sm_90a) primitives. A comes from registers: the f32 accumulator of
-// one product, masked and packed to bf16, is exactly the A fragment of the
-// next layer's k16 slices, so g never returns to shared memory between layers.
-// B is a K-major weight tile in shared memory with the 128-byte swizzle.
+// wgmma (sm_90a). A comes from registers (the `_rs` forms) or from shared
+// memory; B from shared memory, 128-byte swizzled. In the A register layout a
+// thread holds rows r_lo = 16 wq + lane / 4 and r_hi = r_lo + 8 of the
+// warpgroup's 64, columns 16 s + 8 h + 2 q (+1) of k16 slice s in A[4 s + 2 h]
+// (r_lo) and A[4 s + 2 h + 1] (r_hi), q = lane % 4; accumulator chunk j = 2 s
+// + h holds the same positions, so a product's accumulator, packed to bf16,
+// is the A operand of the next layer's product.
 
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
@@ -376,6 +171,8 @@ __device__ __forceinline__ void named_bar(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// ------------------------------------------------------------ backward chain
+
 // Backward chain: one block per CH_T = 128 points, two consumer warpgroups of
 // 64 points each and one producer warpgroup (warp 8 streams weight tiles,
 // warp 9 the per-layer mask tiles; warps 10-11 leave at once).
@@ -407,7 +204,9 @@ constexpr size_t CHAIN_SMEM = 1024 + RING * TILE_BYTES + 4 * SLOT_ELEMS * sizeof
                               16 * 256 * sizeof(uint32_t) + (H + KIN + 4 * H) * sizeof(float) +
                               (2 * RING + 8) * sizeof(uint64_t);
 
-struct ChainMaps {
+// the packed weights as the forward and the backward chain read them, in 64 x 64
+// boxes with the 128-byte swizzle
+struct WeightMaps {
   CUtensorMap hidden;  // layers 0..L-2 as one [rows, 256] matrix: W_l[k] is row w_offset(l) / 256 + k
   CUtensorMap last;    // layer L-1, [K, 256 + DENS_PAD]
 };
@@ -507,7 +306,7 @@ __device__ __forceinline__ void chain_mma(float (&acc)[N / 2], const uint32_t (&
 __global__ void __launch_bounds__(CH_THREADS, 1)
     trunk_bwd_chain_kernel(const bf16* __restrict__ gfeat, const bf16* __restrict__ gdens,
                            const bf16* __restrict__ feat, const bf16* __restrict__ acts,
-                           const bf16* __restrict__ w, const __grid_constant__ ChainMaps maps,
+                           const bf16* __restrict__ w, const __grid_constant__ WeightMaps maps,
                            bf16* __restrict__ denc, bf16* __restrict__ gsave, float* __restrict__ db,
                            int n, int L, int skip) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -786,7 +585,28 @@ constexpr int DW_B_BYTES = DW_PTS * H * 2;
 constexpr int DW_STAGE = 2 * DW_A_BYTES + DW_B_BYTES + 1024;  // + g_dens chunk, 1024-aligned stages
 constexpr size_t DW_SMEM = 1024 + DW_STAGES * DW_STAGE + 2 * DW_STAGES * sizeof(uint64_t);
 
-__device__ __forceinline__ void wgmma_m64n256_ss_t(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+// the 128 f32 accumulators of an m64n256 product, operands %0..%127
+#define WG_ACC128 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),\
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),\
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),\
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),\
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),\
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),\
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),\
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),\
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),\
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),\
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),\
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),\
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),\
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),\
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+// d (+)= A x B, both from shared memory; TA / TB: operand MN-major (transposed)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256_ss(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
@@ -800,24 +620,28 @@ __device__ __forceinline__ void wgmma_m64n256_ss_t(float (&d)[128], uint64_t da,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : WG_ACC128
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+// d (+)= A (registers) x B (shared memory, MN-major)
+__device__ __forceinline__ void wgmma_m64n256_rs_t(float (&d)[128], const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_ACC128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // MN-major operand with the 128-byte swizzle: 64-element atoms along M/N
@@ -927,7 +751,7 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DW_PTS / 16; ++kk)
-      wgmma_m64n256_ss_t(acc, desc_mn_sw128(a + 2048 * kk, DW_A_BYTES),
+      wgmma_m64n256_ss<1, 1>(acc, desc_mn_sw128(a + 2048 * kk, DW_A_BYTES),
                          desc_mn_sw128(b + 2048 * kk, DW_B_BYTES / 4), (c | kk) != 0);
     wgmma_commit();
   };
@@ -969,6 +793,264 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
   if (dens) atomicAdd(dwl + (long)(wtid % 64) * NO + H, sd);
 }
 
+// ------------------------------------------------------------------- forward
+
+// Forward: one block per FW_T = 128 points, two consumer warpgroups of 64
+// points each and one producer warp (warp 8; warps 9-11 leave at once).
+//
+// Layer l computes relu(a_{l-1} W_l + b_l) for its 256 feature columns with
+// wgmma m64n256k16 (f32 accumulators, 128 per thread), in k64 steps: B is a
+// [64 inputs x 256 outputs] stage of a FW_RING-stage ring that the producer
+// fills by TMA from the packed weights, four 64 x 64 boxes of the chain's two
+// tensor maps (a row of a packed layer is N-contiguous for a W: the
+// descriptors' transpose bit, 8 KB between the 64-column boxes). The producer
+// walks the layers without a break, so every layer's first stages are in
+// flight while the previous one finishes. A is the activation in registers
+// (64 x 32 bits per thread): the epilogue adds the bias in f32, applies ReLU
+// and packs to bf16 straight into the next layer's A. Layer 0 and the skip
+// layer's encoding rows take A from the encoding tile that TMA brought into
+// shared memory (rows past n as zeros). The same epilogue writes the bf16
+// tile into a swizzled staging tile, and one thread sends it to acts[l] (or
+// feat) by TMA stores, which clip rows past n; they read the staging tile
+// while the next layer's products run and are waited for before the next
+// epilogue writes it again. The density column is a 256-wide dot of the last
+// layer's A (and of the encoding, when the skip layer is the last) with
+// W_last[:, 256] in the epilogue: no product pass for one column.
+constexpr int FW_T = 128;
+constexpr int FW_THREADS = 384;
+constexpr int FW_RING = 4;
+constexpr int FW_BOX = 64 * 64 * 2;       // one 64 x 64 bf16 box
+constexpr int FW_STAGE = 4 * FW_BOX;       // 64 inputs x 256 outputs
+constexpr int FW_TILE = 4 * FW_BOX;        // a warpgroup's [64 points x 256] staging tile
+constexpr size_t FW_SMEM = 1024 + FW_RING * FW_STAGE + 2 * FW_TILE + 2 * FW_BOX + (H + KIN) * sizeof(float) +
+                           (2 * FW_RING + 1) * sizeof(uint64_t);
+
+struct FwdMaps {
+  WeightMaps w;
+  CUtensorMap enc;   // [n, 64], box 64 x 64, 128-byte swizzle (loads; rows past n read as zeros)
+  CUtensorMap feat;  // [n, 256], box 64 x 64 (stores; rows past n are clipped)
+  CUtensorMap acts;  // [L-1, n, 256], box 64 x 64 x 1; not encoded without stored activations
+};
+
+// shared -> global through a tensor map, tracked by this thread's bulk groups
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int x, int y, const void* src) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(x), "r"(y), "r"(smem_u32(src))
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, int x, int y, int z, const void* src) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(x), "r"(y), "r"(z), "r"(smem_u32(src))
+               : "memory");
+}
+
+struct FwdRing {
+  uint32_t ring;  // shared address of stage 0
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// acc (+)= A (registers, 64 rows x 256) x the next four ring stages
+__device__ __forceinline__ void fwd_mma_regs(float (&acc)[128], const uint32_t (&A)[64], int& t, const FwdRing& r) {
+  fence_operand(acc);
+#pragma unroll
+  for (int kt = 0; kt < H / 64; ++kt) {
+    const int s = t % FW_RING;
+    mbar_wait(r.full + s, (t / FW_RING) & 1);
+    const uint32_t b = r.ring + s * FW_STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n256_rs_t(acc, &A[16 * kt + 4 * kk], desc_mn_sw128(b + 2048 * kk, FW_BOX), (kt | kk) != 0);
+    wgmma_commit();
+    if (kt > 0) {
+      wgmma_wait<1>();
+      mbar_arrive(r.empty + (t - 1) % FW_RING);
+    }
+    ++t;
+  }
+  wgmma_wait<0>();
+  mbar_arrive(r.empty + (t - 1) % FW_RING);
+  fence_operand(acc);
+}
+
+// acc (+)= the encoding tile (shared, [64 x 64], K-major) x the next ring
+// stage; accumulate 0 starts the sum
+__device__ __forceinline__ void fwd_mma_enc(float (&acc)[128], uint32_t enc, int accumulate, int& t,
+                                            const FwdRing& r) {
+  fence_operand(acc);
+  const int s = t % FW_RING;
+  mbar_wait(r.full + s, (t / FW_RING) & 1);
+  const uint32_t b = r.ring + s * FW_STAGE;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n256_ss<0, 1>(acc, desc_sw128(enc + 32 * kk), desc_mn_sw128(b + 2048 * kk, FW_BOX),
+                           accumulate | (kk != 0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  mbar_arrive(r.empty + s);
+  ++t;
+  fence_operand(acc);
+}
+
+// byte offset of element (r, c) in a [64 x 256] staging tile of four 64 x 64
+// boxes with the 128-byte swizzle, the layout in which TMA moves a 64 x 64
+// box (for c < 64 also the offset in the encoding box)
+__device__ __forceinline__ uint32_t stage_offset(int r, int c) {
+  return (c >> 6) * FW_BOX + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+__global__ void __launch_bounds__(FW_THREADS, 1)
+    trunk_fwd_kernel(const __grid_constant__ FwdMaps maps, const bf16* __restrict__ w, const bf16* __restrict__ b,
+                     float* __restrict__ dens, int n, int L, int skip, int store_acts) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = base;
+  unsigned char* stg = ring + FW_RING * FW_STAGE;  // [wg] staging tiles
+  unsigned char* enc_s = stg + 2 * FW_TILE;        // [wg] encoding tiles
+  float* wd_s = reinterpret_cast<float*>(enc_s + 2 * FW_BOX);  // W_last[:, 256]
+  uint64_t* full = reinterpret_cast<uint64_t*>(wd_s + H + KIN);
+  uint64_t* empty = full + FW_RING;
+  uint64_t* efull = empty + FW_RING;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long row0 = (long)blockIdx.x * FW_T;
+  if (tid == 0) {
+    for (int s = 0; s < FW_RING; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);  // every consumer thread arrives
+    }
+    mbar_init(efull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    // 128 x 40 + 256 x 232 = 384 x 168, the registers the block was launched with
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      const int boxes = n - row0 > 64 ? 2 : 1;  // the second warpgroup's tile only if it has rows
+      mbar_expect_tx(efull, boxes * FW_BOX);
+      for (int h = 0; h < boxes; ++h) tma_load_2d(enc_s + h * FW_BOX, &maps.enc, 0, (int)row0 + 64 * h, efull);
+      // stage t: rows y .. y + 64 of a layer, its four 64-column boxes
+      int t = 0, y0 = 0;
+      for (int l = 0; l < L; ++l) {
+        const int K = layer_in(l, skip);
+        const bool last = l == L - 1;
+        for (int k0 = 0; k0 < K; k0 += 64, ++t) {
+          const int s = t % FW_RING;
+          mbar_wait(empty + s, ((t / FW_RING) & 1) ^ 1);
+          mbar_expect_tx(full + s, FW_STAGE);
+          for (int i = 0; i < 4; ++i)
+            tma_load_2d(ring + s * FW_STAGE + i * FW_BOX, last ? &maps.w.last : &maps.w.hidden, 64 * i,
+                        (last ? 0 : y0) + k0, full + s);
+        }
+        y0 += K;
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2, wq = warp & 3, wtid = tid & 127;
+  const int q = lane & 3, g = lane >> 2;
+  const int r_lo = wq * 16 + g, r_hi = r_lo + 8;  // rows of this thread in the WG tile
+  const long wrow0 = row0 + wg * 64;
+  const int wg_rows = (int)max(0L, min(64L, (long)n - wrow0));
+  {
+    const int K_last = layer_in(L - 1, skip);
+    const bf16* w_last = w + w_offset(L - 1, L, skip);
+    for (int k = tid; k < K_last; k += 256) wd_s[k] = __bfloat162float(w_last[(long)k * (H + DENS_PAD) + H]);
+  }
+  named_bar(3, 256);
+
+  const FwdRing rg{smem_u32(ring), full, empty};
+  const uint32_t enc_u = smem_u32(enc_s + wg * FW_BOX);
+  unsigned char* tile = stg + wg * FW_TILE;
+  mbar_wait(efull, 0);
+
+  uint32_t A[64];
+  float acc[128];
+  int t = 0;
+  for (int l = 0; l < L; ++l) {
+    if (l == 0) {
+      fwd_mma_enc(acc, enc_u, 0, t, rg);
+    } else {
+      fwd_mma_regs(acc, A, t, rg);
+      if (l == skip) fwd_mma_enc(acc, enc_u, 1, t, rg);
+    }
+    const bool last = l == L - 1;
+    if (last) {
+      // density: the last layer's input (A, and the encoding if it is the skip layer) . W_last[:, 256]
+      float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int c = 8 * j + 2 * q;
+        const float2 lo = unpack_bf16(A[2 * j]), hi = unpack_bf16(A[2 * j + 1]);
+        d_lo += lo.x * wd_s[c] + lo.y * wd_s[c + 1];
+        d_hi += hi.x * wd_s[c] + hi.y * wd_s[c + 1];
+      }
+      if (skip == L - 1) {
+        const unsigned char* e = enc_s + wg * FW_BOX;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * q;
+          const float2 lo = unpack_bf16(*reinterpret_cast<const uint32_t*>(e + stage_offset(r_lo, c)));
+          const float2 hi = unpack_bf16(*reinterpret_cast<const uint32_t*>(e + stage_offset(r_hi, c)));
+          d_lo += lo.x * wd_s[H + c] + lo.y * wd_s[H + c + 1];
+          d_hi += hi.x * wd_s[H + c] + hi.y * wd_s[H + c + 1];
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        d_lo += __shfl_xor_sync(0xffffffffu, d_lo, o);
+        d_hi += __shfl_xor_sync(0xffffffffu, d_hi, o);
+      }
+      const float bd = __bfloat162float(b[(long)(L - 1) * H + H]);
+      if (q == 0 && r_lo < wg_rows) dens[wrow0 + r_lo] = d_lo + bd;
+      if (q == 0 && r_hi < wg_rows) dens[wrow0 + r_hi] = d_hi + bd;
+    }
+
+    // bias + ReLU + bf16 -> the next layer's A, and into the staging tile for acts[l] / feat
+    const bool store = (last || store_acts) && wg_rows > 0;
+    if (store) {
+      if (wtid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the last stores read it
+      named_bar(1 + wg, 128);
+    }
+    const __nv_bfloat162* bl = reinterpret_cast<const __nv_bfloat162*>(b + (long)l * H);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + 2 * q;
+      const float2 bb = __bfloat1622float2(bl[c >> 1]);
+      A[2 * j] = pack_bf16(fmaxf(acc[4 * j] + bb.x, 0.f), fmaxf(acc[4 * j + 1] + bb.y, 0.f));
+      A[2 * j + 1] = pack_bf16(fmaxf(acc[4 * j + 2] + bb.x, 0.f), fmaxf(acc[4 * j + 3] + bb.y, 0.f));
+      if (store) {
+        *reinterpret_cast<uint32_t*>(tile + stage_offset(r_lo, c)) = A[2 * j];
+        *reinterpret_cast<uint32_t*>(tile + stage_offset(r_hi, c)) = A[2 * j + 1];
+      }
+    }
+    if (store) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_bar(1 + wg, 128);
+      if (wtid == 0) {
+        for (int i = 0; i < 4; ++i) {
+          if (last)
+            tma_store_2d(&maps.feat, 64 * i, (int)wrow0, tile + i * FW_BOX);
+          else
+            tma_store_3d(&maps.acts, 64 * i, (int)wrow0, l, tile + i * FW_BOX);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+  }
+  if (wtid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");  // feat and acts written
+}
+
 // cuTensorMapEncodeTiled through the runtime's driver entry point: nothing links libcuda
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -997,6 +1079,14 @@ int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rank, st
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+int make_weight_maps(EncodeTiled encode, WeightMaps* maps, const void* w, int L, int skip) {
+  const long last = w_offset(L - 1, L, skip);
+  const int err = make_map(encode, &maps->hidden, w, 2, {(cuuint64_t)H, (cuuint64_t)(last / H), 1}, {64, 64, 1}, true);
+  if (err) return err;
+  return make_map(encode, &maps->last, (const bf16*)w + last, 2,
+                  {(cuuint64_t)(H + DENS_PAD), (cuuint64_t)layer_in(L - 1, skip), 1}, {64, 64, 1}, true);
+}
+
 }  // namespace
 
 // ------------------------------------------------------------------ C interface
@@ -1009,26 +1099,29 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 int trunk_fwd(const void* enc, const void* w, const void* b, void* feat, void* dens, void* acts,
               int n, int L, int skip, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
-  if (err != cudaSuccess) return err;
-  const int blocks = (n + T - 1) / T;
-  trunk_fwd_kernel<<<blocks, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)enc, (const bf16*)w, (const bf16*)b, (bf16*)feat, (float*)dens, (bf16*)acts,
-      n, L, skip);
-  return cudaGetLastError();
+  static EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  FwdMaps maps = {};
+  const cuuint64_t N = (cuuint64_t)n;
+  int err = make_weight_maps(encode, &maps.w, w, L, skip);
+  if (!err) err = make_map(encode, &maps.enc, enc, 2, {(cuuint64_t)KIN, N, 1}, {64, 64, 1}, true);
+  if (!err) err = make_map(encode, &maps.feat, feat, 2, {(cuuint64_t)H, N, 1}, {64, 64, 1}, true);
+  if (!err && acts) err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)(L - 1)}, {64, 64, 1}, true);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FW_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + FW_T - 1) / FW_T;
+  trunk_fwd_kernel<<<blocks, FW_THREADS, FW_SMEM, (cudaStream_t)stream>>>(maps, (const bf16*)w, (const bf16*)b,
+                                                                          (float*)dens, n, L, skip, acts != nullptr);
+  return (int)cudaGetLastError();
 }
 
 int trunk_bwd_chain(const void* gfeat, const void* gdens, const void* feat, const void* acts,
                     const void* w, void* denc, void* gsave, void* db, int n, int L, int skip, void* stream) {
   static EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  ChainMaps maps;
-  const long last = w_offset(L - 1, L, skip);
-  int err = make_map(encode, &maps.hidden, w, 2, {(cuuint64_t)H, (cuuint64_t)(last / H), 1}, {TILE_K, 64, 1}, true);
-  if (!err)
-    err = make_map(encode, &maps.last, (const bf16*)w + last, 2,
-                   {(cuuint64_t)(H + DENS_PAD), (cuuint64_t)layer_in(L - 1, skip), 1}, {TILE_K, 64, 1}, true);
+  WeightMaps maps;
+  const int err = make_weight_maps(encode, &maps, w, L, skip);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(trunk_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)CHAIN_SMEM);

@@ -27,12 +27,19 @@ What bounds it on an H100: the 491,264 MACs per point make the forward
 forward is bound by bytes, the backward (twice the products, the same
 activation bytes plus the per-layer g) nearly balanced.
 
-Forward: a block owns 128 points, their activation stays in shared memory
-double-buffered between layers (2 x 66 KB) with the encoding tile beside it,
-and weights stream from L2 (the 1.1 MB trunk stays L2-resident; one 256x256
-layer is 128 KB, too large to keep every layer in the 227 KB a block may use)
-in 32-row chunks through a two-stage cp.async ring. Products are warp-level
-`mma.sync` m16n8k16 bf16 with f32 accumulators fed by `ldmatrix`.
+Forward: a block owns 128 points, two consumer warpgroups of 64 points run
+`wgmma` m64n256k16 per layer with the activation as A in registers (the
+epilogue's bias + ReLU + bf16 of one layer is, in place, the next layer's A
+fragment) and the weights as B from a 4-stage ring of [64 inputs x 256
+outputs] stages that a producer warp fills by TMA through the chain kernel's
+two tensor maps over the packed weights (MN-major for h W: the descriptors'
+transpose bit). The producer runs ahead across layers, so no layer starts on
+an L2 round trip. Layer 0 and the skip layer's encoding rows take A from the
+encoding tile, loaded by TMA. Each layer's bf16 output goes through a
+swizzled staging tile to `acts[l]` (or `feat`) by TMA stores that overlap the
+next layer's products; the density column is a dot with W_last[:, 256] in
+the last epilogue. Each block still streams the 1 MB trunk from L2 (3 GB per
+call at 393,216 points).
 
 Backward: blocks carry no sum across each other the way the TPU's sequential
 grid does (dW is 2 MB of f32 per 128-point block), so it is two kernels.
@@ -205,7 +212,7 @@ def _check_inputs(L: int, skip: int, w, b, **tensors) -> None:
     if w.numel() != lay[-1][2] + lay[-1][0] * lay[-1][1] or b.numel() != L * H + DENS_PAD:
         raise ValueError("packed trunk weights do not match the layout")
     for name, t in dict(tensors, w=w, b=b).items():
-        # the kernels read and write 16 bytes per thread
+        # the kernels' tensor maps and 16-byte accesses need 16-byte aligned bases
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: expected a contiguous, 16-byte aligned tensor on {dev}")
 

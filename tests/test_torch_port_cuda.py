@@ -82,6 +82,25 @@ def test_trunk_kernels_match_twin(n, n_layers, skip):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [393_216, 65])
+def test_trunk_fwd_without_stored_acts_matches_stored_call(n):
+    """The visibility and eval renders call the forward with store_acts=False:
+    no activations are written, and feat and the density equal the stored
+    call's bit for bit (the same products in the same order)."""
+    _need_card()
+    layers, enc, _ = _inputs(n)
+    w, b = fused_mlp.pack_params(layers, SKIP)
+    x = torch.nn.functional.pad(enc.to(torch.bfloat16), (0, fused_mlp.IN_PAD - enc.shape[1])).contiguous()
+    before = fused_mlp.fwd_launches
+    feat, dens, acts = fused_mlp.trunk_fwd(x, w, b, L, SKIP)
+    feat2, dens2, acts2 = fused_mlp.trunk_fwd(x, w, b, L, SKIP, store_acts=False)
+    torch.cuda.synchronize()
+    assert acts is not None and acts2 is None
+    assert torch.equal(feat2, feat) and torch.equal(dens2, dens)
+    assert fused_mlp.fwd_launches == before + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,n_layers,skip", [(100_003, L, SKIP), (5_000, 8, 7), (65, 2, 1)])
 def test_trunk_bwd_density_column_and_last_db_match_twin(n, n_layers, skip):
     """The last layer's g is exact in bf16 (the feat mask and the bf16

@@ -183,3 +183,38 @@ def test_packed_weights_read_as_the_chain_kernels_two_maps(L_, skip):
         else:
             assert NO == 256 + t_fused.DENS_PAD and wo + K * NO == w.numel()
             assert torch.equal(Wl[:, :256], ref[:, 1:]) and torch.equal(Wl[:, 256], ref[:, 0])
+
+
+@pytest.mark.parametrize("L_,skip,n", [(8, 4, 130), (8, 7, 200), (3, 1, 64), (2, 1, 65)])
+def test_forward_reads_and_writes_inside_its_maps(L_, skip, n):
+    """The forward kernel's tensor maps. Its weight stage t of layer l is four
+    64 x 64 boxes at row w_offset(l) / 256 + k0 of the hidden map (the last
+    layer: row k0 of the last map, columns 0..255, never the density column),
+    and each stays inside layer l. The point maps are 2-D [n, 64] (enc) and
+    [n, 256] (feat) and 3-D [L-1, n, 256] (acts, so a box of layer l clips at
+    row n and not in layer l+1), every row stride a multiple of 16 bytes."""
+    gen = torch.Generator().manual_seed(L_ * 10 + skip)
+    layers = []
+    for l in range(L_):
+        k_in = 63 if l == 0 else (256 + 63 if l == skip else 256)
+        k_out = 257 if l == L_ - 1 else 256
+        layers.append({"w": torch.randn((k_in, k_out), generator=gen), "b": torch.randn(k_out, generator=gen)})
+    w, b = t_fused.pack_params(layers, skip)
+    lay = t_fused.layout(L_, skip, 256)
+    hidden_rows, last_rows = lay[-1][2] // 256, lay[-1][0]
+    y0 = 0
+    for l, (K, NO, wo, _) in enumerate(lay):
+        if l < L_ - 1:
+            assert y0 == wo // 256
+        for k0 in range(0, K, 64):
+            y = k0 if l == L_ - 1 else y0 + k0
+            assert y + 64 <= (last_rows if l == L_ - 1 else min(y0 + K, hidden_rows))
+        y0 += K
+
+    enc = torch.randn((n, t_fused.IN_PAD), generator=gen).to(torch.bfloat16)
+    feat, dens, acts = t_fused.trunk_fwd(enc, w, b, L_, skip)
+    assert t_fused.IN_PAD == 64 and enc.stride() == (64, 1)
+    assert feat.shape == (n, 256) and feat.stride() == (256, 1) and dens.shape == (n,)
+    assert acts.shape == (L_ - 1, n, 256) and acts.stride() == (n * 256, 256, 1)
+    feat2, dens2, acts2 = t_fused.trunk_fwd(enc, w, b, L_, skip, store_acts=False)
+    assert acts2 is None and torch.equal(feat2, feat) and torch.equal(dens2, dens)
