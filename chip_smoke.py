@@ -11,9 +11,16 @@ PyTorch version on the card:
   96^3 x 13-channel grid's shapes and at ragged ones, bit for bit;
 * the trilinear kernels at 96^3 with 1 channel (value + gradient) and 13
   channels (value), at the early step's point count, at 1024 x n_samples and
-  at a ragged count, with points on voxel corners, on the border and outside;
-  the 13-channel backward also with POSEPROBE_SCATTER_BARRIER=1 (the staged
-  scatter through `materialize`), against the twin and the direct scatter;
+  at a ragged count, with points on voxel corners, on the border and outside,
+  against the twin and their plain versions; the 13-channel backward also
+  with POSEPROBE_SCATTER_BARRIER=1 (the staged scatter through
+  `materialize`), against the twin and the direct scatter. The whole lookup
+  from the [C, X, Y, Z] grid (forward: `transpose2d` rows + gather; backward:
+  zero-fill + scatter + `transpose_slice`) is timed in turns beside
+  `F.grid_sample` and its backward, with L2 warm and flushed (device times
+  from torch.profiler), for 13 and 1 channels at uniform points and at the
+  points of each grid lookup of one early step, captured from the
+  bench-scale joint trainer;
 * the fused alpha-composite kernels (forward and hand-written backward) at the
   early step's [1024 rays, chord-bound K samples], at the dense
   [1024, n_samples], at ragged shapes, for a soft and a sharp NeuS sigmoid,
@@ -322,6 +329,32 @@ def _materialize_record(layout, src: str, xs, timed, nbytes: float) -> dict:
     return rec
 
 
+def _device_ms(fn, iters: int = 20, flush: bool = False) -> float:
+    """Mean device time of one call of `fn` (its kernels, copies and memsets)
+    under torch.profiler. With `flush`, a copy of 2 x 64 MB (more than the
+    50 MB L2) runs before each call and is left out of the sum. A window in
+    which the profiler lost device events (none, or a count that is not the
+    same for every call) is measured again, at most three times."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush:
+                    _FLUSH[1].copy_(_FLUSH[0])
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0 and not (flush and "Memcpy" in e.key)]
+        if events and all(e.count % iters == 0 for e in events):
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+    raise AssertionError(f"torch.profiler lost device events in three windows of {iters} calls")
+
+
+_FLUSH: list = []
+
+
 def _trilinear_case(grid_ops, G: int, C: int, N: int, lo, hi, seed: int):
     """A random [C, G, G, G] grid and N points: inside, outside, on voxel
     corners and on the border; cotangents for value and gradient."""
@@ -345,12 +378,82 @@ def _tri_close(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
-def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int) -> list:
+def capture_early_points(grid_ops, tr) -> list:
+    """The points of every grid lookup of one early step of the bench-scale
+    joint trainer, in call order: [(grid shape, with_grad, points [N, 3], lo, hi)]."""
+    seen = []
+    kernels = grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad
+
+    def watch(fn, with_grad):
+        def call(grid, xyz, lo, hi):
+            seen.append((tuple(grid.shape), with_grad, xyz.detach().reshape(-1, 3).clone(),
+                         torch.as_tensor(lo, device=DEVICE).float(), torch.as_tensor(hi, device=DEVICE).float()))
+            return fn(grid, xyz, lo, hi)
+        return call
+
+    tr.global_step = 1
+    grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = watch(kernels[0], False), watch(kernels[1], True)
+    try:
+        tr.step()
+    finally:
+        grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = kernels
+    torch.cuda.synchronize()
+    print("early-step lookups captured: " + ", ".join(f"grid {list(gs)}{' value+grad' if wg else ''}: "
+                                                      f"{p.shape[0]} points" for gs, wg, p, _, _ in seen))
+    return seen
+
+
+def _grid_sample_coords(grid_ops, pts, lo, hi):
+    """The points as F.grid_sample takes them: [-1, 1] in (z, y, x) order, [1, 1, 1, N, 3]."""
+    return (2.0 * grid_ops.normalize_coords(pts, lo, hi) - 1.0)[:, [2, 1, 0]].reshape(1, 1, 1, -1, 3).contiguous()
+
+
+def _lookup_times(grid_ops, grid, pts, lo, hi, ct_v, ct_g, with_grad: bool, flush: bool) -> dict:
+    """Device ms of the whole lookup from the [C, X, Y, Z] grid, forward
+    (`rows_from_grid` + gather) and backward (zero-fill + scatter +
+    `transpose_slice`, d_pts too with the gradient), beside F.grid_sample
+    (value only) and its autograd backward, in turns (the port's, the
+    library's, then the reverse); and the gather and the scatter alone."""
+    gshape, C = tuple(grid.shape), grid.shape[0]
+    rows = grid_ops.rows_from_grid(grid)
+    cg = ct_g if with_grad else None
+    coords = _grid_sample_coords(grid_ops, pts, lo, hi)
+    gl = grid.clone().requires_grad_(True)
+    out_l = torch.nn.functional.grid_sample(gl[None], coords, mode="bilinear", padding_mode="border", align_corners=True)
+    ct_l = ct_v.t().reshape(1, C, 1, 1, -1).contiguous()
+    d_rows = torch.zeros((gshape[1] * gshape[2] * gshape[3], grid_ops.row_pad(C)), device=DEVICE)
+    lib, ptr = grid_ops._lib(), grid_ops._ptr
+    stream = torch.cuda.current_stream().cuda_stream
+    X, Y, Z = gshape[1:]
+    fns = {
+        "fwd": lambda: grid_ops.trilinear_fwd(grid_ops.rows_from_grid(grid), pts, lo, hi, gshape, with_grad),
+        "lib_fwd": lambda: torch.nn.functional.grid_sample(grid[None], coords, mode="bilinear", padding_mode="border",
+                                                           align_corners=True),
+        "bwd": lambda: grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad),
+        "lib_bwd": lambda: torch.autograd.grad(out_l, gl, ct_l, retain_graph=True),
+        "gather": lambda: grid_ops.trilinear_fwd(rows, pts, lo, hi, gshape, with_grad),
+        # the scatter kernel alone, into a buffer zeroed once (its sums grow; only its time is read)
+        "scatter": lambda: grid_ops._check(lib, lib.trilinear_bwd(
+            ptr(rows), ptr(pts), ptr(lo), ptr(hi), ptr(ct_v), ptr(cg), X, Y, Z, C, grid_ops.row_pad(C),
+            pts.shape[0], ptr(d_rows), ptr(None), ptr(None), ptr(None), stream), "trilinear_bwd"),
+    }
+    t = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            t[k].append(_device_ms(fns[k], flush=flush))
+    return {k: sum(v) / 2 for k, v in t.items()} | {k + "_turns": v for k, v in t.items()}
+
+
+def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int, early: list) -> list:
     """trilinear_fwd / trilinear_bwd against the autograd twin (nested lerps)
-    for C = 1 with gradient and C = 13 value-only; records for the 13-channel
-    lookup at the early step's point count `n_path`."""
+    for C = 1 with gradient and C = 13 value-only; the whole lookup from the
+    grid timed beside F.grid_sample at uniform points and at the points of
+    each of the early step's lookups (`early`, from `capture_early_points`),
+    L2 warm and flushed; records for the 13-channel lookup at the early step's
+    point count `n_path`."""
     lo = torch.tensor([-0.5, -0.45, -0.55], device=DEVICE)
     hi = torch.tensor([0.5, 0.55, 0.45], device=DEVICE)
+    _FLUSH[:] = [torch.empty(2 ** 24, device=DEVICE), torch.empty(2 ** 24, device=DEVICE)]
     worst = {"fwd": 0.0, "bwd": 0.0}
     for C, with_grad in ((1, True), (13, False)):
         for N in (n_path, n_full, RAGGED_POINTS):
@@ -377,8 +480,23 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int) -> list:
                   f"{f_err:.3e}, bwd max abs err {b_err:.3e} (tolerance {TRI_REL_TOL} of max |twin| "
                   f"+ {TRI_ABS_TOL})")
 
-    # times at the early step's shapes
-    records = []
+    # the kernels against their plain versions on the same inputs, at the early step's shapes
+    for C, with_grad in ((13, False), (1, True)):
+        grid, pts, ct_v, ct_g = _trilinear_case(grid_ops, G, C, n_path, lo, hi, seed=C + 7)
+        gshape, rows, cg = tuple(grid.shape), grid_ops.rows_from_grid(grid), ct_g if with_grad else None
+        pairs = list(zip(grid_ops.trilinear_fwd(rows, pts, lo, hi, gshape, with_grad),
+                         grid_ops.trilinear_fwd_plain(rows, pts, lo, hi, gshape, with_grad)))
+        bpairs = list(zip(grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad),
+                          grid_ops.trilinear_bwd_plain(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad)))
+        torch.cuda.synchronize()
+        worst["fwd"] = max([worst["fwd"]] + [_tri_close(f"trilinear_fwd C={C} against its plain version", a, b)
+                                             for a, b in pairs if a is not None])
+        worst["bwd"] = max([worst["bwd"]] + [_tri_close(f"trilinear_bwd C={C} against its plain version", a, b)
+                                             for a, b in bpairs if a is not None])
+    print(f"trilinear kernels against the twin and their plain versions: worst abs err fwd {worst['fwd']:.3e}, "
+          f"bwd {worst['bwd']:.3e}")
+
+    # records at the early step's shapes
     gshape = (13, G, G, G)
     grid, pts, ct_v, ct_g = _trilinear_case(grid_ops, G, 13, n_path, lo, hi, seed=5)
     rows = grid_ops.rows_from_grid(grid)
@@ -392,11 +510,10 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int) -> list:
     # the library's call for the same function: grid_sample on a 5-D input, border padding,
     # align_corners, coordinates normalised to [-1, 1] in (z, y, x) order; its autograd backward
     # is the library's scatter. Timed here and held against the twin; the port never calls it.
-    coords = (2.0 * grid_ops.normalize_coords(pts, lo, hi) - 1.0)[:, [2, 1, 0]].reshape(1, 1, 1, -1, 3).contiguous()
-    sample = lambda g: torch.nn.functional.grid_sample(  # noqa: E731
-        g[None], coords, mode="bilinear", padding_mode="border", align_corners=True)
+    coords = _grid_sample_coords(grid_ops, pts, lo, hi)
     gl = grid.clone().requires_grad_(True)
-    out_l = sample(gl)                                            # [1, C, 1, 1, N]
+    out_l = torch.nn.functional.grid_sample(gl[None], coords, mode="bilinear", padding_mode="border",
+                                            align_corners=True)            # [1, C, 1, 1, N]
     ct_l = ct_v.t().reshape(1, 13, 1, 1, -1).contiguous()
     d_lib, = torch.autograd.grad(out_l, gl, ct_l, retain_graph=True)
     l_err = max(_tri_close("grid_sample value", out_l.detach()[0, :, 0, 0].t(), out_t.detach()),
@@ -410,7 +527,7 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int) -> list:
     os.environ["POSEPROBE_SCATTER_BARRIER"] = "1"
     try:
         d_staged, _ = grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, None, True, False)
-        staged_ms = _time_ms(lambda: grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, None, True, False))
+        staged_ms = _device_ms(lambda: grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, None, True, False))
     finally:
         os.environ.pop("POSEPROBE_SCATTER_BARRIER")
     if grid_ops.layout.materialize_launches == before:
@@ -419,41 +536,49 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int) -> list:
                 _tri_close("staged d_grid against the direct scatter", d_staged, d_direct),
                 _tri_close("direct d_grid against the twin", d_direct, d_twin))
     print(f"trilinear_bwd C=13 N={n_path} with POSEPROBE_SCATTER_BARRIER=1 (materialize + scatter_rows): "
-          f"d_grid max abs err {s_err:.3e} against the twin and the direct scatter, {staged_ms:.4f} ms")
+          f"d_grid max abs err {s_err:.3e} against the twin and the direct scatter, {staged_ms:.4f} device ms")
 
-    records.append(_record(
-        "trilinear_fwd", "trilinear.cu", "poseprobe_tpu/ops/grid.py:255", worst["fwd"],
-        _time_ms(lambda: grid_ops.trilinear_fwd(rows, pts, lo, hi, gshape, False)),
-        _time_ms(lambda: grid_ops.trilinear_sample_reference(grid, pts, lo, hi)),
-        N * 13 * 8 * 3, n_rows * 13 * 4 + N * 12 + N * 13 * 4, _time_ms(lambda: sample(grid)), PEAK_F32_FLOPS))
-    # the merged 13-channel lookup's backward on the path: d_grid only (its points carry no
-    # gradient). `ms` is the whole function, as the twin and the library compute it (zero-fill,
-    # scatter kernel, transpose_slice -> dense [C, X, Y, Z]); `kernel_ms` is the scatter kernel
-    # alone on a buffer already zeroed, whose traffic is the cotangents and the touched rows.
-    rec = _record(
-        "trilinear_bwd", "trilinear.cu", "poseprobe_tpu/ops/grid.py:269", max(worst["bwd"], s_err),
-        _time_ms(lambda: grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, None, True, False)),
-        _time_ms(lambda: torch.autograd.grad(out_t, gt, ct_v, retain_graph=True)),
-        N * 13 * 8 * 4, N * 12 + N * 13 * 4 + V * 13 * 4,
-        _time_ms(lambda: torch.autograd.grad(out_l, gl, ct_l, retain_graph=True)), PEAK_F32_FLOPS)
-    lib, ptr = grid_ops._lib(), grid_ops._ptr
-    d_rows = torch.zeros((G ** 3, P), device=DEVICE)
-    stream = torch.cuda.current_stream().cuda_stream
-    rec["kernel_ms"] = _time_ms(lambda: grid_ops._check(lib, lib.trilinear_bwd(
-        ptr(rows), ptr(pts), ptr(lo), ptr(hi), ptr(ct_v), ptr(None), G, G, G, 13, P, n_path, ptr(d_rows),
-        ptr(None), ptr(None), ptr(None), stream), "trilinear_bwd"))
-    rec["kernel_bound_ms"] = _bound(N * 13 * 8 * 4, N * 12 + N * 13 * 4 + n_rows * P * 4, PEAK_F32_FLOPS)[0]
-    rec["staged_ms"] = staged_ms
-    print(f"trilinear_bwd: scatter kernel alone {rec['kernel_ms']:.4f} ms (bound {rec['kernel_bound_ms']:.4f} ms: "
-          f"cotangents, points and {int(n_rows)} touched rows of {P} floats)")
-    records.append(rec)
-    # for the record: the 1-channel value+gradient lookup (the deformed SDF sample), d_grid and d_pts
-    g1, p1, cv1, cg1 = _trilinear_case(grid_ops, G, 1, n_path, lo, hi, seed=6)
-    r1 = grid_ops.rows_from_grid(g1)
-    f1 = _time_ms(lambda: grid_ops.trilinear_fwd(r1, p1, lo, hi, (1, G, G, G), True))
-    b1 = _time_ms(lambda: grid_ops.trilinear_bwd(r1, p1, lo, hi, (1, G, G, G), cv1, cg1, True, True))
-    print(f"trilinear C=1 value+grad N={n_path}: fwd {f1:.4f} ms, bwd (d_grid + d_pts) {b1:.4f} ms")
-    return records
+    # the whole lookup from the grid, at uniform points and at each early-step lookup's own points
+    sets = [("uniform", (13, G, G, G), False, pts, lo, hi), ("uniform", (1, G, G, G), True, pts, lo, hi)]
+    sets += [(f"early lookup {i}", gs, wg, p, l, h) for i, (gs, wg, p, l, h) in enumerate(early)]
+    times = {}
+    for set_name, gs, with_grad, p, l, h in sets:
+        C = gs[0]
+        g = torch.Generator(device=DEVICE).manual_seed(C)
+        grid_c = torch.randn(gs, generator=g, device=DEVICE)
+        cv = torch.randn((p.shape[0], C), generator=g, device=DEVICE)
+        cgr = torch.randn((p.shape[0], C, 3), generator=g, device=DEVICE)
+        for flush in (False, True):
+            t = _lookup_times(grid_ops, grid_c, p, l, h, cv, cgr, with_grad, flush)
+            times[(set_name, C, flush)] = t
+            print(f"lookup from the grid {list(gs)}, {set_name} points (N={p.shape[0]})"
+                  f"{' value+grad' if with_grad else ''}, L2 {'flushed' if flush else 'warm'}, device ms (mean of "
+                  f"two turns): forward {t['fwd']:.4f} (gather alone {t['gather']:.4f}), F.grid_sample "
+                  f"{t['lib_fwd']:.4f}; backward {t['bwd']:.4f} (scatter alone {t['scatter']:.4f}), grid_sample "
+                  f"backward {t['lib_bwd']:.4f}; turns "
+                  + json.dumps({k: [round(x, 4) for x in v] for k, v in t.items() if k.endswith("_turns")}))
+    t, tf = times[("uniform", 13, False)], times[("uniform", 13, True)]
+
+    # `ms` is the whole function from the grid, as the twin and the library compute it: forward
+    # rows_from_grid (transpose2d) + gather; backward zero-fill + scatter + transpose_slice (the
+    # merged 13-channel lookup's backward on the path is d_grid only: its points carry no gradient).
+    # `kernel_ms` is the gather or the scatter kernel alone.
+    dev = lambda fn: _device_ms(fn)  # noqa: E731
+    fwd = _record(
+        "trilinear_fwd", "trilinear.cu", "poseprobe_tpu/ops/grid.py:255", worst["fwd"], t["fwd"],
+        dev(lambda: grid_ops.trilinear_sample_reference(grid, pts, lo, hi)),
+        N * 13 * 8 * 3, n_rows * 13 * 4 + N * 12 + N * 13 * 4, t["lib_fwd"], PEAK_F32_FLOPS)
+    fwd.update(kernel_ms=t["gather"], flushed_ms=tf["fwd"], library_flushed_ms=tf["lib_fwd"])
+    bwd = _record(
+        "trilinear_bwd", "trilinear.cu", "poseprobe_tpu/ops/grid.py:269", max(worst["bwd"], s_err), t["bwd"],
+        dev(lambda: torch.autograd.grad(out_t, gt, ct_v, retain_graph=True)),
+        N * 13 * 8 * 4, N * 12 + N * 13 * 4 + V * 13 * 4, t["lib_bwd"], PEAK_F32_FLOPS)
+    bwd.update(kernel_ms=t["scatter"], flushed_ms=tf["bwd"], library_flushed_ms=tf["lib_bwd"], staged_ms=staged_ms,
+               kernel_bound_ms=_bound(N * 13 * 8 * 4, N * 12 + N * 13 * 4 + n_rows * P * 4, PEAK_F32_FLOPS)[0])
+    print(f"trilinear records at C=13, N={n_path} (uniform points, L2 warm, device times by torch.profiler): "
+          f"gather alone {fwd['kernel_ms']:.4f} ms, scatter alone {bwd['kernel_ms']:.4f} ms (bound "
+          f"{bwd['kernel_bound_ms']:.4f} ms: cotangents, points and {int(n_rows)} touched rows of {P} floats)")
+    return [fwd, bwd]
 
 
 def _composite_case(N: int, S: int, inv_s: float, dist: float, seed: int):
@@ -869,7 +994,9 @@ def main() -> int:
 
     records = check_trunk_kernels(fused_mlp, scene_nerf, pe)
     records += check_layout_kernels(layout, G ** 3, C, grid_ops.row_pad(C))
-    records += check_trilinear_kernels(grid_ops, G, ot.N_rand * joint._mask_k, ot.N_rand * om.n_samples)
+    early = capture_early_points(grid_ops, joint)
+    records += check_trilinear_kernels(grid_ops, G, ot.N_rand * joint._mask_k, ot.N_rand * om.n_samples, early)
+    del early
     records += check_composite_kernels(fused_composite, compositing, ot.N_rand, joint._mask_k, om.n_samples)
     print("kernels:", json.dumps([r["name"] for r in records]))
 

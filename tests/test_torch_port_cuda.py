@@ -12,7 +12,8 @@ order (and dW/db with f32 atomics), so a value near a bf16 rounding boundary
 may land one bf16 ulp (2^-8 relative) away, and such flips propagate through
 the layers. Layout kernels: copies, bit-identical. Trilinear kernels: float32
 with sums in another order (the backward adds with atomics): 1e-5 of the
-twin's max |value| + 1e-6. Composite kernels: float32, the transmittance by a
+twin's max |value| + 1e-6 (d_grid with 100,003 points in one voxel, where
+each of 8 sums has 100,003 terms: 1e-4). Composite kernels: float32, the transmittance by a
 warp scan instead of a cumprod: outputs 1e-5 abs, gradients 1e-4 of the plain
 version's largest + 1e-6; rays with a sample whose transmittance lies within
 1e-4 (relative) of the early-termination threshold 1e-3 are left out, since
@@ -312,6 +313,72 @@ def test_trilinear_kernel_equals_its_plain_formulas():
         grid_ops.trilinear_fwd(rows, pts.double(), lo, hi, gshape, True)
     with pytest.raises(ValueError):
         grid_ops.trilinear_sample(torch.zeros((1, 1, 4, 4), device="cuda"), pts, lo, hi)   # a 1-voxel axis
+
+
+def _edge_points(kind, size, n, lo, hi, seed):
+    """`one_voxel`: all n points inside one voxel (every atomic on the same 8
+    rows); `faces`: index coordinates on multiples of 8 on most axes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    top = torch.tensor(size, device="cuda") - 1.0
+    if kind == "one_voxel":
+        ijk = torch.floor(top / 2) + torch.rand((n, 3), generator=g, device="cuda")
+    else:
+        ijk = torch.stack([torch.randint(0, (s + 7) // 8, (n,), generator=g, device="cuda") * 8.0 for s in size], -1)
+        ijk = torch.where(torch.rand((n, 3), generator=g, device="cuda") < 0.3,
+                          torch.rand((n, 3), generator=g, device="cuda") * top, torch.minimum(ijk, top))
+    return (lo + ijk / top * (hi - lo)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,size,n,kind", [
+    (1, (96, 96, 96), 0, "spread"), (13, (96, 96, 96), 0, "spread"), (13, (96, 96, 96), 1, "spread"),
+    (1, (96, 96, 96), 100_003, "one_voxel"), (13, (96, 96, 96), 100_003, "one_voxel"),
+    (13, (96, 96, 96), 20_000, "faces"), (3, (17, 9, 11), 5_000, "faces"), (20, (10, 12, 9), 3_000, "spread"),
+])
+def test_trilinear_kernels_at_edge_cases(C, size, n, kind):
+    """The kernels against their plain versions on the same rows and against
+    the autograd twin with no point, one point, 100,003 points in one voxel
+    (contention on 8 rows), points on multiples of 8 voxels, ragged grids and
+    20 channels. In one voxel each of the 8 d_grid rows sums 100,003 float32
+    terms, in another order than the reference's; the order alone moves such
+    a sum by about 1e-5 of its size (1.1e-5 measured on an H100), so there
+    d_grid is held to 1e-4 of max |reference|; every other output to the
+    usual 1e-5."""
+    _need_card()
+    grid, pts, lo, hi, ct_v, ct_g = _tri_case(C, size, n, seed=C + n + 1)
+    if kind != "spread":
+        pts = _edge_points(kind, size, n, lo, hi, seed=n + 2)
+    gshape, rows = tuple(grid.shape), grid_ops.rows_from_grid(grid)
+
+    def close(out, ref, summed=False):
+        assert out.shape == ref.shape
+        if out.numel():
+            rel = 1e-4 if summed and kind == "one_voxel" else 1e-5
+            assert (out - ref).abs().max() <= rel * ref.abs().max() + 1e-6
+
+    for with_grad in (False, True):
+        cg = ct_g if with_grad else None
+        for o, r in zip(grid_ops.trilinear_fwd(rows, pts, lo, hi, gshape, with_grad),
+                        grid_ops.trilinear_fwd_plain(rows, pts, lo, hi, gshape, with_grad)):
+            if o is not None:
+                close(o, r)
+        d_grid, d_pts = grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad)
+        r_grid, r_pts = grid_ops.trilinear_bwd_plain(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad)
+        close(d_grid, r_grid, summed=True)
+        if with_grad:
+            close(d_pts, r_pts)
+    gk, pk = grid.clone().requires_grad_(True), pts.clone().requires_grad_(True)
+    gt, pt = grid.clone().requires_grad_(True), pts.clone().requires_grad_(True)
+    val, grad = grid_ops.trilinear_sample_with_grad(gk, pk, lo, hi)
+    rval, rgrad = grid_ops.trilinear_vg_reference(gt, pt, lo, hi)
+    torch.autograd.backward([val, grad], [ct_v, ct_g])
+    torch.autograd.backward([rval, rgrad], [ct_v, ct_g])
+    torch.cuda.synchronize()
+    for o, r in ((val, rval), (grad, rgrad), (pk.grad, pt.grad)):
+        close(o.detach(), r.detach())
+    close(gk.grad, gt.grad, summed=True)
+    if n == 0:
+        assert bool((gk.grad == 0).all())
 
 
 @pytest.mark.cuda

@@ -171,6 +171,47 @@ def test_backward_formulas_match_autograd_twin(C, barrier, monkeypatch):
         assert torch.equal(a, b)
 
 
+def _edge_points(size, seed, n=80):
+    """Points on multiples of 8 voxels (one voxel either side), on voxel
+    corners, on the far faces, outside the box, and all inside one voxel."""
+    rng = np.random.default_rng(seed)
+    top = np.asarray(size, np.float32) - 1.0
+    spread = rng.uniform(0, top, (n, 3))
+    eights = np.stack([rng.choice(np.arange(0, s, 8), n) for s in size], -1) + rng.integers(-1, 2, (n, 3))
+    eights = np.where(rng.random((n, 3)) < 0.6, np.clip(eights, 0, top), spread)
+    corners = np.stack([rng.integers(0, s, n) for s in size], -1)
+    far = np.where(rng.random((n, 3)) < 0.5, top, spread)
+    one_voxel = np.floor(top / 2) + rng.uniform(0, 1, (n, 3))
+    ijk = np.concatenate([eights, corners, far, one_voxel])
+    pts = LO + ijk / top * (HI - LO)
+    return np.concatenate([pts, rng.uniform(LO - 0.5, HI + 0.5, (n, 3))]).astype(np.float32)
+
+
+@pytest.mark.parametrize("barrier", ["0", "1"])
+@pytest.mark.parametrize("C", [1, 13])
+@pytest.mark.parametrize("size", [(5, 6, 4), (9, 7, 8), (2, 2, 2), (17, 17, 17)])
+def test_trilinear_edge_points_match_jax(size, C, barrier, monkeypatch):
+    """Value, spatial gradient and both VJPs against JAX's custom-VJP
+    `trilinear_sample_with_grad` on ragged grids, at the points where cell
+    arithmetic is exact or clamped, with and without the staged scatter."""
+    monkeypatch.setenv("POSEPROBE_SCATTER_BARRIER", barrier)
+    rng = np.random.default_rng(C + sum(size))
+    grid = rng.normal(size=(C,) + size).astype(np.float32)
+    pts = _edge_points(size, seed=C + 1)
+    ct_v = rng.normal(size=(pts.shape[0], C)).astype(np.float32)
+    ct_g = rng.normal(size=(pts.shape[0], C, 3)).astype(np.float32)
+    jout, vjp = jax.vjp(lambda g, p: jgrid.trilinear_sample_with_grad(g, p, jnp.asarray(LO), jnp.asarray(HI)),
+                        jnp.asarray(grid), jnp.asarray(pts))
+    jd_grid, jd_pts = vjp((jnp.asarray(ct_v), jnp.asarray(ct_g)))
+    g, p = T(grid, True), T(pts, True)
+    val, grad = tgrid.trilinear_sample_with_grad(g, p, T(LO), T(HI))
+    np.testing.assert_allclose(val.detach().numpy(), np.asarray(jout[0]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(grad.detach().numpy(), np.asarray(jout[1]), rtol=1e-5, atol=1e-4)
+    torch.autograd.backward([val, grad], [T(ct_v), T(ct_g)])
+    _assert_grad(g.grad, jd_grid, "d_grid")
+    _assert_grad(p.grad, jd_pts, "d_pts")
+
+
 def test_far_border_and_outside_points():
     """u == D-1 gives i0 = D-2 with weight 1; outside points clamp to the
     border and have zero spatial gradient on the clamped axes."""
