@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--lookup-points FILE]
 
 Builds the port's CUDA kernels from `poseprobe_tpu_torch/csrc/` (four
 sources, one nvcc each, in parallel) and holds each kernel against its plain
@@ -8,19 +8,21 @@ PyTorch version on the card:
 * the fused-trunk kernels at the mid-phase fine render's 393,216 points and
   at a ragged point count;
 * the layout kernels (`transpose2d`, `transpose_slice`, `materialize`) at the
-  96^3 x 13-channel grid's shapes and at ragged ones, bit for bit;
+  96^3 x 13-channel grid's shapes and at ragged ones, bit for bit (no path
+  launches the two transposes: the lookup works on the grid's own layout);
 * the trilinear kernels at 96^3 with 1 channel (value + gradient) and 13
   channels (value), at the early step's point count, at 1024 x n_samples and
   at a ragged count, with points on voxel corners, on the border and outside,
   against the twin and their plain versions; the 13-channel backward also
   with POSEPROBE_SCATTER_BARRIER=1 (the staged scatter through
   `materialize`), against the twin and the direct scatter. The whole lookup
-  from the [C, X, Y, Z] grid (forward: `transpose2d` rows + gather; backward:
-  zero-fill + scatter + `transpose_slice`) is timed in turns beside
+  from the [C, X, Y, Z] grid (forward: the gather; backward: zero-fill +
+  scatter, both straight on [C, X, Y, Z]) is timed in turns beside
   `F.grid_sample` and its backward, with L2 warm and flushed (device times
   from torch.profiler), for 13 and 1 channels at uniform points and at the
   points of each grid lookup of one early step, captured from the
-  bench-scale joint trainer;
+  bench-scale joint trainer at its first step and again after `fit()` below
+  (three views active, the mask cache refreshed);
 * the fused alpha-composite kernels (forward and hand-written backward) at the
   early step's [1024 rays, chord-bound K samples], at the dense
   [1024, n_samples], at ragged shapes, for a soft and a sharp NeuS sigmoid,
@@ -47,6 +49,8 @@ fixed-ray scores rendered on the card), a mask-cache refresh and a BA-polish
 event, then the probe health check and a validation render. OpenCV is
 optional: without it PnP runs the numpy RANSAC and the BA polish and the match
 refinement decline, as in the reference; the script says which path ran.
+With `--lookup-points FILE` it also saves the captured lookup points there
+(`torch.save`), for `tools/lookup_times.py`.
 
 Prints the card (`nvidia-smi` name and power limit), the build time, errors
 and times, one JSON line `{"kernels": [...]}` and, last, one JSON line
@@ -56,6 +60,7 @@ around it; it has no CPU path.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -74,6 +79,10 @@ FINE_POINTS = (1024 + 2 * 256) * 256   # mid-phase fine render: (rays + corres p
 RAGGED_POINTS = 100_003                # not a multiple of the 128-point tile
 REL_TOL = 2e-2                         # max abs error allowed, as a fraction of max |twin|
 TRI_REL_TOL, TRI_ABS_TOL = 1e-5, 1e-6  # trilinear kernels: float32 sums in another order (atomics)
+# kernels that no path launches: the lookup reads the grid and writes its gradient in their own
+# layout, so the layout kernels that moved them to and from rows are held and timed here, and
+# expected at 0 launches on every path
+OFF_PATH = ("transpose2d", "transpose_slice")
 DEVICE = "cuda"
 SMALL = False                          # bench scale
 # the copy designs `materialize_kernel` was chosen against (`materialize_design` in csrc/layout.cu)
@@ -277,7 +286,8 @@ def check_layout_kernels(layout, V: int, C: int, P: int) -> list:
                 raise AssertionError(f"materialize design {design} differs from the twin at {shape}")
     torch.cuda.synchronize()
     print("layout kernels and the materialize designs: bit-identical to their twins at every shape")
-    # the early step: [C, V] -> [V, C] rows for the gather, [V, P] -> [C, V] after the scatter
+    # at the grid's shapes (the row layouts the TPU's gather and scatter worked on): [C, V] -> [V, C],
+    # [V, P] -> [C, V];
     # four inputs in turn (184 to 226 MB in all, against 50 MB of L2), so the times are device-memory times
     xts, xss = [rand(C, V) for _ in range(4)], [rand(V, P) for _ in range(4)]
     nb = lambda t: float(t.numel() * t.element_size())  # noqa: E731
@@ -332,24 +342,38 @@ def _materialize_record(layout, src: str, xs, timed, nbytes: float) -> dict:
 def _device_ms(fn, iters: int = 20, flush: bool = False) -> float:
     """Mean device time of one call of `fn` (its kernels, copies and memsets)
     under torch.profiler. With `flush`, a copy of 2 x 64 MB (more than the
-    50 MB L2) runs before each call and is left out of the sum. A window in
-    which the profiler lost device events (none, or a count that is not the
-    same for every call) is measured again, at most three times."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                if flush:
-                    _FLUSH[1].copy_(_FLUSH[0])
-                fn()
-            torch.cuda.synchronize()
+    50 MB L2) runs before each call and is left out of the sum. Each window
+    opens with a warmup phase of five calls whose events are discarded: late
+    in long runs the trace dropped the first kernels launched after the
+    profiler started. A window in which the profiler lost device events all
+    the same (none, or a count that is not the same for every call) is
+    measured again, at most twenty times in all; then the call fails, naming
+    what each window returned."""
+    def calls(n):
+        for _ in range(n):
+            if flush:
+                _FLUSH[1].copy_(_FLUSH[0])
+            fn()
+        torch.cuda.synchronize()
+
+    calls(3)
+    lost = []
+    for _ in range(20):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            calls(5)
+            prof.step()
+            calls(iters)
+            prof.step()
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0 and not (flush and "Memcpy" in e.key)]
         if events and all(e.count % iters == 0 for e in events):
+            if lost:
+                print(f"note: torch.profiler lost device events in {len(lost)} window(s) before this one: "
+                      + "; ".join(lost))
             return sum(e.self_device_time_total for e in events) / 1e3 / iters
-    raise AssertionError(f"torch.profiler lost device events in three windows of {iters} calls")
+        lost.append(", ".join(f"{e.key[:40]} x{e.count}" for e in events) or "no device event")
+    raise AssertionError(f"torch.profiler lost device events in twenty windows of {iters} calls: " + "; ".join(lost))
 
 
 _FLUSH: list = []
@@ -378,9 +402,13 @@ def _tri_close(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
-def capture_early_points(grid_ops, tr) -> list:
-    """The points of every grid lookup of one early step of the bench-scale
-    joint trainer, in call order: [(grid shape, with_grad, points [N, 3], lo, hi)]."""
+CAPTURED: dict = {}                     # lookup points by capture label, for --lookup-points
+
+
+def capture_lookup_points(grid_ops, tr, label: str) -> list:
+    """The points of every grid lookup of the joint trainer's next step, in
+    call order: [(grid shape, with_grad, points [N, 3], lo, hi)]; kept in
+    CAPTURED[label]."""
     seen = []
     kernels = grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad
 
@@ -391,15 +419,15 @@ def capture_early_points(grid_ops, tr) -> list:
             return fn(grid, xyz, lo, hi)
         return call
 
-    tr.global_step = 1
     grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = watch(kernels[0], False), watch(kernels[1], True)
     try:
         tr.step()
     finally:
         grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = kernels
     torch.cuda.synchronize()
-    print("early-step lookups captured: " + ", ".join(f"grid {list(gs)}{' value+grad' if wg else ''}: "
-                                                      f"{p.shape[0]} points" for gs, wg, p, _, _ in seen))
+    print(f"lookups of step {tr.global_step - 1} ({label}) captured: "
+          + ", ".join(f"grid {list(gs)}{' value+grad' if wg else ''}: {p.shape[0]} points" for gs, wg, p, _, _ in seen))
+    CAPTURED[label] = seen
     return seen
 
 
@@ -408,34 +436,38 @@ def _grid_sample_coords(grid_ops, pts, lo, hi):
     return (2.0 * grid_ops.normalize_coords(pts, lo, hi) - 1.0)[:, [2, 1, 0]].reshape(1, 1, 1, -1, 3).contiguous()
 
 
+def _row_pad(C: int) -> int:
+    """Width of a 16-byte aligned [V, P] row buffer for C channels (`transpose_slice`'s input)."""
+    return -(-C // 4) * 4
+
+
 def _lookup_times(grid_ops, grid, pts, lo, hi, ct_v, ct_g, with_grad: bool, flush: bool) -> dict:
-    """Device ms of the whole lookup from the [C, X, Y, Z] grid, forward
-    (`rows_from_grid` + gather) and backward (zero-fill + scatter +
-    `transpose_slice`, d_pts too with the gradient), beside F.grid_sample
-    (value only) and its autograd backward, in turns (the port's, the
-    library's, then the reverse); and the gather and the scatter alone."""
-    gshape, C = tuple(grid.shape), grid.shape[0]
-    rows = grid_ops.rows_from_grid(grid)
+    """Device ms of the whole lookup from the [C, X, Y, Z] grid, forward (the
+    gather) and backward (zero-fill + the scatter, d_pts too with the
+    gradient), beside F.grid_sample (value only) and its autograd backward,
+    in turns (the port's, the library's, then the reverse order); and the
+    scatter kernel alone."""
+    C, V = grid.shape[0], grid[0].numel()
     cg = ct_g if with_grad else None
     coords = _grid_sample_coords(grid_ops, pts, lo, hi)
     gl = grid.clone().requires_grad_(True)
     out_l = torch.nn.functional.grid_sample(gl[None], coords, mode="bilinear", padding_mode="border", align_corners=True)
     ct_l = ct_v.t().reshape(1, C, 1, 1, -1).contiguous()
-    d_rows = torch.zeros((gshape[1] * gshape[2] * gshape[3], grid_ops.row_pad(C)), device=DEVICE)
+    d_grid = torch.zeros_like(grid)
+    d_pts = torch.empty_like(pts) if with_grad else None
     lib, ptr = grid_ops._lib(), grid_ops._ptr
     stream = torch.cuda.current_stream().cuda_stream
-    X, Y, Z = gshape[1:]
+    X, Y, Z = grid.shape[1:]
     fns = {
-        "fwd": lambda: grid_ops.trilinear_fwd(grid_ops.rows_from_grid(grid), pts, lo, hi, gshape, with_grad),
+        "fwd": lambda: grid_ops.trilinear_fwd(grid, pts, lo, hi, with_grad),
         "lib_fwd": lambda: torch.nn.functional.grid_sample(grid[None], coords, mode="bilinear", padding_mode="border",
                                                            align_corners=True),
-        "bwd": lambda: grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad),
+        "bwd": lambda: grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, cg, True, with_grad),
         "lib_bwd": lambda: torch.autograd.grad(out_l, gl, ct_l, retain_graph=True),
-        "gather": lambda: grid_ops.trilinear_fwd(rows, pts, lo, hi, gshape, with_grad),
         # the scatter kernel alone, into a buffer zeroed once (its sums grow; only its time is read)
         "scatter": lambda: grid_ops._check(lib, lib.trilinear_bwd(
-            ptr(rows), ptr(pts), ptr(lo), ptr(hi), ptr(ct_v), ptr(cg), X, Y, Z, C, grid_ops.row_pad(C),
-            pts.shape[0], ptr(d_rows), ptr(None), ptr(None), ptr(None), stream), "trilinear_bwd"),
+            ptr(grid), ptr(pts), ptr(lo), ptr(hi), ptr(ct_v), ptr(cg), X, Y, Z, C, pts.shape[0], ptr(d_grid),
+            None, None, ptr(d_pts), stream), "trilinear_bwd"),
     }
     t = {k: [] for k in fns}
     for order in (list(fns), list(fns)[::-1]):
@@ -444,11 +476,33 @@ def _lookup_times(grid_ops, grid, pts, lo, hi, ct_v, ct_g, with_grad: bool, flus
     return {k: sum(v) / 2 for k, v in t.items()} | {k + "_turns": v for k, v in t.items()}
 
 
+def time_lookups(grid_ops, sets) -> dict:
+    """`_lookup_times` for each (name, grid shape, with_grad, points, lo, hi)
+    of `sets` on a random grid of that shape, L2 warm and flushed; printed,
+    and returned by (name, C, flush)."""
+    times = {}
+    for set_name, gs, with_grad, p, l, h in sets:
+        C = gs[0]
+        g = torch.Generator(device=DEVICE).manual_seed(C)
+        grid_c = torch.randn(gs, generator=g, device=DEVICE)
+        cv = torch.randn((p.shape[0], C), generator=g, device=DEVICE)
+        cgr = torch.randn((p.shape[0], C, 3), generator=g, device=DEVICE)
+        for flush in (False, True):
+            t = _lookup_times(grid_ops, grid_c, p, l, h, cv, cgr, with_grad, flush)
+            times[(set_name, C, flush)] = t
+            print(f"lookup from the grid {list(gs)}, {set_name} points (N={p.shape[0]})"
+                  f"{' value+grad' if with_grad else ''}, L2 {'flushed' if flush else 'warm'}, device ms (mean of "
+                  f"two turns): forward {t['fwd']:.4f}, F.grid_sample {t['lib_fwd']:.4f}; backward {t['bwd']:.4f} "
+                  f"(scatter alone {t['scatter']:.4f}), grid_sample backward {t['lib_bwd']:.4f}; turns "
+                  + json.dumps({k: [round(x, 4) for x in v] for k, v in t.items() if k.endswith("_turns")}))
+    return times
+
+
 def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int, early: list) -> list:
     """trilinear_fwd / trilinear_bwd against the autograd twin (nested lerps)
     for C = 1 with gradient and C = 13 value-only; the whole lookup from the
     grid timed beside F.grid_sample at uniform points and at the points of
-    each of the early step's lookups (`early`, from `capture_early_points`),
+    each of the early step's lookups (`early`, from `capture_lookup_points`),
     L2 warm and flushed; records for the 13-channel lookup at the early step's
     point count `n_path`."""
     lo = torch.tensor([-0.5, -0.45, -0.55], device=DEVICE)
@@ -483,11 +537,11 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int, early: l
     # the kernels against their plain versions on the same inputs, at the early step's shapes
     for C, with_grad in ((13, False), (1, True)):
         grid, pts, ct_v, ct_g = _trilinear_case(grid_ops, G, C, n_path, lo, hi, seed=C + 7)
-        gshape, rows, cg = tuple(grid.shape), grid_ops.rows_from_grid(grid), ct_g if with_grad else None
-        pairs = list(zip(grid_ops.trilinear_fwd(rows, pts, lo, hi, gshape, with_grad),
-                         grid_ops.trilinear_fwd_plain(rows, pts, lo, hi, gshape, with_grad)))
-        bpairs = list(zip(grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad),
-                          grid_ops.trilinear_bwd_plain(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad)))
+        cg = ct_g if with_grad else None
+        pairs = list(zip(grid_ops.trilinear_fwd(grid, pts, lo, hi, with_grad),
+                         grid_ops.trilinear_fwd_plain(grid, pts, lo, hi, with_grad)))
+        bpairs = list(zip(grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, cg, True, with_grad),
+                          grid_ops.trilinear_bwd_plain(grid, pts, lo, hi, ct_v, cg, True, with_grad)))
         torch.cuda.synchronize()
         worst["fwd"] = max([worst["fwd"]] + [_tri_close(f"trilinear_fwd C={C} against its plain version", a, b)
                                              for a, b in pairs if a is not None])
@@ -499,10 +553,9 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int, early: l
     # records at the early step's shapes
     gshape = (13, G, G, G)
     grid, pts, ct_v, ct_g = _trilinear_case(grid_ops, G, 13, n_path, lo, hi, seed=5)
-    rows = grid_ops.rows_from_grid(grid)
     idx8 = grid_ops._corner_data(gshape, pts, lo, hi)[0]
     n_rows = float(torch.unique(idx8).numel())                    # the rows this run's points need
-    N, V, P = float(n_path), float(G ** 3), grid_ops.row_pad(13)
+    N, V = float(n_path), float(G ** 3)
     gt = grid.clone().requires_grad_(True)
     out_t = grid_ops.trilinear_sample_reference(gt, pts, lo, hi)
     d_twin, = torch.autograd.grad(out_t, gt, ct_v, retain_graph=True)
@@ -522,12 +575,12 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int, early: l
 
     # the staged scatter of POSEPROBE_SCATTER_BARRIER=1 (updates written out, passed through
     # `materialize`, added by the second kernel) against the twin and the direct scatter
-    d_direct, _ = grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, None, True, False)
+    d_direct, _ = grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, None, True, False)
     before = grid_ops.layout.materialize_launches
     os.environ["POSEPROBE_SCATTER_BARRIER"] = "1"
     try:
-        d_staged, _ = grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, None, True, False)
-        staged_ms = _device_ms(lambda: grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, None, True, False))
+        d_staged, _ = grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, None, True, False)
+        staged_ms = _device_ms(lambda: grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, None, True, False))
     finally:
         os.environ.pop("POSEPROBE_SCATTER_BARRIER")
     if grid_ops.layout.materialize_launches == before:
@@ -541,43 +594,28 @@ def check_trilinear_kernels(grid_ops, G: int, n_path: int, n_full: int, early: l
     # the whole lookup from the grid, at uniform points and at each early-step lookup's own points
     sets = [("uniform", (13, G, G, G), False, pts, lo, hi), ("uniform", (1, G, G, G), True, pts, lo, hi)]
     sets += [(f"early lookup {i}", gs, wg, p, l, h) for i, (gs, wg, p, l, h) in enumerate(early)]
-    times = {}
-    for set_name, gs, with_grad, p, l, h in sets:
-        C = gs[0]
-        g = torch.Generator(device=DEVICE).manual_seed(C)
-        grid_c = torch.randn(gs, generator=g, device=DEVICE)
-        cv = torch.randn((p.shape[0], C), generator=g, device=DEVICE)
-        cgr = torch.randn((p.shape[0], C, 3), generator=g, device=DEVICE)
-        for flush in (False, True):
-            t = _lookup_times(grid_ops, grid_c, p, l, h, cv, cgr, with_grad, flush)
-            times[(set_name, C, flush)] = t
-            print(f"lookup from the grid {list(gs)}, {set_name} points (N={p.shape[0]})"
-                  f"{' value+grad' if with_grad else ''}, L2 {'flushed' if flush else 'warm'}, device ms (mean of "
-                  f"two turns): forward {t['fwd']:.4f} (gather alone {t['gather']:.4f}), F.grid_sample "
-                  f"{t['lib_fwd']:.4f}; backward {t['bwd']:.4f} (scatter alone {t['scatter']:.4f}), grid_sample "
-                  f"backward {t['lib_bwd']:.4f}; turns "
-                  + json.dumps({k: [round(x, 4) for x in v] for k, v in t.items() if k.endswith("_turns")}))
+    times = time_lookups(grid_ops, sets)
     t, tf = times[("uniform", 13, False)], times[("uniform", 13, True)]
 
-    # `ms` is the whole function from the grid, as the twin and the library compute it: forward
-    # rows_from_grid (transpose2d) + gather; backward zero-fill + scatter + transpose_slice (the
-    # merged 13-channel lookup's backward on the path is d_grid only: its points carry no gradient).
-    # `kernel_ms` is the gather or the scatter kernel alone.
+    # `ms` is the whole function from the grid, as the twin and the library compute it: forward the
+    # gather straight from the grid; backward zero-fill + scatter (the merged 13-channel lookup's
+    # backward on the path is d_grid only: its points carry no gradient). `kernel_ms`: the scatter
+    # kernel alone.
     dev = lambda fn: _device_ms(fn)  # noqa: E731
     fwd = _record(
         "trilinear_fwd", "trilinear.cu", "poseprobe_tpu/ops/grid.py:255", worst["fwd"], t["fwd"],
         dev(lambda: grid_ops.trilinear_sample_reference(grid, pts, lo, hi)),
         N * 13 * 8 * 3, n_rows * 13 * 4 + N * 12 + N * 13 * 4, t["lib_fwd"], PEAK_F32_FLOPS)
-    fwd.update(kernel_ms=t["gather"], flushed_ms=tf["fwd"], library_flushed_ms=tf["lib_fwd"])
+    fwd.update(flushed_ms=tf["fwd"], library_flushed_ms=tf["lib_fwd"])
     bwd = _record(
         "trilinear_bwd", "trilinear.cu", "poseprobe_tpu/ops/grid.py:269", max(worst["bwd"], s_err), t["bwd"],
         dev(lambda: torch.autograd.grad(out_t, gt, ct_v, retain_graph=True)),
         N * 13 * 8 * 4, N * 12 + N * 13 * 4 + V * 13 * 4, t["lib_bwd"], PEAK_F32_FLOPS)
     bwd.update(kernel_ms=t["scatter"], flushed_ms=tf["bwd"], library_flushed_ms=tf["lib_bwd"], staged_ms=staged_ms,
-               kernel_bound_ms=_bound(N * 13 * 8 * 4, N * 12 + N * 13 * 4 + n_rows * P * 4, PEAK_F32_FLOPS)[0])
+               kernel_bound_ms=_bound(N * 13 * 8 * 4, N * 12 + N * 13 * 4 + n_rows * 13 * 4, PEAK_F32_FLOPS)[0])
     print(f"trilinear records at C=13, N={n_path} (uniform points, L2 warm, device times by torch.profiler): "
-          f"gather alone {fwd['kernel_ms']:.4f} ms, scatter alone {bwd['kernel_ms']:.4f} ms (bound "
-          f"{bwd['kernel_bound_ms']:.4f} ms: cotangents, points and {int(n_rows)} touched rows of {P} floats)")
+          f"scatter alone {bwd['kernel_ms']:.4f} ms (bound {bwd['kernel_bound_ms']:.4f} ms: cotangents, points and "
+          f"{int(n_rows)} touched voxels of 13 channels)")
     return [fwd, bwd]
 
 
@@ -722,11 +760,10 @@ def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
     print(f"max memory allocated (early): {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if not all(math.isfinite(float(v)) for m in metrics for v in m.values()):
         raise AssertionError("non-finite metrics in the early phase")
-    # per step: the scene half's one coarse trunk render, the deformed 1-channel value+gradient lookup, the merged 13-channel
-    # lookup (one transpose2d forward, one transpose_slice backward) and the
-    # reprojection term's 1-channel lookup
-    expect = {"trunk_fwd": steps, "trunk_bwd": steps, "trilinear_fwd": 3 * steps, "trilinear_bwd": 3 * steps, "transpose2d": steps,
-              "transpose_slice": steps, "materialize": 0}
+    # per step: the scene half's one coarse trunk render, the deformed 1-channel value+gradient lookup, the
+    # merged 13-channel lookup and the reprojection term's 1-channel lookup, all on the grids' own layout
+    expect = {"trunk_fwd": steps, "trunk_bwd": steps, "trilinear_fwd": 3 * steps, "trilinear_bwd": 3 * steps,
+              "transpose2d": 0, "transpose_slice": 0, "materialize": 0}
     if early != expect:
         raise AssertionError(f"the early phase's grid lookups did not all run through the kernels: "
                              f"{early}, expected {expect}")
@@ -916,7 +953,7 @@ def drive_fit(mods: dict, trainer_mod) -> dict:
     # every early step renders the object rays once: one composite forward and one backward
     if not (fit_counts["composite_fwd"] == fit_counts["composite_bwd"] == n_steps):
         raise AssertionError(f"the composite kernels did not carry every early step: {fit_counts}")
-    if min(fit_counts.values()) < n_steps:
+    if min(v for k, v in fit_counts.items() if k not in OFF_PATH) < n_steps:
         raise AssertionError(f"a kernel of the early step was launched less than once a step: {fit_counts}")
     if not torch.equal(tr.mask_arr, torch.ones_like(tr.mask_arr)) or tr._mask_k != tr._k_phase:
         raise AssertionError("the mask-cache refresh left the plastic phase's all-true mask and chord K")
@@ -960,10 +997,19 @@ def drive_fit(mods: dict, trainer_mod) -> dict:
     tr.cfg = fused_cfg
     print(f"early step, 3 views active, ms/step in turns (fused, plain, plain, fused): fused composite "
           f"{ms['fused'][0]:.2f} and {ms['fused'][1]:.2f}, plain composite {ms['plain'][0]:.2f} and {ms['plain'][1]:.2f}")
+
+    # the lookups of a later early step (three views active, the mask cache refreshed), timed as the
+    # first step's are in `check_trilinear_kernels`
+    late = capture_lookup_points(grid_ops, tr, "late")
+    time_lookups(grid_ops, [(f"late lookup {i}", gs, wg, p, l, h) for i, (gs, wg, p, l, h) in enumerate(late)])
     return {"fit": fit_counts}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA GPU.")
+    parser.add_argument("--lookup-points", metavar="FILE",
+                        help="also save the captured lookup points there (torch.save), for tools/lookup_times.py")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -993,8 +1039,9 @@ def main() -> int:
     C = 1 + om.rgbnet_dim
 
     records = check_trunk_kernels(fused_mlp, scene_nerf, pe)
-    records += check_layout_kernels(layout, G ** 3, C, grid_ops.row_pad(C))
-    early = capture_early_points(grid_ops, joint)
+    records += check_layout_kernels(layout, G ** 3, C, _row_pad(C))
+    joint.global_step = 1
+    early = capture_lookup_points(grid_ops, joint, "early")
     records += check_trilinear_kernels(grid_ops, G, ot.N_rand * joint._mask_k, ot.N_rand * om.n_samples, early)
     del early
     records += check_composite_kernels(fused_composite, compositing, ot.N_rand, joint._mask_k, om.n_samples)
@@ -1008,8 +1055,12 @@ def main() -> int:
     for rec in records:
         rec["launches_by_phase"] = {ph: c[rec["name"]] for ph, c in by_phase.items() if rec["name"] in c}
         rec["launches"] = sum(rec["launches_by_phase"].values())
-        if rec["launches"] == 0:
+        if rec["launches"] == 0 and rec["name"] not in OFF_PATH:
             raise AssertionError(f"{rec['name']} was never launched on the main path")
+    if args.lookup_points:
+        torch.save({label: [(gs, wg, p.cpu(), lo.cpu(), hi.cpu()) for gs, wg, p, lo, hi in sets]
+                    for label, sets in CAPTURED.items()}, args.lookup_points)
+        print(f"lookup points saved to {args.lookup_points}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,10 +4,11 @@
 //   transpose2d     [A, B] -> [B, A]
 //   transpose_slice [V, P] -> [C, V]   (first C of P columns, transposed)
 //   materialize     identity copy into a fresh buffer
-// whose one job is to turn the row-major [V, P] buffer that the trilinear
-// scatter-add fills (one contiguous row per corner update) into the
-// channel-major [C, X, Y, Z] layout grids are stored in, and back for the
-// forward gather.
+// whose job on the TPU was to move a grid between the channel-major
+// [C, X, Y, Z] layout it is stored in and the row-major [V, P] rows the
+// gather and the scatter-add worked on. The port's trilinear kernels work on
+// [C, X, Y, Z] itself, so the two transposes run on no path; they are held
+// against their twins and timed.
 //
 // All three are pure data movement, bound by bytes: each element is read once
 // and written once. The design only has to keep both sides of the transpose

@@ -5,24 +5,24 @@ Port of `poseprobe_tpu/ops/grid.py`. Grids are plain tensors [C, X, Y, Z];
 `F.grid_sample(..., padding_mode="border", align_corners=True)` with world x
 indexing grid dim 0.
 
-The trilinear sampler is the consumer of the layout kernels (`ops/layout.py`):
-its forward gathers the 8 corner rows of every point from a row-major [V, C]
-view of the grid (made by `transpose2d` when C > 1; a free reshape for C = 1)
-and its hand-written backward scatter-adds per-corner contributions into a
-zeroed row-major [V, P] buffer (P = C rounded up to 16-byte rows) that
-`transpose_slice` turns back into [C, X, Y, Z]. On the TPU the gather and the
-scatter were XLA ops; here both are hand-written Hopper kernels
-(`poseprobe_tpu_torch/csrc/trilinear.cu`, sm_90a): `trilinear_fwd` for
-`_trilinear_value` and `_trilinear_vg` (value and analytic spatial gradient),
-`trilinear_bwd` for their VJPs (`d_pts` by the closed-form cross terms,
-`d_grid` by float atomicAdd, so it sums in a run-dependent order and agrees
-with the plain versions to float32 rounding, not bitwise). With
-`POSEPROBE_SCATTER_BARRIER=1` (the JAX package's switch) the multi-channel
-updates are written out, passed through `layout.materialize` and scattered by
-a second kernel, as the reference does at that edge. The reference's
-window-scatter and window-gather experiments (`POSEPROBE_WINDOW_SCATTER`,
-`POSEPROBE_WINDOW_GATHER`, `POSEPROBE_PIN_LAYOUT`) steer XLA lowerings that
-do not exist here and are not ported.
+The trilinear sampler works on the grid's own layout in both directions: its
+forward gathers the 8 corners of every point straight from [C, X, Y, Z] and
+its hand-written backward adds the per-corner contributions straight into a
+zeroed [C, X, Y, Z] gradient; nothing is transposed. On the TPU the gather
+and the scatter were XLA ops around the Pallas layout kernels
+(`ops/layout.py`); here both are hand-written Hopper kernels
+(`poseprobe_tpu_torch/csrc/trilinear.cu`, sm_90a, one thread per point):
+`trilinear_fwd` for `_trilinear_value` and `_trilinear_vg` (value and
+analytic spatial gradient), `trilinear_bwd` for their VJPs (`d_pts` by the
+closed-form cross terms, summed over the channels and stored; `d_grid` by
+float atomics, so it sums in a run-dependent order and agrees with the plain
+versions to float32 rounding, not bitwise). With `POSEPROBE_SCATTER_BARRIER=1`
+(the JAX package's switch) the multi-channel updates are written out, passed
+through `layout.materialize` and added by a second kernel, as the reference
+does at that edge. The reference's window-scatter and window-gather
+experiments (`POSEPROBE_WINDOW_SCATTER`, `POSEPROBE_WINDOW_GATHER`,
+`POSEPROBE_PIN_LAYOUT`) steer XLA lowerings that do not exist here and are
+not ported.
 
 Beside each kernel wrapper stands its plain version (`trilinear_fwd_plain`,
 `trilinear_bwd_plain`: the same formulas in PyTorch ops, run for tensors on
@@ -54,23 +54,9 @@ def _scatter_barrier() -> bool:
     return os.environ.get("POSEPROBE_SCATTER_BARRIER", "0") == "1"
 
 
-def row_pad(C: int) -> int:
-    """Row width P >= C of the scatter buffer: 16-byte aligned rows for C > 1."""
-    return 1 if C == 1 else -(-C // 4) * 4
-
-
 def normalize_coords(xyz, xyz_min, xyz_max):
     """World coords -> [0, 1] per axis (align_corners=True: xyz_min -> 0, xyz_max -> 1)."""
     return (xyz - xyz_min) / (xyz_max - xyz_min)
-
-
-def rows_from_grid(grid: torch.Tensor) -> torch.Tensor:
-    """[C, X, Y, Z] -> row-major [V, C] rows for the corner gather."""
-    C = grid.shape[0]
-    flat = grid.reshape(C, -1)
-    if C == 1:
-        return flat.reshape(-1, 1)
-    return layout.transpose2d(flat.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -163,10 +149,15 @@ def _corner_data(gshape, pts, xyz_min, xyz_max):
     return idx8, (AX, AY, AZ), (sign(_CORNER_I), sign(_CORNER_J), sign(_CORNER_K)), sm
 
 
-def trilinear_fwd_plain(rows, pts, xyz_min, xyz_max, gshape, with_grad: bool):
-    """rows [V, C], pts [N, 3] -> (val [N, C], grad [N, C, 3] or None)."""
-    idx8, (AX, AY, AZ), (SX, SY, SZ), (sxm, sym, szm) = _corner_data(gshape, pts, xyz_min, xyz_max)
-    vals = rows[idx8]                                             # [N, 8, C]
+def _rows(grid):
+    """grid [C, X, Y, Z] -> a [V, C] view (or copy) of its voxels' channel rows."""
+    return grid.reshape(grid.shape[0], -1).t()
+
+
+def trilinear_fwd_plain(grid, pts, xyz_min, xyz_max, with_grad: bool):
+    """grid [C, X, Y, Z], pts [N, 3] -> (val [N, C], grad [N, C, 3] or None)."""
+    idx8, (AX, AY, AZ), (SX, SY, SZ), (sxm, sym, szm) = _corner_data(grid.shape, pts, xyz_min, xyz_max)
+    vals = _rows(grid)[idx8]                                      # [N, 8, C]
     val = torch.einsum("nc,ncd->nd", AX * AY * AZ, vals)
     if not with_grad:
         return val, None
@@ -176,10 +167,11 @@ def trilinear_fwd_plain(rows, pts, xyz_min, xyz_max, gshape, with_grad: bool):
     return val, torch.stack([gx, gy, gz], dim=-1)
 
 
-def trilinear_bwd_plain(rows, pts, xyz_min, xyz_max, gshape, ct_v, ct_g,
+def trilinear_bwd_plain(grid, pts, xyz_min, xyz_max, ct_v, ct_g,
                         need_grid: bool = True, need_pts: bool = True):
     """The VJP of `trilinear_fwd_plain`: cotangents ct_v [N, C] and ct_g
     [N, C, 3] (either may be None) -> (d_grid [C, X, Y, Z], d_pts [N, 3])."""
+    gshape = tuple(grid.shape)
     C, N = gshape[0], pts.shape[0]
     V = gshape[1] * gshape[2] * gshape[3]
     idx8, (AX, AY, AZ), (SX, SY, SZ), (sxm, sym, szm) = _corner_data(gshape, pts, xyz_min, xyz_max)
@@ -192,14 +184,12 @@ def trilinear_bwd_plain(rows, pts, xyz_min, xyz_max, gshape, ct_v, ct_g,
                    + (SX * AY * AZ * sxm)[..., None] * ct_gx[:, None, :]
                    + (SY * AX * AZ * sym)[..., None] * ct_gy[:, None, :]
                    + (SZ * AX * AY * szm)[..., None] * ct_gz[:, None, :])          # [N, 8, C]
-        P = row_pad(C)
-        up = F.pad(contrib.reshape(-1, C), (0, P - C))
+        up = contrib.permute(2, 0, 1).reshape(C, -1)                                # [C, N*8]
         if C > 1 and _scatter_barrier():
             up = layout.materialize(up)
-        d = pts.new_zeros((V, P)).index_add_(0, idx8.reshape(-1), up)
-        d_grid = (d if C == 1 else layout.transpose_slice(d, C)).reshape(gshape)
+        d_grid = pts.new_zeros((C, V)).index_add_(1, idx8.reshape(-1), up).reshape(gshape)
     if need_pts:
-        vals = rows[idx8]
+        vals = _rows(grid)[idx8]
         v_v = torch.einsum("ncd,nd->nc", vals, ct_v)
         v_gx = torch.einsum("ncd,nd->nc", vals, ct_gx)
         v_gy = torch.einsum("ncd,nd->nc", vals, ct_gy)
@@ -224,18 +214,21 @@ def trilinear_bwd_plain(rows, pts, xyz_min, xyz_max, gshape, ct_v, ct_g,
 @functools.lru_cache(maxsize=None)
 def _lib():
     return _build.declare(_build.load("trilinear"), trilinear_fwd="ppppiiiilppp",
-                          trilinear_bwd="ppppppiiiiilppppp", scatter_rows="pppliip")
+                          trilinear_bwd="ppppppiiiilppppp", scatter_rows="pppllip")
 
 
-def _check_inputs(rows, pts, xyz_min, xyz_max, gshape, **cts) -> None:
-    C, X, Y, Z = gshape
-    V = X * Y * Z
-    if min(X, Y, Z) < 2:
-        raise ValueError(f"the trilinear kernels need at least 2 voxels per axis, got {gshape}")
-    if V * row_pad(C) >= 2 ** 31:
-        raise ValueError(f"grid {gshape} too large for 32-bit voxel ids")
-    shapes = dict(rows=(V, C), pts=(pts.shape[0], 3), xyz_min=(3,), xyz_max=(3,))
-    tensors = dict(rows=rows, pts=pts, xyz_min=xyz_min, xyz_max=xyz_max, **cts)
+def _check_inputs(grid, pts, xyz_min, xyz_max, **cts) -> None:
+    """Raise on what the kernels do not take: every tensor contiguous float32
+    on the points' device, the grid [C, X, Y, Z] with 2 voxels per axis."""
+    if grid.ndim != 4:
+        raise ValueError(f"grid: expected [C, X, Y, Z], got {tuple(grid.shape)}")
+    C, X, Y, Z = grid.shape
+    if C < 1 or min(X, Y, Z) < 2:
+        raise ValueError(f"the trilinear kernels need a channel and 2 voxels per axis, got {tuple(grid.shape)}")
+    if X * Y * Z >= 2 ** 31:
+        raise ValueError(f"grid {tuple(grid.shape)} too large for 32-bit voxel ids")
+    shapes = dict(pts=(pts.shape[0], 3), xyz_min=(3,), xyz_max=(3,))
+    tensors = dict(grid=grid, pts=pts, xyz_min=xyz_min, xyz_max=xyz_max, **cts)
     for name, t in tensors.items():
         if t is None:
             continue
@@ -246,15 +239,14 @@ def _check_inputs(rows, pts, xyz_min, xyz_max, gshape, **cts) -> None:
                              f"{pts.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def trilinear_fwd(rows, pts, xyz_min, xyz_max, gshape, with_grad: bool):
-    """rows [V, C] (see `rows_from_grid`), pts [N, 3], bounds [3] ->
-    (val [N, C], grad [N, C, 3] or None). Kernel on CUDA tensors, plain
-    version on CPU ones."""
+def trilinear_fwd(grid, pts, xyz_min, xyz_max, with_grad: bool):
+    """grid [C, X, Y, Z], pts [N, 3], bounds [3] -> (val [N, C], grad
+    [N, C, 3] or None). Kernel on CUDA tensors, plain version on CPU ones."""
     global fwd_launches
     if not pts.is_cuda:
-        return trilinear_fwd_plain(rows, pts, xyz_min, xyz_max, gshape, with_grad)
-    _check_inputs(rows, pts, xyz_min, xyz_max, gshape)
-    C, X, Y, Z = gshape
+        return trilinear_fwd_plain(grid, pts, xyz_min, xyz_max, with_grad)
+    _check_inputs(grid, pts, xyz_min, xyz_max)
+    C, X, Y, Z = grid.shape
     N = pts.shape[0]
     val = torch.empty((N, C), dtype=torch.float32, device=pts.device)
     grad = torch.empty((N, C, 3), dtype=torch.float32, device=pts.device) if with_grad else None
@@ -262,44 +254,42 @@ def trilinear_fwd(rows, pts, xyz_min, xyz_max, gshape, with_grad: bool):
         return val, grad
     lib = _lib()
     stream = torch.cuda.current_stream(pts.device).cuda_stream
-    _check(lib, lib.trilinear_fwd(_ptr(rows), _ptr(pts), _ptr(xyz_min), _ptr(xyz_max), X, Y, Z, C, N,
+    _check(lib, lib.trilinear_fwd(_ptr(grid), _ptr(pts), _ptr(xyz_min), _ptr(xyz_max), X, Y, Z, C, N,
                                   _ptr(val), _ptr(grad), stream), "trilinear_fwd")
     fwd_launches += 1
     return val, grad
 
 
-def trilinear_bwd(rows, pts, xyz_min, xyz_max, gshape, ct_v, ct_g,
+def trilinear_bwd(grid, pts, xyz_min, xyz_max, ct_v, ct_g,
                   need_grid: bool = True, need_pts: bool = True):
     """The VJP of `trilinear_fwd`: (d_grid [C, X, Y, Z] or None, d_pts [N, 3]
     or None). Kernel on CUDA tensors, plain version on CPU ones."""
     global bwd_launches
     if not pts.is_cuda:
-        return trilinear_bwd_plain(rows, pts, xyz_min, xyz_max, gshape, ct_v, ct_g, need_grid, need_pts)
+        return trilinear_bwd_plain(grid, pts, xyz_min, xyz_max, ct_v, ct_g, need_grid, need_pts)
+    gshape = tuple(grid.shape)
     C, X, Y, Z = gshape
-    N, V, P = pts.shape[0], X * Y * Z, row_pad(C)
-    _check_inputs(rows, pts, xyz_min, xyz_max, gshape, ct_v=ct_v, ct_g=ct_g)
+    N, V = pts.shape[0], X * Y * Z
+    _check_inputs(grid, pts, xyz_min, xyz_max, ct_v=ct_v, ct_g=ct_g)
     if ct_v is not None and tuple(ct_v.shape) != (N, C) or ct_g is not None and tuple(ct_g.shape) != (N, C, 3):
         raise ValueError("trilinear_bwd: cotangent shapes do not match [N, C] and [N, C, 3]")
     dev = pts.device
-    d_rows = torch.zeros((V, P), dtype=torch.float32, device=dev) if need_grid else None
-    d_pts = torch.zeros((N, 3), dtype=torch.float32, device=dev) if need_pts else None
+    # the kernel adds into the zeroed d_grid and stores every d_pts row
+    d_grid = torch.zeros(gshape, dtype=torch.float32, device=dev) if need_grid else None
+    d_pts = torch.empty((N, 3), dtype=torch.float32, device=dev) if need_pts else None
     staged = need_grid and C > 1 and _scatter_barrier()
-    up = torch.zeros((N * 8, P), dtype=torch.float32, device=dev) if staged else None
+    up = torch.empty((C, N * 8), dtype=torch.float32, device=dev) if staged else None
     up_idx = torch.empty(N * 8, dtype=torch.int32, device=dev) if staged else None
     if N > 0 and (need_grid or need_pts):
         lib = _lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, lib.trilinear_bwd(_ptr(rows), _ptr(pts), _ptr(xyz_min), _ptr(xyz_max), _ptr(ct_v),
-                                      _ptr(ct_g), X, Y, Z, C, P, N, None if staged else _ptr(d_rows),
-                                      _ptr(up), _ptr(up_idx), _ptr(d_pts), stream), "trilinear_bwd")
+        _check(lib, lib.trilinear_bwd(_ptr(grid), _ptr(pts), _ptr(xyz_min), _ptr(xyz_max), _ptr(ct_v), _ptr(ct_g),
+                                      X, Y, Z, C, N, None if staged else _ptr(d_grid), _ptr(up), _ptr(up_idx),
+                                      _ptr(d_pts), stream), "trilinear_bwd")
         bwd_launches += 1
         if staged:
             up = layout.materialize(up)
-            _check(lib, lib.scatter_rows(_ptr(up), _ptr(up_idx), _ptr(d_rows), N * 8, P, C, stream),
-                   "scatter_rows")
-    d_grid = None
-    if need_grid:
-        d_grid = (d_rows if C == 1 else layout.transpose_slice(d_rows, C)).reshape(gshape)
+            _check(lib, lib.scatter_rows(_ptr(up), _ptr(up_idx), _ptr(d_grid), V, N * 8, C, stream), "scatter_rows")
     return d_grid, d_pts
 
 
@@ -309,26 +299,25 @@ def trilinear_bwd(rows, pts, xyz_min, xyz_max, gshape, ct_v, ct_g,
 
 class _Trilinear(torch.autograd.Function):
     """with_grad=False: value only (the reference's `_trilinear_value`);
-    True: value and spatial gradient (`_trilinear_vg`). First-order VJP only."""
+    True: value and spatial gradient (`_trilinear_vg`). First-order VJP only.
+    Both directions read the grid in its own [C, X, Y, Z] layout."""
 
     @staticmethod
     def forward(ctx, grid, pts, xyz_min, xyz_max, with_grad):
-        rows = rows_from_grid(grid)
-        val, grad = trilinear_fwd(rows, pts, xyz_min, xyz_max, tuple(grid.shape), with_grad)
-        ctx.save_for_backward(rows, pts, xyz_min, xyz_max)
-        ctx.gshape = tuple(grid.shape)
+        grid = grid.contiguous()
+        val, grad = trilinear_fwd(grid, pts, xyz_min, xyz_max, with_grad)
+        ctx.save_for_backward(grid, pts, xyz_min, xyz_max)
         if with_grad:
             return val, grad
         return val
 
     @staticmethod
     def backward(ctx, ct_v, ct_g=None):
-        rows, pts, xyz_min, xyz_max = ctx.saved_tensors
+        grid, pts, xyz_min, xyz_max = ctx.saved_tensors
         need_grid, need_pts = ctx.needs_input_grad[:2]
         ct_v = None if ct_v is None else ct_v.contiguous()
         ct_g = None if ct_g is None else ct_g.contiguous()
-        d_grid, d_pts = trilinear_bwd(rows, pts, xyz_min, xyz_max, ctx.gshape, ct_v, ct_g,
-                                      need_grid, need_pts)
+        d_grid, d_pts = trilinear_bwd(grid, pts, xyz_min, xyz_max, ct_v, ct_g, need_grid, need_pts)
         return d_grid, d_pts, None, None, None
 
 

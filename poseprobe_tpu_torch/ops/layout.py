@@ -6,12 +6,15 @@ first C of P columns transposed) and `materialize` (identity copy into a
 fresh buffer). The CUDA C++ source is `poseprobe_tpu_torch/csrc/layout.cu`
 (sm_90a, built with nvcc at first use, bound with ctypes).
 
-Their consumer is the trilinear sampler of `ops/grid.py`: its backward
-scatter-adds one contiguous row per corner into a row-major [V, P] buffer and
-`transpose_slice` turns that into the channel-major [C, X, Y, Z] a grid is
-stored in; `transpose2d` makes the [V, C] rows the forward gathers from.
-On the TPU `materialize` was a fusion barrier for XLA; eager PyTorch fuses
-nothing, so here it is only the copy.
+On the TPU they moved a grid between the channel-major [C, X, Y, Z] layout
+it is stored in and the row-major [V, C] / [V, P] rows that XLA's gather and
+scatter-add work on. The port's trilinear sampler (`ops/grid.py`) gathers
+from and adds into [C, X, Y, Z] itself, so no path launches `transpose2d` or
+`transpose_slice`; `chip_smoke.py` holds both against their twins and times
+them. `materialize` stages the
+multi-channel scatter's updates under POSEPROBE_SCATTER_BARRIER=1: on the TPU
+it was a fusion barrier for XLA; eager PyTorch fuses nothing, so here it is
+only the copy.
 
 All three are copies, bound by bytes, and must agree with their plain twins
 bit for bit. `torch.Tensor.t().contiguous()` and `clone()` are what they are

@@ -11,9 +11,10 @@ Tolerances. Trunk kernels: max abs error within 2e-2 of the twin's max
 order (and dW/db with f32 atomics), so a value near a bf16 rounding boundary
 may land one bf16 ulp (2^-8 relative) away, and such flips propagate through
 the layers. Layout kernels: copies, bit-identical. Trilinear kernels: float32
-with sums in another order (the backward adds with atomics): 1e-5 of the
-twin's max |value| + 1e-6 (d_grid with 100,003 points in one voxel, where
-each of 8 sums has 100,003 terms: 1e-4). Composite kernels: float32, the transmittance by a
+with sums in another order (the backward adds with atomics, whose order
+changes from run to run, so d_grid agrees to float32 rounding and not bit for
+bit): 1e-5 of the twin's max |value| + 1e-6 (d_grid with 100,003 points in
+one voxel, where each of 8 sums has 100,003 terms: 1e-4). Composite kernels: float32, the transmittance by a
 warp scan instead of a cumprod: outputs 1e-5 abs, gradients 1e-4 of the plain
 version's largest + 1e-6; rays with a sample whose transmittance lies within
 1e-4 (relative) of the early-termination threshold 1e-3 are left out, since
@@ -301,18 +302,68 @@ def test_trilinear_kernel_equals_its_plain_formulas():
     same formulas in PyTorch ops) on the card."""
     _need_card()
     grid, pts, lo, hi, ct_v, ct_g = _tri_case(13, (24, 20, 28), 5000, seed=3)
-    rows = grid_ops.rows_from_grid(grid)
-    gshape = tuple(grid.shape)
-    for o, r in zip(grid_ops.trilinear_fwd(rows, pts, lo, hi, gshape, True),
-                    grid_ops.trilinear_fwd_plain(rows, pts, lo, hi, gshape, True)):
+    for o, r in zip(grid_ops.trilinear_fwd(grid, pts, lo, hi, True),
+                    grid_ops.trilinear_fwd_plain(grid, pts, lo, hi, True)):
         _tri_close(o, r)
-    for o, r in zip(grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, ct_g),
-                    grid_ops.trilinear_bwd_plain(rows, pts, lo, hi, gshape, ct_v, ct_g)):
+    for o, r in zip(grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, ct_g),
+                    grid_ops.trilinear_bwd_plain(grid, pts, lo, hi, ct_v, ct_g)):
         _tri_close(o, r)
     with pytest.raises(ValueError):
-        grid_ops.trilinear_fwd(rows, pts.double(), lo, hi, gshape, True)
+        grid_ops.trilinear_fwd(grid, pts.double(), lo, hi, True)
+    with pytest.raises(ValueError):
+        grid_ops.trilinear_fwd(grid.transpose(1, 3), pts, lo, hi, True)        # not contiguous
+    with pytest.raises(ValueError):
+        grid_ops.trilinear_bwd(grid.reshape(13, -1).t().contiguous().t().reshape(grid.shape), pts, lo, hi,
+                               ct_v, ct_g)                                     # [V, C] rows viewed as the grid
     with pytest.raises(ValueError):
         grid_ops.trilinear_sample(torch.zeros((1, 1, 4, 4), device="cuda"), pts, lo, hi)   # a 1-voxel axis
+
+
+def _bwd_direct(grid, pts, lo, hi, ct_v, ct_g, d_grid, d_pts):
+    """One launch of the backward kernel into given d_grid and d_pts buffers."""
+    lib, ptr = grid_ops._lib(), grid_ops._ptr
+    C, X, Y, Z = grid.shape
+    grid_ops._check(lib, lib.trilinear_bwd(
+        ptr(grid), ptr(pts), ptr(lo), ptr(hi), ptr(ct_v), ptr(ct_g), X, Y, Z, C, pts.shape[0], ptr(d_grid),
+        None, None, ptr(d_pts), torch.cuda.current_stream().cuda_stream), "trilinear_bwd")
+
+
+def _off16(shape):
+    """A zeroed float32 buffer of `shape` that starts 4 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, device="cuda")[1:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(24, 20, 28), (7, 5, 9)])
+@pytest.mark.parametrize("C", [1, 12, 13, 16])
+def test_trilinear_kernels_match_plain_at_every_channel_count(C, size):
+    """At a ragged point count, on a grid whose voxel count is (24 x 20 x 28)
+    or is not (7 x 5 x 9) a multiple of 4: the forward from the grid and from
+    a copy 4 bytes off a 16-byte boundary; the backward through the wrapper
+    and, by a direct launch, into a gradient 4 bytes off and d_pts into a
+    buffer filled with NaN, so a point the kernel does not store shows. All
+    against the plain versions."""
+    _need_card()
+    n = 1001
+    grid, pts, lo, hi, ct_v, ct_g = _tri_case(C, size, n, seed=C * 7 + size[0])
+    off = _off16(grid.shape).copy_(grid)
+    for with_grad in (False, True):
+        cg = ct_g if with_grad else None
+        ref_f = grid_ops.trilinear_fwd_plain(grid, pts, lo, hi, with_grad)
+        for g_in in (grid, off):
+            for o, r in zip(grid_ops.trilinear_fwd(g_in, pts, lo, hi, with_grad), ref_f):
+                if o is not None:
+                    _tri_close(o, r)
+        r_grid, r_pts = grid_ops.trilinear_bwd_plain(grid, pts, lo, hi, ct_v, cg, True, True)
+        for o, r in zip(grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, cg, True, True), (r_grid, r_pts)):
+            _tri_close(o, r)
+        d_grid, d_pts = _off16(grid.shape), torch.full((n, 3), float("nan"), device="cuda")
+        _bwd_direct(off, pts, lo, hi, ct_v, cg, d_grid, d_pts)
+        torch.cuda.synchronize()
+        _tri_close(d_grid, r_grid)
+        assert torch.isfinite(d_pts).all()
+        _tri_close(d_pts, r_pts)
 
 
 def _edge_points(kind, size, n, lo, hi, seed):
@@ -348,7 +399,6 @@ def test_trilinear_kernels_at_edge_cases(C, size, n, kind):
     grid, pts, lo, hi, ct_v, ct_g = _tri_case(C, size, n, seed=C + n + 1)
     if kind != "spread":
         pts = _edge_points(kind, size, n, lo, hi, seed=n + 2)
-    gshape, rows = tuple(grid.shape), grid_ops.rows_from_grid(grid)
 
     def close(out, ref, summed=False):
         assert out.shape == ref.shape
@@ -358,12 +408,12 @@ def test_trilinear_kernels_at_edge_cases(C, size, n, kind):
 
     for with_grad in (False, True):
         cg = ct_g if with_grad else None
-        for o, r in zip(grid_ops.trilinear_fwd(rows, pts, lo, hi, gshape, with_grad),
-                        grid_ops.trilinear_fwd_plain(rows, pts, lo, hi, gshape, with_grad)):
+        for o, r in zip(grid_ops.trilinear_fwd(grid, pts, lo, hi, with_grad),
+                        grid_ops.trilinear_fwd_plain(grid, pts, lo, hi, with_grad)):
             if o is not None:
                 close(o, r)
-        d_grid, d_pts = grid_ops.trilinear_bwd(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad)
-        r_grid, r_pts = grid_ops.trilinear_bwd_plain(rows, pts, lo, hi, gshape, ct_v, cg, True, with_grad)
+        d_grid, d_pts = grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, cg, True, with_grad)
+        r_grid, r_pts = grid_ops.trilinear_bwd_plain(grid, pts, lo, hi, ct_v, cg, True, with_grad)
         close(d_grid, r_grid, summed=True)
         if with_grad:
             close(d_pts, r_pts)
@@ -397,9 +447,9 @@ def test_resize_trilinear_on_the_card_matches_cpu():
 def test_early_step_runs_through_the_kernels():
     """Per early step: one trunk forward and backward (the scene half), three
     trilinear forwards and backwards (the deformed 1-channel value+gradient
-    lookup, the merged 13-channel lookup, the reprojection term's lookup), one
-    transpose2d and one transpose_slice (the 13-channel rows); `materialize`
-    only under POSEPROBE_SCATTER_BARRIER=1, with the same loss."""
+    lookup, the merged 13-channel lookup, the reprojection term's lookup) on
+    the grids' own layout, so no transpose2d and no transpose_slice;
+    `materialize` only under POSEPROBE_SCATTER_BARRIER=1, with the same loss."""
     _need_card()
     tr = build_trainer(small=True, device="cuda")
     tr.global_step = 1
@@ -420,11 +470,11 @@ def test_early_step_runs_through_the_kernels():
         os.environ.pop("POSEPROBE_SCATTER_BARRIER")
     assert all(np.isfinite(v.item()) for v in m.values()), m
     assert abs(m["loss_total"].item() - loss.item()) <= 1e-6 * abs(loss.item())
-    assert tuple(b - a for a, b in zip(before, counts())) == (1, 1, 3, 3, 1, 1, 1)
+    assert tuple(b - a for a, b in zip(before, counts())) == (1, 1, 3, 3, 0, 0, 1)
     before = counts()
     m = tr.step()
     assert all(np.isfinite(v.item()) for v in m.values()), m
-    assert tuple(b - a for a, b in zip(before, counts())) == (1, 1, 3, 3, 1, 1, 0)
+    assert tuple(b - a for a, b in zip(before, counts())) == (1, 1, 3, 3, 0, 0, 0)
 
 
 # ---------------------------------------------------------------- fused alpha-composite

@@ -156,19 +156,50 @@ def test_backward_formulas_match_autograd_twin(C, barrier, monkeypatch):
     g, p = T(grid, True), T(pts, True)
     val, grad = tgrid.trilinear_vg_reference(g, p, T(LO), T(HI))
     torch.autograd.backward([val, grad], [ct_v, ct_g])
-    rows = tgrid.rows_from_grid(T(grid))
-    fval, fgrad = tgrid.trilinear_fwd_plain(rows, T(pts), T(LO), T(HI), grid.shape, True)
+    fval, fgrad = tgrid.trilinear_fwd_plain(T(grid), T(pts), T(LO), T(HI), True)
     np.testing.assert_allclose(fval.numpy(), val.detach().numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(fgrad.numpy(), grad.detach().numpy(), rtol=1e-5, atol=1e-4)
-    d_grid, d_pts = tgrid.trilinear_bwd_plain(rows, T(pts), T(LO), T(HI), grid.shape, ct_v, ct_g)
+    d_grid, d_pts = tgrid.trilinear_bwd_plain(T(grid), T(pts), T(LO), T(HI), ct_v, ct_g)
     assert d_grid.shape == grid.shape and d_grid.is_contiguous()
     _assert_grad(d_grid, g.grad.numpy(), "d_grid")
     _assert_grad(d_pts, p.grad.numpy(), "d_pts")
     # a missing cotangent is a zero cotangent
-    only_v = tgrid.trilinear_bwd_plain(rows, T(pts), T(LO), T(HI), grid.shape, ct_v, None)
-    zeros_g = tgrid.trilinear_bwd_plain(rows, T(pts), T(LO), T(HI), grid.shape, ct_v, torch.zeros_like(ct_g))
+    only_v = tgrid.trilinear_bwd_plain(T(grid), T(pts), T(LO), T(HI), ct_v, None)
+    zeros_g = tgrid.trilinear_bwd_plain(T(grid), T(pts), T(LO), T(HI), ct_v, torch.zeros_like(ct_g))
     for a, b in zip(only_v, zeros_g):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("with_grad", [False, True])
+@pytest.mark.parametrize("C", [1, 12, 13])
+def test_plain_versions_match_jax_primitives(C, with_grad):
+    """`trilinear_fwd_plain` / `trilinear_bwd_plain` from the [C, X, Y, Z]
+    grid (what the kernels compute) against JAX's `_trilinear_value` /
+    `_trilinear_vg` and their custom VJPs on the same numpy inputs, with and
+    without d_pts, at points inside, on voxel corners, on the far border and
+    outside the box."""
+    grid, pts = _grid_and_points(C, seed=30 + C)
+    rng = np.random.default_rng(31 + C)
+    ct_v = rng.normal(size=(pts.shape[0], C)).astype(np.float32)
+    ct_g = rng.normal(size=(pts.shape[0], C, 3)).astype(np.float32)
+    jfn = jgrid._trilinear_vg if with_grad else jgrid._trilinear_value
+    jout, vjp = jax.vjp(lambda g, p: jfn(g, p, jnp.asarray(LO), jnp.asarray(HI)), jnp.asarray(grid), jnp.asarray(pts))
+    jd_grid, jd_pts = vjp((jnp.asarray(ct_v), jnp.asarray(ct_g)) if with_grad else jnp.asarray(ct_v))
+    val, grad = tgrid.trilinear_fwd_plain(T(grid), T(pts), T(LO), T(HI), with_grad)
+    np.testing.assert_allclose(val.numpy(), np.asarray(jout[0] if with_grad else jout), rtol=1e-5, atol=1e-5)
+    if with_grad:
+        np.testing.assert_allclose(grad.numpy(), np.asarray(jout[1]), rtol=1e-5, atol=1e-4)
+    else:
+        assert grad is None
+    for need_pts in (False, True):
+        d_grid, d_pts = tgrid.trilinear_bwd_plain(T(grid), T(pts), T(LO), T(HI), T(ct_v),
+                                                  T(ct_g) if with_grad else None, True, need_pts)
+        assert d_grid.shape == grid.shape and d_grid.is_contiguous()
+        _assert_grad(d_grid, jd_grid, "d_grid")
+        if need_pts:
+            _assert_grad(d_pts, jd_pts, "d_pts")
+        else:
+            assert d_pts is None
 
 
 def _edge_points(size, seed, n=80):
@@ -280,3 +311,30 @@ def test_conv3d_separable_replicate(kernel):
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-6)
     ref = np.asarray(jgrid.conv3d_separable_replicate(jnp.asarray(grid), jk))
     np.testing.assert_allclose(tgrid.conv3d_separable_replicate(T(grid), tk).numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------- the kernels' C interfaces
+
+
+@pytest.mark.parametrize("module,source", [("grid", "trilinear"), ("layout", "layout"),
+                                           ("fused_mlp", "fused_trunk"), ("fused_composite", "fused_composite")])
+def test_ctypes_signatures_match_the_c_interfaces(module, source, monkeypatch):
+    """Every signature a wrapper declares for ctypes names, argument by
+    argument, the C type of the `extern "C"` function in its csrc/ source:
+    'p' a pointer, 'i' an int, 'l' a long long. A wrong count or kind would
+    only show on the card, as a refused call or a cut pointer."""
+    import importlib
+    import re
+    from pathlib import Path
+    from poseprobe_tpu_torch.ops import _build
+    declared = {}
+    monkeypatch.setattr(_build, "load", lambda name: name)
+    monkeypatch.setattr(_build, "declare", lambda lib, **sigs: declared.setdefault(lib, sigs))
+    importlib.import_module(f"poseprobe_tpu_torch.ops.{module}")._lib.__wrapped__()
+    text = (Path(_build.__file__).resolve().parents[1] / "csrc" / f"{source}.cu").read_text()
+    text = text[text.index('extern "C"'):]
+    assert declared[source]
+    for fn, sig in declared[source].items():
+        params = re.search(r"\bint\s+" + fn + r"\(([^)]*)\)", text).group(1).split(",")
+        kinds = "".join("p" if "*" in a else "l" if "long long" in a else "i" for a in params)
+        assert kinds == sig, fn
