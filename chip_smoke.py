@@ -41,7 +41,13 @@ that the kernels carried every trunk render and every grid lookup (launch
 counters), that one step's loss through the kernels agrees with the same
 step through the plain PyTorch versions, and that a step with
 POSEPROBE_SCATTER_BARRIER=1 (the scatter updates pass through `materialize`)
-gives the same loss. Last it drives `JointTrainer.fit()` at the same scale
+gives the same loss. In each phase it also runs a superstep window of 4
+steps (`steps_scan`: the first step eager under
+`torch.cuda.set_sync_debug_mode("error")`, then the step captured as a CUDA
+graph and replayed) from a cloned state, holds its losses and final state
+against 4 eager steps from the same state, and prints its step ms beside the
+eager step's; the kernels' launch counters count the replays. Last it drives
+`JointTrainer.fit(superstep=4)` at the same scale
 with PnP pose seeding and the fused composite on: the PnP chain at
 construction, the early steps through the composite kernels, the activation
 of the third view (PnP against the probe, photometric gate, guarded warmup and
@@ -79,6 +85,15 @@ FINE_POINTS = (1024 + 2 * 256) * 256   # mid-phase fine render: (rays + corres p
 RAGGED_POINTS = 100_003                # not a multiple of the 128-point tile
 REL_TOL = 2e-2                         # max abs error allowed, as a fraction of max |twin|
 TRI_REL_TOL, TRI_ABS_TOL = 1e-5, 1e-6  # trilinear kernels: float32 sums in another order (atomics)
+# superstep windows (`steps_scan`, a captured step replayed) against as many eager steps from one
+# state: per-step losses within GRAPH_LOSS_RTOL, every parameter tensor within REL_TOL in the L2
+# norm relative to its own, step and Adam counters equal. Both run the same kernels on the same
+# draws; the trilinear scatter and the trunk's dW/db add with atomics in a run-dependent order, so
+# a gradient element that is a near-cancelling sum can change sign, and Adam then steps it up to
+# 2 lr the other way (0.2 for the SDF grid's first step): the difference is sparse and not bounded
+# elementwise by the rounding, hence the norm.
+SUPERSTEP = 4
+GRAPH_LOSS_RTOL = 1e-3
 # kernels that no path launches: the lookup reads the grid and writes its gradient in their own
 # layout, so the layout kernels that moved them to and from rows are held and timed here, and
 # expected at 0 launches on every path
@@ -720,6 +735,66 @@ def check_composite_kernels(fused_composite, compositing, n_rays: int, K: int, n
     return records
 
 
+def check_superstep(tr, label: str, counts, reset) -> dict:
+    """A superstep window of SUPERSTEP steps (`steps_scan`: its first step
+    eager under the sync-debug error mode, then the captured step replayed)
+    from a cloned state, held against as many eager steps from the same state
+    and generator state; then the same window again, replays only. Prints the
+    step ms of the three and returns the kernels' launches of the first
+    window (the replays counted)."""
+    from poseprobe_tpu_torch.core.tree import tree_leaves
+    start = ([t.clone() for t in tr.state_tensors()], tr.generator.get_state(), tr.global_step)
+
+    def restore():
+        for t, c in zip(tr.state_tensors(), start[0]):
+            t.copy_(c)
+        tr.generator.set_state(start[1])
+        tr.global_step = start[2]
+        torch.cuda.synchronize()
+
+    def timed(fn):
+        restore()
+        t0 = time.perf_counter()
+        losses = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SUPERSTEP * 1e3
+        params = {f"{n}[{i}] {tuple(t.shape)}": t.clone() for n in tr.GROUPS
+                  for i, t in enumerate(tree_leaves(getattr(tr, f"{n}_params")))}
+        counters = [int(tr._step_t)] + [int(getattr(tr, f"opt_{n}_state")["count"]) for n in tr.GROUPS
+                                        if getattr(tr, f"opt_{n}_state") is not None]
+        return losses.cpu(), params, counters, ms
+
+    tr.drop_graphs()
+    eager = timed(lambda: torch.stack([tr.step()["loss_total"] for _ in range(SUPERSTEP)]))
+    reset()
+    try:
+        first = timed(lambda: tr.steps_scan(SUPERSTEP)["loss_total"])
+    except RuntimeError as e:
+        print(f"{label} superstep: the warm-up under set_sync_debug_mode('error') or the capture failed: {e}")
+        raise
+    launched = counts()
+    replayed = timed(lambda: tr.steps_scan(SUPERSTEP)["loss_total"])
+    graph = tr._graphs.graph
+    loss_rel, rel_l2, max_abs = 0.0, (0.0, ""), 0.0
+    for name, (losses, params, counters, _) in (("first window", first), ("replayed window", replayed)):
+        if counters != eager[2]:
+            raise AssertionError(f"{label} superstep ({name}): counters {counters}, eager {eager[2]}")
+        loss_rel = max(loss_rel, float(((losses - eager[0]).abs() / eager[0].abs()).max()))
+        for key, a in params.items():
+            b = eager[1][key]
+            rel_l2 = max(rel_l2, (float((a - b).norm()) / max(float(b.norm()), 1e-30), key))
+            max_abs = max(max_abs, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    print(f"{label} superstep K={SUPERSTEP} from step {start[2]}: eager {eager[3]:.2f} ms/step; first window "
+          f"(eager step, capture {graph.capture_s:.3f} s, {SUPERSTEP - 1} replays) {first[3]:.2f} ms/step; replayed "
+          f"window {replayed[3]:.2f} ms/step. Sync-debug warm-up: no synchronisation found. Against the eager "
+          f"steps: losses rel {loss_rel:.2e} (tolerance {GRAPH_LOSS_RTOL}); params rel L2 {rel_l2[0]:.2e} "
+          f"(tolerance {REL_TOL}, worst {rel_l2[1]}), max abs err / max |param| {max_abs:.2e}; counters equal; "
+          f"launches {launched}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (loss_rel <= GRAPH_LOSS_RTOL and rel_l2[0] <= REL_TOL):
+        raise AssertionError(f"{label}: the superstep window disagrees with the eager steps")
+    return launched
+
+
 def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
     """Early-phase steps (object branch on) of the bench-scale joint trainer.
     Returns the kernels' launch counts of the main-path runs."""
@@ -767,6 +842,9 @@ def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
     if early != expect:
         raise AssertionError(f"the early phase's grid lookups did not all run through the kernels: "
                              f"{early}, expected {expect}")
+    graph = check_superstep(tr, "early", counts, reset)
+    if graph != {k: v // steps * SUPERSTEP for k, v in expect.items()}:
+        raise AssertionError(f"the early superstep window did not launch the kernels of {SUPERSTEP} steps: {graph}")
 
     # one step's loss: kernels, plain versions (the autograd twins), and the barrier switch
     draws = tr.sample_draws(flags)
@@ -798,7 +876,7 @@ def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
           f"(rel diff {rel:.2e}), launches {barrier}")
     if not (rel <= 1e-6 and barrier["materialize"] >= 1 and math.isfinite(float(m["loss_total"]))):
         raise AssertionError("the barrier step did not pass through materialize, or changed the loss")
-    return {"early": early, "early_barrier": barrier}
+    return {"early": early, "early_graph": graph, "early_barrier": barrier}
 
 
 def drive_slice(fused_mlp, trainer_mod) -> dict:
@@ -814,13 +892,17 @@ def drive_slice(fused_mlp, trainer_mod) -> dict:
           f"{sm.sample_intvs_fine} samples, {tr.scene_matches.shape[1]} matches")
     torch.cuda.reset_peak_memory_stats()
     launches = {}
+
+    def reset():
+        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+
     for phase, start, warm, steps in (("coarse", trainer_mod.N_ITERS + 1, 2, 8),
                                       ("mid", tr.fine_start + 1, 2, 8)):
         tr.global_step = start
         for _ in range(warm):
             tr.step()
         torch.cuda.synchronize()
-        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+        reset()
         t1 = time.perf_counter()
         metrics = [tr.step() for _ in range(steps)]
         torch.cuda.synchronize()
@@ -837,6 +919,12 @@ def drive_slice(fused_mlp, trainer_mod) -> dict:
         if counts[0] == 0 or counts[1] == 0:
             raise AssertionError(f"the {phase} phase did not run through both trunk kernels")
         launches[phase] = {"trunk_fwd": counts[0], "trunk_bwd": counts[1]}
+        graph = check_superstep(tr, phase, lambda: {"trunk_fwd": fused_mlp.fwd_launches,
+                                                    "trunk_bwd": fused_mlp.bwd_launches}, reset)
+        if graph != {k: v // steps * SUPERSTEP for k, v in launches[phase].items()}:
+            raise AssertionError(f"the {phase} superstep window did not launch the trunk kernels of "
+                                 f"{SUPERSTEP} steps: {graph}")
+        launches[f"{phase}_graph"] = graph
     print(f"max memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     # the same mid-phase step through the kernels and through the plain trunk
@@ -922,28 +1010,41 @@ def drive_fit(mods: dict, trainer_mod) -> dict:
     tr.maybe_activate_view = timed("activation", tr.maybe_activate_view)      # counts every step's call
     tr.polish_poses_ba = timed("ba", tr.polish_poses_ba)
     tr.refresh_maskcache = timed("refresh", tr.refresh_maskcache)
+    windows = []
+    scan = tr.steps_scan
+
+    def window(k):
+        windows.append((tr.global_step, k))
+        return scan(k)
+    tr.steps_scan = window
     torch.cuda.synchronize()
     reset()
     t0 = time.perf_counter()
     try:
-        hist = [dict(h) for h in tr.fit(n_steps, log_every=1)]
+        hist = [dict(h) for h in tr.fit(n_steps, log_every=SUPERSTEP, superstep=SUPERSTEP)]
     finally:
         pnp_mod.pnp_from_matches, evaluator.test_time_pose_optim, evaluator.photometric_pose_score = originals
+        del tr.steps_scan
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     fit_counts = counts()
     events = spent["activation"] + spent["ba"] + spent["refresh"]
     print(f"fit: {n_steps} early steps across the activation of view 2 in {dt:.2f} s, {events:.3f} s of it in host "
-          f"events ({(dt - events) / n_steps * 1e3:.2f} ms/step with the per-step metric read-back); activation "
+          f"events ({(dt - events) / n_steps * 1e3:.2f} ms/step in superstep windows and single steps, metrics read "
+          f"back every {SUPERSTEP} steps); activation "
           f"event {spent['activation']:.3f} s: PnP {spent['pnp']:.3f} s ({calls['pnp']} solve), warmup "
           f"{spent['warmup']:.3f} s ({calls['warmup']} x {cfg.camera.activation_pose_warmup} Adam iterations on 1024 "
           f"rays), fixed-ray scores {spent['score']:.3f} s ({calls['score']} x 2048 rays), the rest match geometry "
           f"and the chord-K re-bound; BA polish {spent['ba']:.3f} s; mask-cache refresh {spent['refresh']:.3f} s")
-    print(f"fit: launches {fit_counts}")
+    print(f"fit: launches {fit_counts}; superstep windows (first step, steps) {windows}")
     print(f"fit: loss {hist[0]['loss_total']:.5f} -> {hist[-1]['loss_total']:.5f}, psnr_obj "
-          f"{hist[-1]['psnr_obj']:.3f}, psnr_scene {hist[-1]['psnr_scene']:.3f}, active views "
-          f"{[h['n_active'] for h in hist]}")
-    if [h["n_active"] for h in hist] != [2] * activate_at + [3] * (n_steps - activate_at) or tr.n_active != 3:
+          f"{hist[-1]['psnr_obj']:.3f}, psnr_scene {hist[-1]['psnr_scene']:.3f}, active views at the logged "
+          f"steps {[(h['step'], h['n_active']) for h in hist]}")
+    # windows end at the log steps and stop short of the activation (12), the refresh (14) and BA (16)
+    if windows != [(0, SUPERSTEP), (4, SUPERSTEP), (8, SUPERSTEP), (16, SUPERSTEP)]:
+        raise AssertionError(f"fit did not run its steps between the events as superstep windows: {windows}")
+    if ([(h["step"], h["n_active"]) for h in hist] != [(4, 2), (8, 2), (12, 2), (16, 3), (20, 3)]
+            or tr.n_active != 3):
         raise AssertionError("view 2 was not activated at its step")
     if not all(math.isfinite(v) for h in hist for v in h.values()):
         raise AssertionError("non-finite metrics in fit")

@@ -56,7 +56,7 @@ def adam_state_from_jax(opt_state, device="cuda") -> dict | None:
     for s in states:
         if _fields(s) == ("count",) and int(np.asarray(s.count)) != count:
             raise ValueError("schedule count differs from Adam's count")
-    return {"count": count, "mu": tree_from_numpy(adam[0].mu, device),
+    return {"count": _count(count, device), "mu": tree_from_numpy(adam[0].mu, device),
             "nu": tree_from_numpy(adam[0].nu, device)}
 
 
@@ -78,7 +78,13 @@ def object_adam_state_from_jax(opt_state, device="cuda") -> dict:
                 mu[key], nu[key] = tree_from_numpy(s.mu[key], device), tree_from_numpy(s.nu[key], device)
     if len(counts) != 1:
         raise ValueError(f"object optimizer counts differ between modules: {sorted(counts)}")
-    return {"count": counts.pop(), "mu": mu, "nu": nu}
+    return {"count": _count(counts.pop(), device), "mu": mu, "nu": nu}
+
+
+def _count(count: int, device) -> torch.Tensor:
+    """The port keeps an optimizer's count as an int64 tensor on the device,
+    advanced in place by the step."""
+    return torch.tensor(count, dtype=torch.int64, device=device)
 
 
 def _fields(state) -> tuple:
@@ -91,7 +97,7 @@ def adam_state_to_numpy(state: dict | None) -> dict | None:
     from which a caller rebuilds the optax states."""
     if state is None:
         return None
-    return {"count": state["count"], "mu": tree_to_numpy(state["mu"]),
+    return {"count": int(state["count"]), "mu": tree_to_numpy(state["mu"]),
             "nu": tree_to_numpy(state["nu"])}
 
 

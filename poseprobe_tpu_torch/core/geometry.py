@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from .pose import inv3x3
+
 
 def to_homogeneous(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
@@ -23,7 +25,7 @@ def batch_project_to_other_img(kpi, di, Ki, Kj, T_itoj, return_depth: bool = Fal
     """
     if di.ndim == kpi.ndim:
         di = di[..., 0]
-    kpi_3d_i = to_homogeneous(kpi) @ torch.linalg.inv(Ki).transpose(-1, -2)
+    kpi_3d_i = to_homogeneous(kpi) @ inv3x3(Ki).transpose(-1, -2)
     kpi_3d_i = kpi_3d_i * di[..., None]
     kpi_3d_j = from_homogeneous(to_homogeneous(kpi_3d_i) @ T_itoj.transpose(-1, -2))
     kpi_j = from_homogeneous(kpi_3d_j @ Kj.transpose(-1, -2))
@@ -34,7 +36,7 @@ def batch_project_to_other_img(kpi, di, Ki, Kj, T_itoj, return_depth: bool = Fal
 
 def batch_backproject_to_3d(kpi, di, Ki, T_itoj):
     """Backproject pixels [..., N, 2] with depths [..., N] into frame j."""
-    kpi_3d_i = to_homogeneous(kpi) @ torch.linalg.inv(Ki).transpose(-1, -2)
+    kpi_3d_i = to_homogeneous(kpi) @ inv3x3(Ki).transpose(-1, -2)
     kpi_3d_i = kpi_3d_i * di[..., None]
     return from_homogeneous(to_homogeneous(kpi_3d_i) @ T_itoj.transpose(-1, -2))
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from .graphsafe import const
+
 
 def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[..., 3, 3] rotation and [..., 3] translation -> [..., 3, 4] pose."""
@@ -28,8 +30,7 @@ def compose_pair(pose_a: torch.Tensor, pose_b: torch.Tensor) -> torch.Tensor:
 
 def pad(pose: torch.Tensor) -> torch.Tensor:
     """[..., 3, 4] -> [..., 4, 4] with homogeneous bottom row."""
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=pose.dtype, device=pose.device)
-    bottom = bottom.expand(pose[..., :1, :4].shape)
+    bottom = const((0.0, 0.0, 0.0, 1.0), pose.dtype, pose.device).expand(pose[..., :1, :4].shape)
     return torch.cat([pose[..., :3, :4], bottom], dim=-2)
 
 
@@ -60,4 +61,17 @@ def cam2img(X: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 
 
 def img2cam(X: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    return X @ torch.linalg.inv(K).transpose(-2, -1)
+    return X @ inv3x3(K).transpose(-2, -1)
+
+
+def inv3x3(M: torch.Tensor) -> torch.Tensor:
+    """Inverse of [..., 3, 3] matrices by the adjugate: elementwise work only,
+    where `torch.linalg.inv` checks its result on the host."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A, B, C = e * i - f * h, f * g - d * i, d * h - e * g
+    adj = torch.stack([torch.stack([A, c * h - b * i, b * f - c * e], -1),
+                       torch.stack([B, a * i - c * g, c * d - a * f], -1),
+                       torch.stack([C, b * g - a * h, a * e - b * d], -1)], -2)
+    return adj / (a * A + b * B + c * C)[..., None, None]

@@ -121,7 +121,7 @@ def test_time_pose_optim(
         g, = torch.autograd.grad(loss, leaf)
         if rot_only:
             g = torch.cat([g[..., :3], torch.zeros_like(g[..., 3:])], dim=-1)   # se3 = [w | u]; freeze u
-        d, state = adam._direction([g], state)
+        d = adam._direction([g], state)
         se3 = se3 - lr * d[0]
     with torch.no_grad():
         return compose(se3)

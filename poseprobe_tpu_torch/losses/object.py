@@ -19,10 +19,11 @@ from .common import mse2psnr
 _abs = grid_ops.abs_one_sided   # |x| with the reference's derivative (+1) at exactly 0
 
 
-def dynamic_weight(initial: float, final: float, iteration, total: int):
-    """initial * exp(log(final/initial)/total * it)."""
+def dynamic_weight(initial: float, final: float, iteration, total: int) -> torch.Tensor:
+    """initial * exp(log(final/initial)/total * it), in float32 at a number
+    or a 0-dim tensor `iteration`."""
     decay_rate = math.log(final / initial) / max(total, 1)
-    return initial * math.exp(decay_rate * iteration)
+    return initial * torch.exp(decay_rate * torch.as_tensor(iteration, dtype=torch.float32))
 
 
 def rendering_loss(rgb_marched: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -111,7 +112,7 @@ def k0_total_variation(params: dict, nonempty_mask=None) -> torch.Tensor:
     k0 = params["k0_grid"]
     if isinstance(k0, dict):
         raise NotImplementedError("the TensoRF feature grid is not ported yet (ROADMAP.md, "
-                                  "modules to port, item 6)")
+                                  "modules to port: TensoRF)")
     return grid_ops.total_variation(k0, nonempty_mask)
 
 

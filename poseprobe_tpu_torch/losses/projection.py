@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..core import geometry, pose as pose_ops, rays as rays_mod
+from ..core.graphsafe import const, index
 from ..models import object_sdf
 from .common import compute_diff_loss
 
@@ -31,20 +32,23 @@ def _project_with_near_clamp(points_w, pose_w2c, K, inverse_y: bool, HW=None):
 
 def projection_error_loss(obj_params: dict, obj_cfg: object_sdf.ObjectConfig,
                           current_pose: torch.Tensor, Ks: torch.Tensor, coord_self: torch.Tensor,
-                          coord_other: torch.Tensor, mconf: torch.Tensor, id_i: int, id_j: int,
+                          coord_other: torch.Tensor, mconf: torch.Tensor, id_i, id_j,
                           global_step, inverse_y: bool, use_deform: bool,
                           pixel_thre: float | None = 200.0, near: float = 0.3, far: float = 4.0,
                           HW=None, mask_grid=None, mask_k=None):
     """current_pose [n_views, 3, 4], Ks [n_views, 3, 3], coord_self / coord_other
-    [M, 2] pixels in views i / j, mconf [M] (0 = padding).
+    [M, 2] pixels in views i / j, mconf [M] (0 = padding); the view ids are
+    ints or 0-dim integer tensors.
     Returns (projection_dis_error, near_surface_loss); both directions
     (i -> j and j -> i) are stacked.
     """
     coords = torch.stack([coord_self, coord_other])             # [2, M, 2]
-    src_idx, dst_idx = [id_i, id_j], [id_j, id_i]
+    src_idx = index((id_i, id_j), current_pose.device)
+    dst_idx = src_idx.flip(0)
     conf2 = torch.stack([mconf, mconf])                          # [2, M]
 
-    c2w = pose_ops.invert(current_pose[src_idx])
+    # index_select: its backward adds by index (an index_put's may wait for the host)
+    c2w = pose_ops.invert(current_pose.index_select(0, src_idx))
     rays_o, rays_d = rays_mod.get_ray_dir(coords, Ks[src_idx], c2w, inverse_y=inverse_y,
                                           mode="no_center")
     flat_o, flat_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
@@ -59,13 +63,15 @@ def projection_error_loss(obj_params: dict, obj_cfg: object_sdf.ObjectConfig,
 
     # near-surface prior: matched rays should pass close to the probe box
     # "center" -- xyz_min + xyz_max without the /2, as the reference computes it
-    center_pt = torch.as_tensor(obj_cfg.xyz_min_np + obj_cfg.xyz_max_np, device=flat_o.device)
+    center_pt = const(tuple((obj_cfg.xyz_min_np + obj_cfg.xyz_max_np).tolist()), torch.float32,
+                      flat_o.device)
     dis2center = geometry.point_to_ray_distance(flat_o, flat_d, center_pt)
     near_surface = (torch.clamp(dis2center - obj_cfg.diagonal_length / 2.0, min=0.0)
                     * (conf2.reshape(-1) > 0)).sum()
 
     pts, valid = pts.reshape(2, -1, 3), valid.reshape(2, -1)
-    px, invalid_z = _project_with_near_clamp(pts, current_pose[dst_idx], Ks[dst_idx], inverse_y, HW)
+    px, invalid_z = _project_with_near_clamp(pts, current_pose.index_select(0, dst_idx), Ks[dst_idx],
+                                           inverse_y, HW)
     target = torch.stack([coord_other, coord_self])
     diff = torch.linalg.norm(px - target, dim=-1)                # [2, M]
     valid_all = (~invalid_z) & valid & (conf2 > 0)

@@ -5,12 +5,12 @@ calls). Filters are multiplicative weight masks over fixed-size pixel sets.
 """
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
 
 from ..core import geometry, pose as pose_ops, rays as rays_mod
+from ..core.graphsafe import const, take
 from ..models import scene_nerf
 from .common import compute_diff_loss, huber
 
@@ -80,9 +80,10 @@ def _repro_loss_one_direction(pixels_self, depth_self, intr_self, pixels_other, 
 
 
 def correspondence_pair_rays(poses_w2c, intr, pixels_self, pixels_other, id_self, id_other):
-    """Ray origins/directions for both pixel sets of a match pair: [2, M, 3]."""
-    pose_stack = torch.stack([poses_w2c[id_self], poses_w2c[id_other]])
-    intr_stack = torch.stack([intr[id_self], intr[id_other]])
+    """Ray origins/directions for both pixel sets of a match pair: [2, M, 3].
+    The view ids are ints or 0-dim integer tensors."""
+    pose_stack = torch.stack([take(poses_w2c, id_self), take(poses_w2c, id_other)])
+    intr_stack = torch.stack([take(intr, id_self), take(intr, id_other)])
     pixels_stack = torch.stack([pixels_self, pixels_other])
     return rays_mod.get_center_and_ray_at_pixels(pose_stack, pixels_stack, intr_stack)
 
@@ -91,9 +92,12 @@ def correspondence_loss_from_depths(depth_pair, depth_fine_pair, poses_w2c, intr
                                     pixels_other, conf, id_self, id_other, iteration,
                                     opt: Any) -> torch.Tensor:
     """Reprojection part of the correspondence loss, given the rendered depths
-    [2, M] at both pixel sets (coarse, and fine or None)."""
-    intr_self, intr_other = intr[id_self], intr[id_other]
-    T_s2o = pose_ops.pad(poses_w2c[id_other]) @ pose_ops.invert_4x4(pose_ops.pad(poses_w2c[id_self]))
+    [2, M] at both pixel sets (coarse, and fine or None). `iteration` is a
+    number or a 0-dim tensor: the weight's halving is evaluated as tensor
+    math, in float32 as the reference's traced step does."""
+    intr_self, intr_other = take(intr, id_self), take(intr, id_other)
+    T_s2o = (pose_ops.pad(take(poses_w2c, id_other))
+             @ pose_ops.invert_4x4(pose_ops.pad(take(poses_w2c, id_self))))
     T_o2s = pose_ops.invert_4x4(T_s2o)
     valid = (conf > 0)[:, None]
     conf_w = conf[:, None]
@@ -113,8 +117,9 @@ def correspondence_loss_from_depths(depth_pair, depth_fine_pair, poses_w2c, intr
     if opt.gradually_decrease_corres_weight:
         # halve every corres_weight_reduct_at_x_iter after the start
         start = opt.iter_start_decrease_corres_weight
-        if iteration >= start:
-            loss = loss / 2.0 ** math.floor((iteration - start) / opt.corres_weight_reduct_at_x_iter)
+        it = torch.as_tensor(iteration)
+        gamma = 2.0 ** torch.floor(torch.clamp(it - start, min=0) / opt.corres_weight_reduct_at_x_iter)
+        loss = loss / torch.where(it < start, 1.0, gamma)
     return loss
 
 
@@ -122,11 +127,11 @@ def interpolate_pose_toward(poses_c2w: torch.Tensor, id_self, w) -> torch.Tensor
     """Linear 4x4 blend between a pose and its nearest (by camera center)
     other pose, returned as w2c."""
     centers = poses_c2w[:, :3, 3]
-    d = torch.linalg.norm(centers - centers[id_self][None], dim=-1)
+    d = torch.linalg.norm(centers - take(centers, id_self)[None], dim=-1)
     d = torch.where(torch.arange(d.shape[0], device=d.device) == id_self,
                     torch.full_like(d, float("inf")), d)
     id_other = torch.argmin(d)
-    blend = w * poses_c2w[id_self] + (1 - w) * poses_c2w[id_other]
+    blend = w * take(poses_c2w, id_self) + (1 - w) * take(poses_c2w, id_other)
     return pose_ops.invert_4x4(blend)
 
 
@@ -143,8 +148,8 @@ def depth_consistency_from_ref_depth(scene_params: dict, scene_cfg: scene_nerf.S
     rendered there. Poses are detached; `noise` is the render's draws."""
     poses_w2c = poses_w2c.detach()
     poses_c2w = pose_ops.invert_4x4(pose_ops.pad(poses_w2c))
-    intr_ref = intr[id_self]
-    pts3d_w = geometry.batch_backproject_to_3d(pixels_ref, depth_ref, intr_ref, poses_c2w[id_self])
+    intr_ref = take(intr, id_self)
+    pts3d_w = geometry.batch_backproject_to_3d(pixels_ref, depth_ref, intr_ref, take(poses_c2w, id_self))
     pose_w2c_unseen = interpolate_pose_toward(poses_c2w, id_self, interp_w)
     pts_img, pseudo_depth = geometry.batch_project(pts3d_w, T_itoj=pose_w2c_unseen, Kj=intr_ref,
                                                    return_depth=True)
@@ -153,7 +158,7 @@ def depth_consistency_from_ref_depth(scene_params: dict, scene_cfg: scene_nerf.S
                  & (pseudo_depth >= depth_range[0]))
     if ref_valid is not None:
         valid_pts = valid_pts & ref_valid
-    hi = torch.tensor([W - 1.0, H - 1.0], device=pts_img.device)
+    hi = const((W - 1.0, H - 1.0), torch.float32, pts_img.device)
     pts_img_safe = torch.minimum(torch.clamp(pts_img, min=0.0), hi)
 
     center_u, ray_u = rays_mod.get_center_and_ray_at_pixels(pose_w2c_unseen[:3], pts_img_safe,

@@ -137,7 +137,7 @@ class ObjectConfig:
 def _check_ported(cfg: ObjectConfig) -> None:
     if cfg.grid_type != "dense":
         raise NotImplementedError(f"grid_type={cfg.grid_type!r}: the TensoRF feature grid is not "
-                                  "ported yet (ROADMAP.md, modules to port, item 6)")
+                                  "ported yet (ROADMAP.md, modules to port: TensoRF)")
 
 
 def _grid_axes(cfg: ObjectConfig):
@@ -272,7 +272,7 @@ def render(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor, rays_d: torch.
            bg: float = 0.0, mask_grid: torch.Tensor | None = None,
            mask_k: int | None = None) -> dict[str, Any]:
     """Train/eval volume render. rays_o/rays_d: [N, 3]; viewdirs unit [N, 3];
-    `global_step`: a number (the schedules are evaluated on the host);
+    `global_step`: a number or a 0-dim tensor (the schedules are tensor math);
     `jitter` [N, 1]: the training-time per-ray sample offset (None: none).
 
     Returns per-ray composited quantities plus the per-sample diagnostics the
@@ -280,7 +280,8 @@ def render(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor, rays_d: torch.
     """
     _check_ported(cfg)
     lo, hi = _bounds(cfg, rays_o.device)
-    progress = min(max(global_step / cfg.N_iters, 0.0), 1.0) if is_train else 1.0
+    progress = (torch.clamp(torch.as_tensor(global_step, dtype=torch.float32) / cfg.N_iters, 0.0, 1.0)
+                if is_train else 1.0)
     samp, pts, step, mask = _sample(cfg, rays_o, rays_d, lo, hi, near, far,
                                     jitter if is_train else None, mask_grid, mask_k)
     sdf_grid = processed_sdf_grid(params, cfg)

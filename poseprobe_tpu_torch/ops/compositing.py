@@ -12,6 +12,24 @@ import torch
 EARLY_TERMINATION_T = 1e-3  # transmittance below which a sample stops contributing
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """`torch.cumprod` along the last axis of a tensor without zeros, with the
+    backward PyTorch takes for such a tensor (the reversed cumsum of
+    grad * out, over the input), minus PyTorch's test for zeros, which reads
+    a value back to the host and so cannot run in a captured step."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(grad * out, [-1]), -1), [-1]) / x
+
+
 def alpha2weights(alpha: torch.Tensor, early_termination: bool = True):
     """Compositing weights from per-sample alphas [..., N].
 
@@ -19,8 +37,8 @@ def alpha2weights(alpha: torch.Tensor, early_termination: bool = True):
     transmittance after the last sample.
     """
     one_minus = torch.clamp(1.0 - alpha, 1e-10, 1.0)
-    T = torch.cumprod(torch.cat([torch.ones_like(one_minus[..., :1]), one_minus[..., :-1]],
-                                dim=-1), dim=-1)
+    T = _CumprodNonzero.apply(torch.cat([torch.ones_like(one_minus[..., :1]), one_minus[..., :-1]],
+                                        dim=-1))
     if early_termination:
         weights = torch.where(T > EARLY_TERMINATION_T, T * alpha, torch.zeros_like(alpha))
     else:

@@ -149,6 +149,14 @@ class _FusedComposite(torch.autograd.Function):
         return d_sdf, d_cos, None, d_rgb, d_step, d_scalars
 
 
+def _scalar(v, device) -> torch.Tensor:
+    """A float32 0-dim tensor on `device`: a tensor moved there (its gradient
+    flows back), a number filled in there (no host-to-device copy)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
 def fused_alpha_composite(sdf, cos_term, mask, rgb, step, inv_s, dist):
     """(weights [N, S], alphainv [N], rgb_marched [N, 3], n_step [N]).
 
@@ -159,7 +167,6 @@ def fused_alpha_composite(sdf, cos_term, mask, rgb, step, inv_s, dist):
     """
     if not sdf.is_cuda:
         return fused_alpha_composite_plain(sdf, cos_term, mask, rgb, step, inv_s, dist)
-    scalars = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=sdf.device).reshape(())
-                           for v in (inv_s, dist)])
+    scalars = torch.stack([_scalar(v, sdf.device) for v in (inv_s, dist)])
     return _FusedComposite.apply(sdf.contiguous(), cos_term.contiguous(), mask.contiguous(),
                                  rgb.contiguous(), step.contiguous(), scalars)

@@ -40,6 +40,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from ..core.graphsafe import const
 from . import _build, layout
 from ._build import check as _check, ptr as _ptr
 
@@ -73,7 +74,7 @@ def _prep(i, D: int):
 def _scale(gshape, xyz_min, xyz_max):
     """d(index coordinate)/d(world coordinate) per axis, [3]."""
     _, X, Y, Z = gshape
-    return torch.tensor([X - 1, Y - 1, Z - 1], dtype=xyz_min.dtype, device=xyz_min.device) / (xyz_max - xyz_min)
+    return const((X - 1, Y - 1, Z - 1), xyz_min.dtype, xyz_min.device) / (xyz_max - xyz_min)
 
 
 def trilinear_vg_reference(grid, xyz, xyz_min, xyz_max):
@@ -138,13 +139,13 @@ def _corner_data(gshape, pts, xyz_min, xyz_max):
     y0, wy, my = _prep(u[:, 1] * (Y - 1), Y)
     z0, wz, mz = _prep(u[:, 2] * (Z - 1), Z)
     base = (x0 * Y + y0) * Z + z0
-    offs = torch.tensor([0, 1, Z, Z + 1, Y * Z, Y * Z + 1, Y * Z + Z, Y * Z + Z + 1], device=pts.device)
+    offs = const((0, 1, Z, Z + 1, Y * Z, Y * Z + 1, Y * Z + Z, Y * Z + Z + 1), torch.int64, pts.device)
     idx8 = base[:, None] + offs[None, :]
     ax = torch.stack([1 - wx, wx], -1)
     ay = torch.stack([1 - wy, wy], -1)
     az = torch.stack([1 - wz, wz], -1)
     AX, AY, AZ = ax[:, _CORNER_I], ay[:, _CORNER_J], az[:, _CORNER_K]
-    sign = lambda bits: torch.tensor([2.0 * b - 1.0 for b in bits], dtype=pts.dtype, device=pts.device)  # noqa: E731
+    sign = lambda bits: const(tuple(2.0 * b - 1.0 for b in bits), pts.dtype, pts.device)  # noqa: E731
     sm = (scale[0] * mx[:, None], scale[1] * my[:, None], scale[2] * mz[:, None])
     return idx8, (AX, AY, AZ), (sign(_CORNER_I), sign(_CORNER_J), sign(_CORNER_K)), sm
 
@@ -366,7 +367,7 @@ def resize_trilinear(grid: torch.Tensor, new_size) -> torch.Tensor:
     pts = torch.stack(torch.meshgrid(gx, gy, gz, indexing="ij"), dim=-1)
     # index-space "world" bounds; a size-1 source axis has zero extent, so its
     # bound is clamped to keep the normalisation finite (its coords are 0)
-    hi = torch.tensor([max(X - 1.0, 1.0), max(Y - 1.0, 1.0), max(Z - 1.0, 1.0)], dtype=grid.dtype, device=dev)
+    hi = const((max(X - 1.0, 1.0), max(Y - 1.0, 1.0), max(Z - 1.0, 1.0)), grid.dtype, dev)
     out = trilinear_sample(grid, pts, torch.zeros(3, dtype=grid.dtype, device=dev), hi)
     return out.movedim(-1, 0)
 
@@ -418,7 +419,7 @@ def conv3d_separable_replicate(grid: torch.Tensor, k1d: torch.Tensor) -> torch.T
 
 def binomial_kernel_1d(device="cuda") -> torch.Tensor:
     """[1, 2, 1]/4, the separable factor of the 3x3x3 binomial TV-smooth kernel."""
-    return torch.tensor([0.25, 0.5, 0.25], dtype=torch.float32, device=device)
+    return const((0.25, 0.5, 0.25), torch.float32, device)
 
 
 def gaussian_kernel_1d(ksize: int, sigma: float, device="cuda") -> torch.Tensor:

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.graphsafe import const
+
 
 class CompactSamples(NamedTuple):
     pts: torch.Tensor    # [N, K, 3]
@@ -85,7 +87,7 @@ def mask_lookup(mask: torch.Tensor, xyz: torch.Tensor, xyz_min, xyz_max) -> torc
     """Nearest-voxel occupancy at world points [..., 3] (round half to even);
     out-of-bounds points read the clamped border voxel."""
     shape = mask.shape
-    size = torch.tensor(shape, dtype=torch.float32, device=xyz.device)
+    size = const(tuple(shape), torch.float32, xyz.device)
     scale = (size - 1.0) / (xyz_max - xyz_min)
     ijk = torch.round((xyz - xyz_min) * scale).to(torch.int64)
     i = ijk[..., 0].clamp(0, shape[0] - 1)

@@ -1,22 +1,29 @@
 """Where the time of the training step goes, on one GPU.
 
-    python3 -m poseprobe_tpu_torch.profile_step [--steps 6] [--out TRACE_DIR] [--phases early coarse mid]
+    python3 -m poseprobe_tpu_torch.profile_step [--steps 8] [--superstep K] [--composite]
+                                               [--out TRACE_DIR] [--phases early coarse mid]
 
 For each phase cell of `build_trainer()` (early: step 1, object branch on;
-coarse: step 10,001; mid: step 18,001) it times steps without the profiler (host clock around
-synchronised steps), then traces the same number of steps with
-`torch.profiler` and prints the device time per step, the device busy share
-(device time / unprofiled step time), the kernel launches per step, the
+coarse: step 10,001; mid: step 18,001) it times steps without the profiler
+(host clock around synchronised steps), then traces the same number of steps
+with `torch.profiler` and prints the device time per step, the device busy
+share (device time / unprofiled step time), the device events per step, the
 device time of the hand-written kernels (fused trunk; trilinear and layout),
 the kernels with the most device time and the most frequent host (aten) ops.
-After the phases it prints the 60k-weighted rays/s of the measured step times
-(10k early steps at object + scene rays, 8k coarse and 42k mid steps at scene
-rays). One JSON line per phase and one for the weighting; Chrome traces go to
-`--out`.
+With `--superstep K` it also runs the steps as K-step superstep windows
+(`steps_scan(K)`: one captured CUDA graph replayed), timed in turns with the
+eager steps (eager, graph, graph, eager), and prints the same for them, the
+capture time of each cell and the peak device memory. After the phases it
+prints the 60k-weighted rays/s of the measured step times (10k early steps at
+object + scene rays, 8k coarse and 42k mid steps at scene rays), for each
+mode. `--composite` turns on the fused alpha-composite kernels
+(`use_pallas_composite`, off by default as in the reference). One JSON line
+per phase and one for the weighting; Chrome traces go to `--out`.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -35,20 +42,27 @@ def _device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def profile_phase(tr, name: str, start: int, steps: int, out: Path | None) -> dict:
-    tr.global_step = start
-    for _ in range(3):
-        tr.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        tr.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+def _run(tr, mode: str, steps: int, k: int) -> None:
+    """`steps` steps: eager, or as steps / k superstep windows."""
+    if mode == "eager":
         for _ in range(steps):
             tr.step()
+    else:
+        for _ in range(steps // k):
+            tr.steps_scan(k)
+
+
+def _timed_ms(tr, mode: str, steps: int, k: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _run(tr, mode, steps, k)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _traced(tr, name: str, mode: str, steps: int, k: int, step_ms: float, out: Path | None) -> dict:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _run(tr, mode, steps, k)
         torch.cuda.synchronize()
     events = _device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
@@ -63,9 +77,9 @@ def profile_phase(tr, name: str, start: int, steps: int, out: Path | None) -> di
                       key=lambda e: e.count, reverse=True)[:8]
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / f"{name}.json"))
+        prof.export_chrome_trace(str(out / f"{name}_{mode}.json"))
     result = {
-        "phase": name, "step": start, "step_ms": step_ms,
+        "step_ms": step_ms,
         "device_ms_per_step": device_us / 1e3 / steps,
         "busy_share": device_us / 1e3 / steps / step_ms,
         "launches_per_step": launches / steps,
@@ -76,7 +90,7 @@ def profile_phase(tr, name: str, start: int, steps: int, out: Path | None) -> di
         "top_host_ops": [{"op": e.key, "calls_per_step": e.count / steps,
                           "host_ms_per_step": e.cpu_time_total / 1e3 / steps} for e in host_ops],
     }
-    print(f"{name}: {step_ms:.2f} ms/step unprofiled, device {result['device_ms_per_step']:.2f} ms/step "
+    print(f"{name} {mode}: {step_ms:.2f} ms/step unprofiled, device {result['device_ms_per_step']:.2f} ms/step "
           f"(busy {100 * result['busy_share']:.1f}%), {result['launches_per_step']:.0f} device "
           f"events/step, trunk kernels {result['trunk_kernels_ms_per_step']:.2f} ms/step, trilinear + "
           f"layout kernels {result['grid_kernels_ms_per_step']:.3f} ms/step")
@@ -87,9 +101,52 @@ def profile_phase(tr, name: str, start: int, steps: int, out: Path | None) -> di
     return result
 
 
+def profile_phase(tr, name: str, start: int, steps: int, superstep: int, out: Path | None) -> dict:
+    """The phase's eager steps and, with `superstep` > 1, its superstep windows
+    (steps rounded down to whole windows), timed in turns and then traced."""
+    modes = ("eager", "graph") if superstep > 1 else ("eager",)
+    if superstep > 1:
+        steps = max(steps // superstep, 1) * superstep
+    tr.global_step = start
+    tr.drop_graphs()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        tr.step()
+    capture_s = None
+    if superstep > 1:
+        t0 = time.perf_counter()
+        tr.steps_scan(superstep)            # the cell's capture (its first step runs eagerly)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+    order = ("eager", "graph", "graph", "eager") if superstep > 1 else ("eager",)
+    times = {m: [] for m in modes}
+    for mode in order:
+        times[mode].append(_timed_ms(tr, mode, steps, superstep))
+    result = {"phase": name, "step": start, "steps": steps, "superstep": superstep}
+    for mode in modes:
+        step_ms = sum(times[mode]) / len(times[mode])
+        result[mode] = dict(_traced(tr, name, mode, steps, superstep, step_ms, out),
+                            step_ms_in_turns=times[mode])
+    result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if capture_s is not None:
+        graph = tr._graphs.graph
+        result["capture_s"] = graph.capture_s
+        result["first_window_s"] = capture_s
+        print(f"{name}: capture of the cell {graph.capture_s:.3f} s (first window of {superstep} steps, "
+              f"its eager first step and the capture included, {capture_s:.3f} s); step ms in turns "
+              f"{times}; peak memory {result['peak_memory_gib']:.2f} GiB")
+    else:
+        print(f"{name}: peak memory {result['peak_memory_gib']:.2f} GiB")
+    return result
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--superstep", type=int, default=1,
+                    help="also run the steps as K-step superstep windows (CUDA-graph replay)")
+    ap.add_argument("--composite", action="store_true",
+                    help="use the fused alpha-composite kernels (use_pallas_composite=True)")
     ap.add_argument("--out", type=Path, default=None, help="directory for Chrome traces")
     ap.add_argument("--phases", nargs="+", default=["early", "coarse", "mid"],
                     choices=["early", "coarse", "mid"])
@@ -99,14 +156,21 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     tr = trainer_mod.build_trainer(device="cuda")
+    if args.composite:
+        tr.cfg = dataclasses.replace(tr.cfg, object_model=dataclasses.replace(
+            tr.cfg.object_model, use_pallas_composite=True))
     starts = {"early": 1, "coarse": trainer_mod.N_ITERS + 1, "mid": tr.fine_start + 1}
     step_ms = {}
     for name in args.phases:
-        result = profile_phase(tr, name, starts[name], args.steps, args.out)
-        step_ms[name] = result["step_ms"]
+        result = profile_phase(tr, name, starts[name], args.steps, args.superstep, args.out)
+        step_ms[name] = {mode: result[mode]["step_ms"] for mode in ("eager", "graph") if mode in result}
         print(json.dumps(result))
     if len(step_ms) == 3:
-        print(json.dumps(weighted_rays_per_s(tr, step_ms)))
+        for mode in step_ms["early"]:
+            out = dict(weighted_rays_per_s(tr, {p: ms[mode] for p, ms in step_ms.items()}), mode=mode)
+            print(f"60k-weighted ({mode}): {out['rays_per_s_60k_weighted']:.1f} rays/s, "
+                  f"{out['seconds_for_60k_steps']:.0f} s for the 60k steps")
+            print(json.dumps(out))
 
 
 def weighted_rays_per_s(tr, step_ms: dict) -> dict:
@@ -118,10 +182,8 @@ def weighted_rays_per_s(tr, step_ms: dict) -> dict:
     rays = {"early": obj_rays + scene_rays, "coarse": scene_rays, "mid": scene_rays}
     total_s = sum(steps[p] * step_ms[p] / 1e3 for p in steps)
     total_rays = sum(steps[p] * rays[p] for p in steps)
-    out = {"rays_per_s_60k_weighted": total_rays / total_s, "seconds_for_60k_steps": total_s,
-           "step_ms": step_ms}
-    print(f"60k-weighted: {out['rays_per_s_60k_weighted']:.1f} rays/s, {total_s:.0f} s for the 60k steps")
-    return out
+    return {"rays_per_s_60k_weighted": total_rays / total_s, "seconds_for_60k_steps": total_s,
+            "step_ms": step_ms}
 
 
 if __name__ == "__main__":

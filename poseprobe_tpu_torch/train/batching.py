@@ -29,7 +29,7 @@ class ObjectBatch(NamedTuple):
 def rays_from_pixels_object(pixels, view_idx, Ks, current_pose, inverse_y: bool):
     """Object-branch rays at (x, y) pixel coords (+0.5 centers) per view index."""
     K = Ks[view_idx]                                       # [N, 3, 3]
-    c2w = pose_ops.invert(current_pose)[view_idx]          # [N, 3, 4]
+    c2w = pose_ops.invert(current_pose).index_select(0, view_idx)   # [N, 3, 4]
     x = pixels[:, 0].to(torch.float32) + 0.5
     y = pixels[:, 1].to(torch.float32) + 0.5
     dx, dy = (x - K[:, 0, 2]) / K[:, 0, 0], (y - K[:, 1, 2]) / K[:, 1, 1]
@@ -45,11 +45,13 @@ def rays_from_pixels_object(pixels, view_idx, Ks, current_pose, inverse_y: bool)
 
 def draw_object_batch(generator: torch.Generator, n_rand: int, n_active: int, device="cuda") -> dict:
     """The draws of `sample_object_batch`: a view and a semantic class per ray,
-    and the uniform that picks the pixel from that pool."""
-    fracs = torch.tensor(SEMANTIC_FRACS, dtype=torch.float32, device=device)
-    return {"view": torch.randint(0, n_active, (n_rand,), generator=generator, device=device),
-            "cls": torch.multinomial(fracs, n_rand, replacement=True, generator=generator),
-            "pick": torch.rand(n_rand, generator=generator, device=device)}
+    and the uniform that picks the pixel from that pool. The class is the
+    inverse CDF of SEMANTIC_FRACS at a uniform (`torch.multinomial` waits for
+    the host on a card)."""
+    view = torch.randint(0, n_active, (n_rand,), generator=generator, device=device)
+    u = torch.rand(n_rand, generator=generator, device=device)
+    cls = sum((u >= edge).long() for edge in np.cumsum(SEMANTIC_FRACS[:-1]).tolist())
+    return {"view": view, "cls": cls, "pick": torch.rand(n_rand, generator=generator, device=device)}
 
 
 def sample_object_batch(draws: dict, images: torch.Tensor, masks: torch.Tensor, Ks: torch.Tensor,

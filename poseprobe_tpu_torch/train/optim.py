@@ -3,9 +3,13 @@ optax chains.
 
 Port of `build_object_optimizer`, `build_scene_optimizer` and
 `build_pose_optimizer` of `poseprobe_tpu/train/optim.py`. Parameters, gradients and moments are nested
-dicts/lists of tensors (the JAX trees); an optimizer is functional:
-``update(grads, state) -> (updates, new_state)`` and the caller adds the
-updates. Matching optax exactly:
+dicts/lists of tensors (the JAX trees). ``update(grads, state) -> (updates,
+state)`` advances the state in place: the moments and the step count are
+tensors on the params' device, and the lrs and bias corrections are tensor
+math on that count, evaluated in float32 as optax does in the reference's
+traced step. So the step that calls it holds no per-step number on the host
+and can be captured by a CUDA graph. The caller adds the updates. Matching
+optax exactly:
 
 * clip-by-global-norm multiplies by ``max_norm / norm`` only when
   ``norm >= max_norm`` (not ``torch.nn.utils.clip_grad_norm_``'s
@@ -23,6 +27,14 @@ from ..config.config import ObjectTrainConfig, SceneTrainConfig
 from ..core.tree import tree_leaves, tree_map, tree_unflatten
 
 
+def _count(state: dict, like: torch.Tensor) -> torch.Tensor:
+    """The state's count as an int64 tensor on `like`'s device, stored back
+    into the state if it was given as a number."""
+    if not isinstance(state["count"], torch.Tensor):
+        state["count"] = torch.tensor(state["count"], dtype=torch.int64, device=like.device)
+    return state["count"]
+
+
 class _Adam:
     """Adam moments + an lr schedule over a param tree (optax
     scale_by_adam -> schedule -> scale(-1))."""
@@ -32,21 +44,31 @@ class _Adam:
 
     def init(self, params) -> dict:
         zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)  # noqa: E731
-        return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+        device = tree_leaves(params)[0].device
+        return {"count": torch.zeros((), dtype=torch.int64, device=device),
+                "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+
+    def bias_corrections(self, count) -> tuple:
+        """1 - b1^count and 1 - b2^count at `count` (a number or a tensor), in
+        float32 as optax has them."""
+        t = torch.as_tensor(count).to(torch.float32)
+        return 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
 
     def _direction(self, grads, state):
-        """Adam direction mu_hat / (sqrt(nu_hat) + eps) and the new state."""
-        count = state["count"] + 1
-        # bias corrections 1 - b^count, evaluated in float32 as optax does
-        c1 = float(1.0 - torch.tensor(self.b1, dtype=torch.float32) ** count)
-        c2 = float(1.0 - torch.tensor(self.b2, dtype=torch.float32) ** count)
+        """Adam direction mu_hat / (sqrt(nu_hat) + eps). Advances the moments
+        and the count in place; the caller takes its lr from the count first."""
         g, mu, nu = tree_leaves(grads), tree_leaves(state["mu"]), tree_leaves(state["nu"])
-        mu = [(1 - self.b1) * gi + self.b1 * m for gi, m in zip(g, mu)]
-        nu = [(1 - self.b2) * gi * gi + self.b2 * v for gi, v in zip(g, nu)]
-        d = [(m / c1) / (torch.sqrt(v / c2) + self.eps) for m, v in zip(mu, nu)]
-        new_state = {"count": count, "mu": tree_unflatten(state["mu"], mu),
-                     "nu": tree_unflatten(state["nu"], nu)}
-        return d, new_state
+        count = _count(state, g[0])
+        c1, c2 = self.bias_corrections(count + 1)
+        # mu = (1 - b1) g + b1 mu and nu = (1 - b2) g^2 + b2 nu, rounded as optax rounds them
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - self.b1))
+        sq = torch._foreach_mul(g, g)
+        torch._foreach_mul_(sq, 1.0 - self.b2)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, sq)
+        count.add_(1)
+        return [(m / c1) / (torch.sqrt(v / c2) + self.eps) for m, v in zip(mu, nu)]
 
 
 # object param key -> the lr field of ObjectTrainConfig and the module name of
@@ -77,27 +99,28 @@ class ObjectOptimizer(_Adam):
     def init(self, params: dict) -> dict:
         return super().init(self.trainable(params))
 
-    def lr(self, key: str, count: int) -> float:
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
-        lr = f32(self.base_lr[key]) * f32(0.1) ** (f32(count) / self.decay_steps)
+    def lr(self, key: str, count) -> torch.Tensor:
+        """The module's lr at `count` (a number or a 0-dim tensor)."""
+        count = torch.as_tensor(count)
+        lr = self.base_lr[key] * 0.1 ** (count / self.decay_steps)
         for ev_step, factor in self.events[key]:
-            if count >= ev_step:
-                lr = lr * factor
-        return float(lr)
+            lr = lr * torch.where(count >= ev_step, factor, 1.0)
+        return lr
 
     def update(self, grads: dict, state: dict):
         sub = self.trainable(grads)
-        d, new_state = self._direction(sub, state)
-        d = tree_unflatten(sub, d)
-        count = state["count"]
+        if not sub:
+            return tree_map(torch.zeros_like, grads), state
+        count = _count(state, tree_leaves(sub)[0])
+        lrs = {key: self.lr(key, count) for key in sub}
+        d = tree_unflatten(sub, self._direction(sub, state))
         updates = {}
         for key, g in grads.items():
             if key in sub:
-                lr = self.lr(key, count)
-                updates[key] = tree_map(lambda x, lr=lr: -lr * x, d[key])
+                updates[key] = tree_map(lambda x, lr=lrs[key]: -(lr * x), d[key])
             else:
                 updates[key] = tree_map(torch.zeros_like, g)
-        return updates, new_state
+        return updates, state
 
 
 class SceneOptimizer(_Adam):
@@ -110,9 +133,8 @@ class SceneOptimizer(_Adam):
         self.gamma = (cfg.lr_end / cfg.lr) ** (1.0 / cfg.max_iter)
         self.clip = cfg.nerf_gradient_clipping
 
-    def lr(self, count: int) -> float:
-        return float(torch.tensor(self.base_lr, dtype=torch.float32)
-                     * torch.tensor(self.gamma, dtype=torch.float32) ** count)
+    def lr(self, count) -> torch.Tensor:
+        return self.base_lr * self.gamma ** torch.as_tensor(count)
 
     def update(self, grads, state):
         if self.clip:
@@ -121,9 +143,8 @@ class SceneOptimizer(_Adam):
             # t / norm * max_norm, the order optax uses
             leaves = [torch.where(norm < self.clip, g, g / norm * self.clip) for g in leaves]
             grads = tree_unflatten(grads, leaves)
-        d, new_state = self._direction(grads, state)
-        lr = self.lr(state["count"])
-        return tree_unflatten(grads, [-lr * x for x in d]), new_state
+        lr = self.lr(_count(state, tree_leaves(grads)[0]))
+        return tree_unflatten(grads, [-(lr * x) for x in self._direction(grads, state)]), state
 
 
 class PoseOptimizer(_Adam):
@@ -143,10 +164,10 @@ class PoseOptimizer(_Adam):
     def _gamma(self, window: int) -> float:
         return (self.lr_pose_end / (1e-10 + self.lr_pose)) ** (1.0 / max(window, 1))
 
-    def _lr_window(self, count: int, window: int, freeze: bool) -> float:
-        lr = torch.tensor(self.lr_pose, dtype=torch.float32) * torch.tensor(
-            self._gamma(window), dtype=torch.float32) ** min(count, window)
-        return float(lr) * (float(count < window) if freeze else 1.0)
+    def _lr_window(self, count, window: int, freeze: bool) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        lr = self.lr_pose * self._gamma(window) ** torch.clamp(count, max=window)
+        return lr * (count < window) if freeze else lr
 
     def init(self, params):
         return None if self.lr_pose <= 0 else super().init(params)
@@ -154,13 +175,11 @@ class PoseOptimizer(_Adam):
     def update(self, grads, state):
         if self.lr_pose <= 0:
             return tree_map(torch.zeros_like, grads), state
-        d, new_state = self._direction(grads, state)
-        count = state["count"]
+        count = _count(state, tree_leaves(grads)[0])
         if not self.split:
             lr = self._lr_window(count, self.rot_window, freeze=False)
-            return tree_unflatten(grads, [-lr * x for x in d]), new_state
-        lr_rot = self._lr_window(count, self.rot_window, freeze=True)
-        lr_trans = self._lr_window(count, self.trans_window, freeze=True)
-        lr_vec = torch.tensor([lr_rot] * 3 + [lr_trans] * 3, dtype=torch.float32,
-                              device=d[0].device)
-        return tree_unflatten(grads, [-(x * lr_vec) for x in d]), new_state
+        else:
+            lr_rot = self._lr_window(count, self.rot_window, freeze=True)
+            lr_trans = self._lr_window(count, self.trans_window, freeze=True)
+            lr = torch.stack([lr_rot] * 3 + [lr_trans] * 3)
+        return tree_unflatten(grads, [-(x * lr) for x in self._direction(grads, state)]), state

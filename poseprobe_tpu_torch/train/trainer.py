@@ -28,15 +28,24 @@ in numpy float64 (`core/align.py`, `pose_init/`); their renders (surface
 anchors, warmup, fixed-ray scores, validation) run on the trainer's device.
 
 Randomness is injected: `step(draws)` takes every random number of the step
-as tensors (`sample_draws` makes them from the trainer's generators when the
-caller passes none), so a test can feed this step and the JAX step the same
-numbers.
+(`sample_draws` draws them on the device from the trainer's generator when
+the caller passes none), so a test can feed this step and the JAX step the
+same numbers.
+
+The step is graph-safe: it reads the step number from a device counter that
+it advances, draws on the device, updates the params and the Adam state in
+place and evaluates every schedule (lrs, bias corrections, NeuS sharpness,
+loss weights) as tensor math, so it launches work on the device and never
+waits for the host. `fit(superstep=K)` and `steps_scan(K)` are the
+reference's `lax.scan` supersteps: on a card the K steps between host events
+are one captured step replayed K - 1 times after an eager first step
+(`train/graphs.py`), because the step is otherwise host-bound (its 1.6k-3.3k
+kernels each cost a launch); on the CPU the same step runs K times.
 
 Not ported yet, and raising `NotImplementedError` where a config asks for
 them: depth consistency from fresh pixels (the corres term off), the TensoRF
 feature grid, and the surface-feature loss (`weight_surface_projection > 0`).
-The `lax.scan` supersteps have no counterpart (`fit` takes no `superstep`),
-and checkpoints (`host_extras`) are a later slice.
+Checkpoints (`host_extras`) are a later slice.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ import torch
 
 from ..config.config import ExperimentConfig
 from ..core import align as align_mod, pose as pose_ops, rays as rays_mod
+from ..core.graphsafe import take
 from ..core.tree import tree_leaves, tree_unflatten
 from ..data.base import SceneData
 from ..eval import evaluator
@@ -56,7 +66,7 @@ from ..losses import (common as loss_common, object as object_losses_mod,
 from ..models import object_sdf, pose_refine, scene_nerf
 from ..ops import compositing, grid as grid_ops, maskcache, ray_sampling
 from ..pose_init import ba as ba_mod, pnp as pnp_mod
-from . import batching
+from . import batching, graphs
 from .optim import ObjectOptimizer, PoseOptimizer, SceneOptimizer
 
 # bench.py's workload constants (the 60k-step schedule at reference scale)
@@ -103,7 +113,10 @@ class SceneTrainer:
         seed = cfg.seed if seed is None else seed
         init_gen = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self.host_generator = torch.Generator().manual_seed(seed + 2)
+        # the step number on the device: the step reads it and advances it
+        self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._graphs = graphs.GraphCache()
+        self._metrics_hist: list = []
 
         def dev(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -114,6 +127,7 @@ class SceneTrainer:
         self.poses_gt = dev(data.poses_gt_w2c[it])
         self.scene_matches = dev(data.scene_matches)
         self.pair_j = np.asarray(data.pair_j)
+        self.pair_j_t = dev(self.pair_j, torch.int64)
         self.n_train = data.n_train
         self.H, self.W = data.H, data.W
 
@@ -164,6 +178,16 @@ class SceneTrainer:
         return object_sdf.maskout_near_cam_vox(obj, om, cam_centers, self.data.near)
 
     @property
+    def global_step(self) -> int:
+        """The number of the next step (the host's copy of the device counter)."""
+        return self._global_step
+
+    @global_step.setter
+    def global_step(self, step: int) -> None:
+        self._global_step = int(step)
+        self._step_t.fill_(self._global_step)
+
+    @property
     def fix_first_pose(self) -> bool:
         if self.cfg.camera.fix_first_pose is not None:
             return bool(self.cfg.camera.fix_first_pose)
@@ -200,7 +224,7 @@ class SceneTrainer:
         n_rays = n_active * n_pix + 2 * M
         draws = {
             "pixels": pixels,
-            "corres_view": int(torch.randint(0, n_active, (), generator=self.host_generator)),
+            "corres_view": torch.randint(0, n_active, (), generator=self.generator, device=self.device),
             "render": ray_sampling.draw_render_noise(self.generator, 1, n_rays, sm.sample_intvs,
                                                      sm.sample_intvs_fine, self.device),
         }
@@ -210,14 +234,15 @@ class SceneTrainer:
                 self.generator, 1, M, sm.sample_intvs, sm.sample_intvs_fine, self.device)
         return draws
 
-    def loss(self, scene_p: dict, pose_p: dict, step: int, flags: dict, draws: dict):
+    def loss(self, scene_p: dict, pose_p: dict, step, flags: dict, draws: dict):
         """Total scene loss and metrics of one step (the scene half of the
-        reference's `_step_impl.loss_fn`)."""
+        reference's `_step_impl.loss_fn`); `step` is an int or the 0-dim step
+        counter."""
         cfg = self.cfg
         sc, sm = cfg.scene_train, cfg.scene_model
         n_active = flags["n_active"]
-        progress = torch.clamp(torch.tensor(step, dtype=torch.float32, device=self.device)
-                               / sm.max_iter, 0.0, 1.0)
+        step = self._as_step(step)
+        progress = torch.clamp(step / sm.max_iter, 0.0, 1.0)
         depth_range = (self.data.near, self.data.far)
 
         current_pose = pose_refine.current_pose_pnp(pose_p, self.poses_pnp,
@@ -247,9 +272,9 @@ class SceneTrainer:
         ray_all = ray_m.reshape(1, R_main, 3)
         if use_corres:
             r = draws["corres_view"]
-            pack = self.scene_matches[r]
+            pack = take(self.scene_matches, r)
             px_self, px_other, conf = pack[:, 2:4], pack[:, 0:2], pack[:, 4]
-            id_self, id_other = r, int(self.pair_j[r])
+            id_self, id_other = r, take(self.pair_j_t, r)
             center_c, ray_c = scene_losses.correspondence_pair_rays(
                 current_pose, self.Ks, px_self, px_other, id_self, id_other)
             M = center_c.shape[1]
@@ -291,37 +316,155 @@ class SceneTrainer:
         """Names of the param groups this step updates."""
         return ["scene"] + (["pose"] if flags["pose_on"] else [])
 
-    def _loss(self, params: dict, step: int, flags: dict, draws: dict):
+    def _loss(self, params: dict, step, flags: dict, draws: dict):
         return self.loss(params["scene"], params["pose"], step, flags, draws)
 
-    def step(self, draws: dict | None = None) -> dict:
-        """One training step; returns its metrics (0-dim tensors on the device)."""
-        flags = self.phase_flags(self.global_step)
+    def _as_step(self, step) -> torch.Tensor:
+        """`step` as a 0-dim int64 tensor on the device (filled on the device
+        from an int: no host copy)."""
+        if isinstance(step, torch.Tensor):
+            return step
+        return torch.full((), step, dtype=torch.int64, device=self.device)
+
+    def _step_body(self, flags: dict, draws: dict | None = None) -> dict:
+        """One training step on the device, graph-safe: draws (unless given),
+        loss, one backward pass, the optimizers' in-place updates of the
+        params and their state, and the advance of the step counter. Returns
+        the metrics (0-dim tensors on the device)."""
         if draws is None:
             draws = self.sample_draws(flags)
         names = self._trained(flags)
         params = {n: getattr(self, f"{n}_params") for n in self.GROUPS}
         params.update({n: _leafify(params[n]) for n in names})
-        total, metrics = self._loss(params, self.global_step, flags, draws)
+        total, metrics = self._loss(params, self._step_t, flags, draws)
 
         leaves = [tree_leaves(params[n]) for n in names]
         flat = [x for group in leaves for x in group]
         grads = torch.autograd.grad(total, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
         start = 0
-        for n, group in zip(names, leaves):
-            old = getattr(self, f"{n}_params")
-            g = tree_unflatten(old, grads[start:start + len(group)])
-            start += len(group)
-            up, new_state = getattr(self, f"opt_{n}").update(g, getattr(self, f"opt_{n}_state"))
-            setattr(self, f"opt_{n}_state", new_state)
-            setattr(self, f"{n}_params", _add(old, up))
-        self.global_step += 1
+        with torch.no_grad():
+            for n, group in zip(names, leaves):
+                own = getattr(self, f"{n}_params")
+                g = tree_unflatten(own, grads[start:start + len(group)])
+                start += len(group)
+                up, state = getattr(self, f"opt_{n}").update(g, getattr(self, f"opt_{n}_state"))
+                setattr(self, f"opt_{n}_state", state)
+                torch._foreach_add_(tree_leaves(own), tree_leaves(up))
+            self._step_t.add_(1)
         return {k: v.detach() for k, v in metrics.items()}
 
-    def fit(self, num_steps: int) -> list:
-        """`num_steps` steps, no host events (those are `JointTrainer.fit`'s)."""
-        return [self.step() for _ in range(num_steps)]
+    def step(self, draws: dict | None = None) -> dict:
+        """One training step, run eagerly; returns its metrics (0-dim tensors
+        on the device)."""
+        metrics = self._step_body(self.phase_flags(self.global_step), draws)
+        self._global_step += 1
+        return metrics
+
+    # ------------------------------------------------------------ supersteps
+
+    def _next_boundary(self, step: int) -> int:
+        """First step > `step` at which a host event fires or a phase flag
+        flips: a superstep window starting at `step` must end by then."""
+        cfg = self.cfg
+        cands = [self.pose_window, self.fine_start, self.depth_cons_start,
+                 cfg.scene_train.precrop_iters]
+        return min([c for c in cands if c > step], default=step + 1_000_000_000)
+
+    def steps_scan(self, k: int) -> dict:
+        """`k` steps as one window; returns the stacked [k] metrics.
+
+        Refuses a window that would cross a host event or a phase-flag flip
+        (`_next_boundary`); `fit` never asks for one. On a card the first
+        step of a cell runs eagerly under `torch.cuda.set_sync_debug_mode
+        ("error")` (a step that waits for the host raises), is then captured
+        as a CUDA graph and replayed for the other k - 1 steps; later windows
+        of the cell replay the captured step k times. Capture or replay
+        failing raises. On the CPU the same step runs k times."""
+        step = self.global_step
+        if self._next_boundary(step) < step + k:
+            raise ValueError(f"window [{step}, {step + k}) crosses a host event or a phase flip at "
+                             f"step {self._next_boundary(step)}")
+        flags = self.phase_flags(step)
+        if self.device.type != "cuda":
+            rows = [self.step() for _ in range(k)]
+            return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
+        key = self._cell(flags)
+        graph = self._graphs.get(key, self.state_tensors())
+        rows = []
+        if graph is None:
+            with graphs.sync_debug_error():
+                first = self._step_body(flags)
+            self._global_step += 1
+            rows.append(torch.stack(list(first.values())))
+            graph = self._graphs.put(key, graphs.StepGraph(lambda: self._step_body(flags),
+                                                           self.state_tensors(), self.generator))
+        while len(rows) < k:
+            graph.replay()
+            self._global_step += 1
+            rows.append(graph.packed.clone())
+        hist = torch.stack(rows)
+        return {name: hist[:, j] for j, name in enumerate(graph.outputs)}
+
+    def _cell(self, flags: dict) -> tuple:
+        """What a captured step is specific to: the phase flags, the active
+        views (in the flags), the mask-cache budget, the config, the scatter
+        barrier switch and the shapes of the state."""
+        return (tuple(sorted(flags.items())), getattr(self, "_mask_k", None), self.cfg,
+                grid_ops._scatter_barrier(), tuple(tuple(t.shape) for t in self.state_tensors()))
+
+    def state_tensors(self) -> list:
+        """The persistent tensors the step reads or writes in place: the step
+        counter, the seeded poses, the mask cache, the params and their
+        optimizer states. A captured step is replayed only while each is the
+        tensor it captured: a host event that rebinds one (new seeded poses, a
+        mask-cache refresh, a grid rescale, a caller loading a state) drops
+        the graph, and the next window captures the step again."""
+        out = [self._step_t, self.poses_pnp, getattr(self, "mask_arr", None)]
+        for n in self.GROUPS:
+            out += tree_leaves(getattr(self, f"{n}_params"))
+            state = getattr(self, f"opt_{n}_state")
+            if state is not None:
+                out += [state["count"]] + tree_leaves(state["mu"]) + tree_leaves(state["nu"])
+        return [t for t in out if t is not None]
+
+    def drop_graphs(self) -> None:
+        """Drop the captured steps and free their memory pools."""
+        self._graphs.clear()
+
+    def _host_events(self, step: int) -> None:
+        """The host events that fire before `step` (`JointTrainer` has them)."""
+
+    def fit(self, num_steps: int, log_every: int = 0, callback=None, superstep: int = 1) -> list:
+        """Host loop: `num_steps` steps with the host events before each, in
+        the reference's order. With ``superstep=K > 1`` the steps between
+        host events run as K-step windows (`steps_scan`) wherever K steps
+        remain before the next event, phase flip or log step, and as single
+        steps elsewhere. With `log_every`, the metrics of every
+        `log_every`-th step (a window's last) are brought to the host,
+        checked for a non-finite loss, appended to the history (which is
+        returned) and passed to `callback`."""
+        end_step = self.global_step + num_steps
+        while self.global_step < end_step:
+            step = self.global_step
+            self._host_events(step)
+            limit = min(end_step, self._next_boundary(step))
+            if log_every:   # windows end exactly on log steps
+                limit = min(limit, ((step // log_every) + 1) * log_every)
+            if superstep > 1 and limit - step >= superstep:
+                metrics = {k: v[-1] for k, v in self.steps_scan(superstep).items()}
+            else:
+                metrics = self.step()
+            if log_every and self.global_step % log_every == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                if not np.isfinite(host.get("loss_total", 0.0)):
+                    raise FloatingPointError(f"non-finite loss at step {self.global_step}: {host}")
+                host["step"] = self.global_step
+                host["n_active"] = self.n_active
+                self._metrics_hist.append(host)
+                if callback is not None:
+                    callback(host)
+        return self._metrics_hist
 
     def validate(self, n_views: int = 5) -> float:
         """Validation PSNR over (up to) `n_views` test views rendered in the
@@ -361,7 +504,7 @@ class JointTrainer(SceneTrainer):
         if ot.weight_surface_projection > 0:
             raise NotImplementedError("weight_surface_projection > 0: the surface-feature loss needs "
                                       "the VGG feature maps of the evaluation slice (ROADMAP.md, "
-                                      "modules to port, item 3)")
+                                      "modules to port: the surface-feature loss)")
         # progressive scaling: start at num_voxels / 2^len(pg_scale) and double
         # the voxel count at each checkpoint step
         self._pg_scale = tuple(ot.pg_scale)
@@ -383,7 +526,6 @@ class JointTrainer(SceneTrainer):
         om = cfg.object_model
         self.obj_params = self._probe_params(seed)
         self._probe_checked = False     # the one-shot end-of-object-phase invariant
-        self._metrics_hist: list = []
         self.opt_obj = ObjectOptimizer(ot)
         self.opt_obj_state = self.opt_obj.init(self.obj_params)
 
@@ -415,21 +557,22 @@ class JointTrainer(SceneTrainer):
                                                          self.device)
             draws["object_jitter"] = torch.rand((ot.N_rand, 1), generator=self.generator,
                                                 device=self.device)
-            draws["proj_view"] = int(torch.randint(0, flags["n_active"], (),
-                                                   generator=self.host_generator))
+            draws["proj_view"] = torch.randint(0, flags["n_active"], (), generator=self.generator,
+                                               device=self.device)
         return draws
 
     def _trained(self, flags: dict) -> list:
         return (["obj"] if flags["object_on"] else []) + super()._trained(flags)
 
-    def _loss(self, params: dict, step: int, flags: dict, draws: dict):
+    def _loss(self, params: dict, step, flags: dict, draws: dict):
         return self.joint_loss(params["obj"], params["scene"], params["pose"], step, flags, draws)
 
-    def object_loss(self, obj_p: dict, pose_p: dict, step: int, flags: dict, draws: dict):
+    def object_loss(self, obj_p: dict, pose_p: dict, step, flags: dict, draws: dict):
         """The object half of the reference's `_step_impl.loss_fn`: (loss, metrics)."""
         cfg = self.cfg
         oc, ot = cfg.object_model, cfg.object_train
-        n_active = flags["n_active"]
+        step = self._as_step(step)
+        step_f = step.to(torch.float32)
         current_pose = pose_refine.current_pose_pnp(pose_p, self.poses_pnp,
                                                     fix_first=self.fix_first_pose)
         if not flags["pose_on"]:
@@ -438,13 +581,13 @@ class JointTrainer(SceneTrainer):
                                              current_pose, self.sampler_pixels, self.sampler_counts,
                                              self.data.inverse_y)
         render_out = object_sdf.render(
-            obj_p, oc, batch.rays_o, batch.rays_d, batch.viewdirs, global_step=step,
+            obj_p, oc, batch.rays_o, batch.rays_d, batch.viewdirs, global_step=step_f,
             jitter=draws["object_jitter"], use_deform=True, is_train=True, near=self.data.near,
             far=self.data.far, bg=1.0 if self.data.white_bkgd else 0.0, mask_grid=self.mask_arr,
             mask_k=self._mask_k)
         k0_tv = object_losses_mod.k0_total_variation(obj_p)
         _, _, obj_loss, psnr = object_losses_mod.object_losses(
-            render_out, batch.target, batch.mask, step, oc.N_iters, weight_main=ot.weight_main,
+            render_out, batch.target, batch.mask, step_f, oc.N_iters, weight_main=ot.weight_main,
             weight_mask=ot.weight_mask, weight_tv_k0=ot.weight_tv_k0, k0_tv_value=k0_tv,
             use_deform=True, deform_prior_init=ot.weight_deform_prior_init,
             deform_prior_final=ot.weight_deform_prior_final)
@@ -458,19 +601,21 @@ class JointTrainer(SceneTrainer):
         metrics["s_val"] = render_out["s_val"]
         if ot.projection_dis_error > 0:
             r = draws["proj_view"]
-            pack = self.obj_matches[r]
+            pack = take(self.obj_matches, r)
             proj_err, near_surf = projection_losses.projection_error_loss(
                 obj_p, oc, current_pose, self.Ks, coord_self=pack[:, 0:2], coord_other=pack[:, 2:4],
-                mconf=pack[:, 4], id_i=int(self.pair_j[r]), id_j=r, global_step=step,
+                mconf=pack[:, 4], id_i=take(self.pair_j_t, r), id_j=r, global_step=step_f,
                 inverse_y=self.data.inverse_y, use_deform=flags["proj_use_deform"], pixel_thre=200.0,
                 near=self.data.near, far=self.data.far, mask_grid=self.mask_arr, mask_k=self._mask_k)
             obj_loss = obj_loss + ot.projection_dis_error * proj_err + ot.weight_near_surface * near_surf
             metrics["proj_err"] = proj_err
         return obj_loss, metrics
 
-    def joint_loss(self, obj_p: dict, scene_p: dict, pose_p: dict, step: int, flags: dict,
+    def joint_loss(self, obj_p: dict, scene_p: dict, pose_p: dict, step, flags: dict,
                    draws: dict):
-        """Total loss and metrics of one step: 0.1 * object loss + scene loss."""
+        """Total loss and metrics of one step: 0.1 * object loss + scene loss;
+        `step` is an int or the 0-dim step counter."""
+        step = self._as_step(step)
         total, metrics = self.loss(scene_p, pose_p, step, flags, draws)
         if flags["object_on"]:
             obj_loss, obj_metrics = self.object_loss(obj_p, pose_p, step, flags, draws)
@@ -478,18 +623,13 @@ class JointTrainer(SceneTrainer):
             metrics = {**obj_metrics, **metrics, "loss_total": total}
         return total, metrics
 
-    def _tv_density_loss(self, obj_p: dict, step: int):
+    def _tv_density_loss(self, obj_p: dict, step: torch.Tensor):
         """weight_tv_density * (sdf TV + smoothed-grad TV), with the weights the
-        `tv_updates` schedule has reached by `step`."""
+        `tv_updates` schedule has reached by the step tensor `step`."""
         ot, oc = self.cfg.object_train, self.cfg.object_model
         if ot.weight_tv_density <= 0:
             return 0.0
-        sdf_tv, smooth_tv = ot.sdf_tv, ot.smooth_grad_tv
-        for ev_step, updates in ot.tv_updates:
-            if step >= ev_step:
-                upd = dict(updates)
-                sdf_tv = upd.get("sdf_tv", sdf_tv)
-                smooth_tv = upd.get("smooth_grad_tv", smooth_tv)
+        sdf_tv, smooth_tv = tv_weights(ot, step)
         total = 0.0
         if ot.sdf_tv > 0:
             total = total + grid_ops.total_variation(obj_p["sdf_grid"]) / 2.0 / oc.voxel_size * sdf_tv
@@ -904,56 +1044,64 @@ class JointTrainer(SceneTrainer):
         dt = float(np.linalg.norm(t_s - t_g)) * 100.0
         print(f"[activate {step}] view {new_idx} ({tag}): rel-pose error R {dR:.2f}deg t {dt:.2f}")
 
-    def fit(self, num_steps: int, log_every: int = 0, callback=None) -> list:
-        """Host loop: `num_steps` steps with the host events before each, in
-        the reference's order. With `log_every`, the metrics of every
-        `log_every`-th step are brought to the host, checked for a non-finite
-        loss, appended to the history (which is returned) and passed to
-        `callback`. There is no `superstep`: the reference's K-step `lax.scan`
-        programs amortise a dispatch cost that eager PyTorch does not have in
-        that form."""
+    def _host_events(self, step: int) -> None:
+        """The host events before `step`, in the reference's order."""
         ot, cam = self.cfg.object_train, self.cfg.camera
-        rereg_at = (int(cam.reregister_at_ratio * self.cfg.scene_model.max_iter)
-                    if cam.reregister_at_ratio is not None else -1)
-        end_step = self.global_step + num_steps
-        while self.global_step < end_step:
-            step = self.global_step
-            if not self._probe_checked and 0 < ot.N_iters <= step:
-                # one-shot, set before the raise: a caller that catches the
-                # error can resume without raising again at each step
-                self._probe_checked = True
-                self.check_probe_health()
-            self.maybe_activate_view(step)
-            self.maybe_pg_scale(step)
-            if step == rereg_at and step > 0:
-                self.reregister_poses()
-            if step > 0 and step in self._ba_steps():
-                self.polish_poses_ba()
-            if (self.cfg.object_model.use_maskcache and step > 0
-                    and step <= ot.N_iters + ot.maskcache_update_every
-                    and step % ot.maskcache_update_every == 0):
-                self.refresh_maskcache()
-            metrics = self.step()
-            if log_every and self.global_step % log_every == 0:
-                host = {k: float(v) for k, v in metrics.items()}
-                if not np.isfinite(host.get("loss_total", 0.0)):
-                    raise FloatingPointError(f"non-finite loss at step {self.global_step}: {host}")
-                host["step"] = self.global_step
-                host["n_active"] = self.n_active
-                self._metrics_hist.append(host)
-                if callback is not None:
-                    callback(host)
-        return self._metrics_hist
+        if not self._probe_checked and 0 < ot.N_iters <= step:
+            # one-shot, set before the raise: a caller that catches the
+            # error can resume without raising again at each step
+            self._probe_checked = True
+            self.check_probe_health()
+        self.maybe_activate_view(step)
+        self.maybe_pg_scale(step)
+        if step == self._rereg_step() and step > 0:
+            self.reregister_poses()
+        if step > 0 and step in self._ba_steps():
+            self.polish_poses_ba()
+        if (self.cfg.object_model.use_maskcache and step > 0
+                and step <= ot.N_iters + ot.maskcache_update_every
+                and step % ot.maskcache_update_every == 0):
+            self.refresh_maskcache()
+
+    def _rereg_step(self) -> int:
+        ratio = self.cfg.camera.reregister_at_ratio
+        return int(ratio * self.cfg.scene_model.max_iter) if ratio is not None else -1
+
+    def _next_boundary(self, step: int) -> int:
+        """First step > `step` at which a host event fires or a phase flag
+        flips (the reference's candidates)."""
+        cfg, ot = self.cfg, self.cfg.object_train
+        cands = [super()._next_boundary(step), ot.N_iters + 1]     # object_on flips off
+        if cfg.camera.incremental and self.n_active < self.n_train:
+            inc = cfg.camera.incremental_step
+            cands.append(((step // inc) + 1) * inc)                 # maybe_activate_view
+        cands += [s for s in self._pg_scale if s > step]            # maybe_pg_scale
+        if cfg.camera.reregister_at_ratio is not None:
+            cands.append(self._rereg_step())                        # reregister_poses
+        cands += [s for s in self._ba_steps() if s > step]          # polish_poses_ba
+        if cfg.object_model.use_maskcache and step <= ot.N_iters + ot.maskcache_update_every:
+            upd = ot.maskcache_update_every
+            cands.append(((step // upd) + 1) * upd)                 # refresh_maskcache
+        return min(c for c in cands if c > step)
+
+
+def tv_weights(ot, step: torch.Tensor) -> tuple:
+    """(sdf_tv, smooth_grad_tv) that the `tv_updates` schedule has reached by
+    `step`, as float32 tensors."""
+    sdf_tv = torch.full_like(step, ot.sdf_tv, dtype=torch.float32)
+    smooth_tv = torch.full_like(step, ot.smooth_grad_tv, dtype=torch.float32)
+    for ev_step, updates in ot.tv_updates:
+        upd = dict(updates)
+        if "sdf_tv" in upd:
+            sdf_tv = torch.where(step >= ev_step, upd["sdf_tv"], sdf_tv)
+        if "smooth_grad_tv" in upd:
+            smooth_tv = torch.where(step >= ev_step, upd["smooth_grad_tv"], smooth_tv)
+    return sdf_tv, smooth_tv
 
 
 def _leafify(tree):
     """Fresh autograd leaves sharing the params' storage."""
     return tree_unflatten(tree, [t.detach().requires_grad_(True) for t in tree_leaves(tree)])
-
-
-def _add(params, updates):
-    return tree_unflatten(params, [p + u for p, u in zip(tree_leaves(params),
-                                                         tree_leaves(updates))])
 
 
 def _bench_workload(small: bool, matmul_dtype: str):
