@@ -23,10 +23,12 @@ PyTorch version on the card:
   points of each grid lookup of one early step, captured from the
   bench-scale joint trainer at its first step and again after `fit()` below
   (three views active, the mask cache refreshed);
-* the fused alpha-composite kernels (forward and hand-written backward) at the
-  early step's [1024 rays, chord-bound K samples], at the dense
-  [1024, n_samples], at ragged shapes, for a soft and a sharp NeuS sigmoid,
-  with saturated, grazing and masked rays.
+* the fused alpha-composite kernels (forward and hand-written one-pass
+  backward) at the early step's [1024 rays, chord-bound K samples], at the
+  dense [1024, n_samples], at ragged shapes, for a soft and a sharp NeuS
+  sigmoid, with saturated, grazing and masked rays; at [1024, K] each kernel's
+  device time (torch.profiler) as a bare launch and through its wrapper, with
+  the wrapper's device events per call.
 Beside each kernel's time stands the time of the one PyTorch call that
 computes the same function, where there is one (a copy for the layout
 kernels, `F.grid_sample` and its backward for the trilinear ones): timed and
@@ -356,14 +358,20 @@ def _materialize_record(layout, src: str, xs, timed, nbytes: float) -> dict:
 
 def _device_ms(fn, iters: int = 20, flush: bool = False) -> float:
     """Mean device time of one call of `fn` (its kernels, copies and memsets)
-    under torch.profiler. With `flush`, a copy of 2 x 64 MB (more than the
-    50 MB L2) runs before each call and is left out of the sum. Each window
-    opens with a warmup phase of five calls whose events are discarded: late
-    in long runs the trace dropped the first kernels launched after the
-    profiler started. A window in which the profiler lost device events all
-    the same (none, or a count that is not the same for every call) is
-    measured again, at most twenty times in all; then the call fails, naming
-    what each window returned."""
+    under torch.profiler; see `_device_profile`."""
+    return _device_profile(fn, iters, flush)[0]
+
+
+def _device_profile(fn, iters: int = 20, flush: bool = False) -> tuple[float, float, dict]:
+    """(device ms, device events, {event name: device ms}) per call of `fn`,
+    under torch.profiler: its kernels, copies and memsets. With `flush`, a
+    copy of 2 x 64 MB (more than the 50 MB L2) runs before each call and is
+    left out. Each window opens with a warmup phase of five calls whose events
+    are discarded: late in long runs the trace dropped the first kernels
+    launched after the profiler started. A window in which the profiler lost
+    device events all the same (none, or a count that is not the same for
+    every call) is measured again, at most twenty times in all; then the call
+    fails, naming what each window returned."""
     def calls(n):
         for _ in range(n):
             if flush:
@@ -386,7 +394,8 @@ def _device_ms(fn, iters: int = 20, flush: bool = False) -> float:
             if lost:
                 print(f"note: torch.profiler lost device events in {len(lost)} window(s) before this one: "
                       + "; ".join(lost))
-            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+            by_name = {e.key: e.self_device_time_total / 1e3 / iters for e in events}
+            return sum(by_name.values()), sum(e.count for e in events) / iters, by_name
         lost.append(", ".join(f"{e.key[:40]} x{e.count}" for e in events) or "no device event")
     raise AssertionError(f"torch.profiler lost device events in twenty windows of {iters} calls: " + "; ".join(lost))
 
@@ -705,33 +714,69 @@ def check_composite_kernels(fused_composite, compositing, n_rays: int, K: int, n
     args, cts = _composite_case(n_rays, K, 20.0, dist, seed=11)
     ns = float(n_rays * K)
     src, line = "fused_composite.cu", "poseprobe_tpu/ops/pallas/fused_composite.py:84"
-    plain_fwd = lambda: fused_composite.fused_alpha_composite_plain(*args[:5], args[5][0], args[5][1])  # noqa: E731
-    records = [
-        # forward: sdf, cos, step, rgb (24 B) + mask (1 B) read, the weight written, per sample;
-        # two sigmoids, a quotient, the scan and four multiply-adds: ~60 operations
-        _record("composite_fwd", src, line, worst["fwd"],
-                _time_ms(lambda: fused_composite.composite_fwd(*args), iters=50),
-                _time_ms(plain_fwd, iters=50), ns * 60, ns * 29 + n_rays * 20, None, PEAK_F32_FLOPS),
-        # backward: the same inputs and the weight cotangent read (29 B), d_sdf, d_cos, d_step,
-        # d_rgb written (24 B), per sample; the forward's operations again plus the reverse scan
-        _record("composite_bwd", src, line, worst["bwd"],
-                _time_ms(lambda: fused_composite.composite_bwd(*args, *cts), iters=50),
-                _time_ms(lambda: fused_composite.composite_bwd_plain(*args, *cts), iters=50),
-                ns * 120, ns * 53 + n_rays * 28, None, PEAK_F32_FLOPS),
-    ]
-    # `ms` above is the wrapper (4 or 5 allocations, the launch, one sum): at this size the host's
-    # enqueue time. `kernel_ms`: the bare launches back to back on buffers made once.
+    if not _FLUSH:
+        _FLUSH[:] = [torch.empty(2 ** 24, device=DEVICE), torch.empty(2 ** 24, device=DEVICE)]
+    # the bare launches, on buffers made once, with the wrapper's launch plan
     lib, ptr, chk = fused_composite._lib(), fused_composite._ptr, fused_composite._check
     stream = torch.cuda.current_stream().cuda_stream
     outs = [torch.empty_like(o) for o in fused_composite.composite_fwd(*args)]
     grads = [torch.empty_like(t) for t in (args[0], args[1], args[3], args[4])] + [torch.empty((n_rays, 2), device=DEVICE)]
-    ins = [ptr(t) for t in args]
-    records[0]["kernel_ms"] = _time_ms(lambda: chk(lib, lib.composite_fwd(
-        *ins, n_rays, K, *[ptr(t) for t in outs], stream), "composite_fwd"), iters=200)
-    records[1]["kernel_ms"] = _time_ms(lambda: chk(lib, lib.composite_bwd(
-        *ins, *[ptr(t) for t in cts], n_rays, K, *[ptr(t) for t in grads], stream), "composite_bwd"), iters=200)
-    print(f"composite kernels alone, back to back: fwd {records[0]['kernel_ms']:.4f} ms, "
-          f"bwd {records[1]['kernel_ms']:.4f} ms")
+    ins, ct_ptrs = [ptr(t) for t in args], [ptr(t) for t in cts]
+    names = lambda arrays: [a for a, _ in arrays]  # noqa: E731
+    fplan = fused_composite.launch_plan(n_rays, K, dict(zip(names(fused_composite.FWD_ARRAYS), ins[:5] + [ptr(outs[0])])),
+                                        backward=False)
+    bplan = fused_composite.launch_plan(n_rays, K, dict(zip(names(fused_composite.BWD_ARRAYS), ins[:5] + ct_ptrs[:1]
+                                                            + [ptr(t) for t in grads[:4]])), backward=True)
+    geo = lambda p: (n_rays, K, p.rays_per_block, p.run, p.bulk_full, p.bulk_last, p.smem_bytes)  # noqa: E731
+    print(f"composite launch plans at [{n_rays}, {K}]: forward {fplan}, backward {bplan}")
+    fns = {
+        "fwd_kernel": lambda: chk(lib, lib.composite_fwd(*ins, *geo(fplan), *[ptr(t) for t in outs], stream),
+                                  "composite_fwd"),
+        "bwd_kernel": lambda: chk(lib, lib.composite_bwd(*ins, *ct_ptrs, *geo(bplan), *[ptr(t) for t in grads],
+                                                         stream), "composite_bwd"),
+        "fwd_wrapper": lambda: fused_composite.composite_fwd(*args),
+        "bwd_wrapper": lambda: fused_composite.composite_bwd(*args, *cts),
+    }
+    # device times in turns (forward order, then backward), L2 warm; the kernels also flushed
+    t = {k: [] for k in fns}
+    events = {}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            ms, events[k], _ = _device_profile(fns[k])
+            t[k].append(ms)
+    dev = {k: sum(v) / 2 for k, v in t.items()}
+    flushed = {k: _device_ms(fns[k], flush=True) for k in ("fwd_kernel", "bwd_kernel")}
+    # the autograd entry the renderer calls, forward + backward: its device events per call
+    leaves = [a.clone().requires_grad_(True) for a in (args[0], args[1], args[3], args[4])]
+    entry = lambda: torch.autograd.grad(fused_composite.fused_alpha_composite(  # noqa: E731
+        leaves[0], leaves[1], args[2], leaves[2], leaves[3], 20.0, dist), leaves, cts)
+    _, entry_events, _ = _device_profile(entry)
+    plain_fwd = lambda: fused_composite.fused_alpha_composite_plain(*args[:5], args[5][0], args[5][1])  # noqa: E731
+    records = [
+        # forward: sdf, cos, step, rgb (24 B) + mask (1 B) read, the weight written, per sample;
+        # two sigmoids, a quotient, the scan and four multiply-adds: ~60 operations
+        _record("composite_fwd", src, line, worst["fwd"], dev["fwd_kernel"], _device_ms(plain_fwd),
+                ns * 60, ns * 29 + n_rays * 20, None, PEAK_F32_FLOPS),
+        # backward: the same inputs and the weight cotangent read (29 B), d_sdf, d_cos, d_step,
+        # d_rgb written (24 B), per sample; the forward's operations again plus the reverse scan
+        _record("composite_bwd", src, line, worst["bwd"], dev["bwd_kernel"],
+                _device_ms(lambda: fused_composite.composite_bwd_plain(*args, *cts)),
+                ns * 120, ns * 53 + n_rays * 28, None, PEAK_F32_FLOPS),
+    ]
+    # `ms` and `kernel_ms`: the bare launch's device time (torch.profiler), L2 warm; `wrapper_ms` and
+    # `wrapper_launches`: the wrapper's device time and device events per call (allocations, the launch
+    # and, backward, the sum of the partials); `enqueue_loop_ms`: 200 bare launches back to back between
+    # two CUDA events, each checked on the host, which measures the host's enqueue rate at this size
+    for rec, d in zip(records, ("fwd", "bwd")):
+        rec.update(kernel_ms=dev[f"{d}_kernel"], kernel_flushed_ms=flushed[f"{d}_kernel"],
+                   kernel_turns_ms=t[f"{d}_kernel"], wrapper_ms=dev[f"{d}_wrapper"],
+                   wrapper_launches=events[f"{d}_wrapper"],
+                   enqueue_loop_ms=_time_ms(fns[f"{d}_kernel"], iters=200))
+        print(f"{rec['name']}: kernel device {rec['kernel_ms']:.5f} ms (turns {t[f'{d}_kernel']}, flushed "
+              f"{rec['kernel_flushed_ms']:.5f}), wrapper device {rec['wrapper_ms']:.5f} ms in "
+              f"{rec['wrapper_launches']:g} device events per call, host-enqueue-bound launch loop "
+              f"{rec['enqueue_loop_ms']:.5f} ms")
+    print(f"fused_alpha_composite forward + backward: {entry_events:g} device events per call")
     return records
 
 

@@ -3,9 +3,13 @@
 Replaces the Pallas TPU kernel of `poseprobe_tpu/ops/pallas/fused_composite.py`
 (`_kernel` / `_pallas_forward`, entered through `fused_alpha_composite`). The
 CUDA C++ source is `poseprobe_tpu_torch/csrc/fused_composite.cu` (sm_90a, built
-with nvcc at first use, bound with ctypes): one warp per ray, a forward kernel
-and a hand-written backward kernel (the TPU side differentiates its jnp
-reference instead).
+with nvcc at first use, bound with ctypes): a forward kernel and a
+hand-written one-pass backward kernel (the TPU side differentiates its jnp
+reference instead). A block stages R rays of every array into shared memory
+(bulk copies where the spans allow), a warp takes a ray and each lane a run
+of k samples; `launch_plan` below chooses R, k and the copy path of each
+array, and `transmittance_in_runs` is the kernel's order of multiplication
+in plain PyTorch.
 
 Function, per ray of S samples (`fused_alpha_composite_plain` below is the same
 in plain PyTorch, built from `compositing.alpha2weights`): NeuS alpha from
@@ -18,15 +22,16 @@ Gradient conventions, fixed by the plain version and matched by the kernel:
 sample, ``q == 1.0`` when the next cdf underflows), where `jnp.clip` halves
 it; the places where that shows are cut by the mask or carry a vanishing
 factor, so both agree with `jax.vjp` of the reference to float32 rounding.
-The early-termination gate ``T > 1e-3`` is a step: the kernel's warp scan, the
-plain cumprod and the TPU's exp-of-sum differ in T's last bits, so a sample
-whose T sits within rounding of 1e-3 may fall on either side.
+The early-termination gate ``T > 1e-3`` is a step: the kernel's run products
+and warp scan, the plain cumprod and the TPU's exp-of-sum differ in T's last
+bits, so a sample whose T sits within rounding of 1e-3 may fall on either side.
 
 On a CUDA tensor the wrappers launch the kernels or raise; the plain version
 runs only for tensors on the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -34,11 +39,85 @@ import torch
 from . import _build, compositing
 from ._build import check as _check, ptr as _ptr
 
-MAX_SAMPLES = 1024   # the backward keeps one chunk carry per lane: 32 chunks of 32 samples
+MAX_SAMPLES = 1024   # 32 lanes, each a run of at most 33 samples
+
+# the kernels' launch geometry (csrc/fused_composite.cu: TILE, RUN_REGS, SMEM_LIMIT)
+TILE = 1024               # samples a block stages at most: rays per block x S
+RUN_IN_REGISTERS = 5      # runs up to this long keep their per-sample values in registers
+SMEM_LIMIT = 48 * 1024    # dynamic shared memory a block takes without an attribute
+BULK_ALIGN = 16           # a bulk copy's addresses and size are multiples of this
+# the arrays of each kernel in the order of its launch function's pointers (bit j
+# of a bulk mask is array j), with their bytes per sample
+FWD_ARRAYS = (("sdf", 4), ("cos_term", 4), ("mask", 1), ("rgb", 12), ("step", 4), ("w", 4))
+BWD_ARRAYS = (("sdf", 4), ("cos_term", 4), ("mask", 1), ("rgb", 12), ("step", 4), ("ct_w", 4),
+              ("d_sdf", 4), ("d_cos", 4), ("d_rgb", 12), ("d_step", 4))
 
 # launch counts of the kernels; the plain version does not count
 fwd_launches = 0
 bwd_launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    rays_per_block: int   # R: a warp per ray
+    run: int              # k: the samples of a lane's run, odd (the lanes' runs lie on distinct banks)
+    blocks: int
+    smem_bytes: int       # dynamic shared memory of the block's tile
+    bulk_full: int        # bit j: array j moves by one bulk copy in a full block
+    bulk_last: int        # the same for the last block (ragged when R does not divide N)
+
+
+def run_length(S: int) -> int:
+    """k = ceil(S / 32) made odd: lane l owns samples [l k, l k + k)."""
+    return -(-S // 32) | 1
+
+
+def launch_plan(N: int, S: int, ptrs: dict, backward: bool) -> LaunchPlan:
+    """The kernels' launch plan for an [N, S] call. R: the most rays of (4, 2,
+    1) whose R x S samples fit the tile (R = 4 up to S = 256 gives 256 blocks
+    at N = 1024, two per SM of 132). `ptrs` maps each name of FWD_ARRAYS or
+    BWD_ARRAYS to its data_ptr (None for an absent cotangent); an array takes
+    the bulk path in a block whose span of it starts and ends on 16 bytes."""
+    R = next(r for r in (4, 2, 1) if r * S <= TILE)
+    k = run_length(S)
+    arrays = BWD_ARRAYS if backward else FWD_ARRAYS
+    n = R * S
+    regions = (7 if k <= RUN_IN_REGISTERS else 8) if backward else 6   # float regions of the tile
+    smem = 4 * (-(-n // 4) * 4) * regions + -(-n // 16) * 16          # ... then the byte mask
+    blocks = -(-N // R)
+    last = N - (blocks - 1) * R
+
+    def bulk(first_ray: int, rays: int) -> int:
+        bits = 0
+        for j, (name, elem) in enumerate(arrays):
+            p = ptrs.get(name)
+            if p is not None and (p + first_ray * S * elem) % BULK_ALIGN == 0 and rays * S * elem % BULK_ALIGN == 0:
+                bits |= 1 << j
+        return bits
+    return LaunchPlan(R, k, blocks, smem, bulk(0, R), bulk((blocks - 1) * R, last))
+
+
+def transmittance_in_runs(om: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(T [N, S], alphainv [N]) from o = clamp(1 - alpha) [N, S] in the
+    kernels' order of multiplication: lane l's run of k samples multiplied in
+    order, a 32-lane Hillis-Steele product scan over the run products (lane l
+    times lane l - off, off = 1, 2, 4, 8, 16), T inside a run serially from
+    the exclusive scan value; alphainv is the scan's total."""
+    N, S = om.shape
+    k = run_length(S)
+    runs = torch.nn.functional.pad(om, (0, 32 * k - S), value=1.0).reshape(N, 32, k)
+    prod = torch.ones_like(runs[..., 0])
+    for i in range(k):
+        prod = prod * runs[..., i]
+    p = prod
+    for off in (1, 2, 4, 8, 16):
+        p = torch.cat([p[:, :off], p[:, off:] * p[:, :-off]], dim=1)
+    T = torch.cat([torch.ones_like(p[:, :1]), p[:, :-1]], dim=1)
+    Ts = []
+    for i in range(k):
+        Ts.append(T)
+        T = T * runs[..., i]
+    return torch.stack(Ts, dim=-1).reshape(N, 32 * k)[:, :S], p[:, 31]
 
 
 def fused_alpha_composite_plain(sdf, cos_term, mask, rgb, step, inv_s, dist):
@@ -55,20 +134,23 @@ def fused_alpha_composite_plain(sdf, cos_term, mask, rgb, step, inv_s, dist):
 
 
 def composite_bwd_plain(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgbm, ct_nstep):
-    """Autograd of the plain version: (d_sdf, d_cos, d_rgb, d_step, d_scalars [2])."""
+    """Autograd of the plain version: (d_sdf, d_cos, d_rgb, d_step, d_scalars [2]).
+    A cotangent that is None counts as zeros."""
     leaves = [t.detach().requires_grad_(True) for t in (sdf, cos_term, rgb, step, scalars)]
     s, c, r, st, sc = leaves
     outs = fused_alpha_composite_plain(s, c, mask, r, st, sc[0], sc[1])
-    return torch.autograd.grad(outs, leaves, [ct_w, ct_ainv, ct_rgbm, ct_nstep])
+    cts = [torch.zeros_like(o) if ct is None else ct for o, ct in zip(outs, (ct_w, ct_ainv, ct_rgbm, ct_nstep))]
+    return torch.autograd.grad(outs, leaves, cts)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    return _build.declare(_build.load("fused_composite"), composite_fwd="ppppppiippppp",
-                          composite_bwd="pppppppppp" "ii" "pppppp")
+    return _build.declare(_build.load("fused_composite"), composite_fwd="pppppp" "iiiiiii" "ppppp",
+                          composite_bwd="pppppppppp" "iiiiiii" "pppppp", division_check="pppip")
 
 
 def _check_inputs(sdf, cos_term, mask, rgb, step, scalars, **more) -> tuple:
+    """(N, S) after checking every tensor given (a cotangent may be None)."""
     N, S = sdf.shape
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"fused composite: S={S} outside [1, {MAX_SAMPLES}]")
@@ -76,6 +158,8 @@ def _check_inputs(sdf, cos_term, mask, rgb, step, scalars, **more) -> tuple:
                   ct_w=(N, S), ct_ainv=(N,), ct_rgbm=(N, 3), ct_nstep=(N,))
     for name, t in dict(sdf=sdf, cos_term=cos_term, mask=mask, rgb=rgb, step=step, scalars=scalars,
                         **more).items():
+        if t is None:
+            continue
         want = torch.bool if name == "mask" else torch.float32
         if (t.device != sdf.device or t.dtype != want or tuple(t.shape) != shapes[name]
                 or not t.is_contiguous()):
@@ -97,55 +181,63 @@ def composite_fwd(sdf, cos_term, mask, rgb, step, scalars):
     if N == 0:
         return w, ainv, rgbm, nstep
     lib = _lib()
+    plan = launch_plan(N, S, dict(sdf=_ptr(sdf), cos_term=_ptr(cos_term), mask=_ptr(mask), rgb=_ptr(rgb),
+                                  step=_ptr(step), w=_ptr(w)), backward=False)
     stream = torch.cuda.current_stream(sdf.device).cuda_stream
-    _check(lib, lib.composite_fwd(_ptr(sdf), _ptr(cos_term), _ptr(mask), _ptr(rgb), _ptr(step),
-                                  _ptr(scalars), N, S, _ptr(w), _ptr(ainv), _ptr(rgbm), _ptr(nstep),
-                                  stream), "composite_fwd")
+    _check(lib, lib.composite_fwd(_ptr(sdf), _ptr(cos_term), _ptr(mask), _ptr(rgb), _ptr(step), _ptr(scalars),
+                                  N, S, plan.rays_per_block, plan.run, plan.bulk_full, plan.bulk_last,
+                                  plan.smem_bytes, _ptr(w), _ptr(ainv), _ptr(rgbm), _ptr(nstep), stream),
+           "composite_fwd")
     fwd_launches += 1
     return w, ainv, rgbm, nstep
 
 
-def composite_bwd(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgbm, ct_nstep):
+def composite_bwd(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgbm, ct_nstep,
+                  scalar_grads: bool = True):
     """Backward of `composite_fwd`: (d_sdf, d_cos, d_rgb, d_step, d_scalars [2]).
     The inputs are read again (alpha and T are recomputed); nothing else of the
-    forward is kept. Kernel on CUDA tensors, autograd of the plain version on
-    CPU ones."""
+    forward is kept. A cotangent may be None (zeros, and nothing is read for
+    it); with `scalar_grads=False` d_scalars is None and not computed. Kernel
+    on CUDA tensors, autograd of the plain version on CPU ones."""
     global bwd_launches
     if not sdf.is_cuda:
-        return composite_bwd_plain(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgbm,
-                                   ct_nstep)
+        grads = composite_bwd_plain(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgbm, ct_nstep)
+        return (*grads[:4], grads[4] if scalar_grads else None)
     N, S = _check_inputs(sdf, cos_term, mask, rgb, step, scalars, ct_w=ct_w, ct_ainv=ct_ainv,
                          ct_rgbm=ct_rgbm, ct_nstep=ct_nstep)
     d_sdf, d_cos, d_rgb, d_step = (torch.empty_like(t) for t in (sdf, cos_term, rgb, step))
-    partials = torch.empty((N, 2), dtype=torch.float32, device=sdf.device)
+    partials = torch.empty((N, 2), dtype=torch.float32, device=sdf.device) if scalar_grads else None
     if N == 0:
-        return d_sdf, d_cos, d_rgb, d_step, partials.sum(dim=0)
+        return d_sdf, d_cos, d_rgb, d_step, partials.sum(dim=0) if scalar_grads else None
     lib = _lib()
+    plan = launch_plan(N, S, dict(sdf=_ptr(sdf), cos_term=_ptr(cos_term), mask=_ptr(mask), rgb=_ptr(rgb),
+                                  step=_ptr(step), ct_w=_ptr(ct_w), d_sdf=_ptr(d_sdf), d_cos=_ptr(d_cos),
+                                  d_rgb=_ptr(d_rgb), d_step=_ptr(d_step)), backward=True)
     stream = torch.cuda.current_stream(sdf.device).cuda_stream
-    _check(lib, lib.composite_bwd(_ptr(sdf), _ptr(cos_term), _ptr(mask), _ptr(rgb), _ptr(step),
-                                  _ptr(scalars), _ptr(ct_w), _ptr(ct_ainv), _ptr(ct_rgbm),
-                                  _ptr(ct_nstep), N, S, _ptr(d_sdf), _ptr(d_cos), _ptr(d_rgb),
-                                  _ptr(d_step), _ptr(partials), stream), "composite_bwd")
+    _check(lib, lib.composite_bwd(_ptr(sdf), _ptr(cos_term), _ptr(mask), _ptr(rgb), _ptr(step), _ptr(scalars),
+                                  _ptr(ct_w), _ptr(ct_ainv), _ptr(ct_rgbm), _ptr(ct_nstep), N, S,
+                                  plan.rays_per_block, plan.run, plan.bulk_full, plan.bulk_last, plan.smem_bytes,
+                                  _ptr(d_sdf), _ptr(d_cos), _ptr(d_rgb), _ptr(d_step), _ptr(partials), stream),
+           "composite_bwd")
     bwd_launches += 1
     # the two scalar gradients: one sum over the per-ray partial sums
-    return d_sdf, d_cos, d_rgb, d_step, partials.sum(dim=0)
+    return d_sdf, d_cos, d_rgb, d_step, partials.sum(dim=0) if scalar_grads else None
 
 
 class _FusedComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sdf, cos_term, mask, rgb, step, scalars):
         ctx.save_for_backward(sdf, cos_term, mask, rgb, step, scalars)
+        ctx.set_materialize_grads(False)        # an output no loss reaches comes back as None, not zeros
         return composite_fwd(sdf, cos_term, mask, rgb, step, scalars)
 
     @staticmethod
     def backward(ctx, ct_w, ct_ainv, ct_rgbm, ct_nstep):
         sdf, cos_term, mask, rgb, step, scalars = ctx.saved_tensors
-        N, S = sdf.shape
-        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=sdf.device)  # noqa: E731
-        cts = [zeros(*shape) if ct is None else ct.contiguous()
-               for ct, shape in ((ct_w, (N, S)), (ct_ainv, (N,)), (ct_rgbm, (N, 3)), (ct_nstep, (N,)))]
-        d_sdf, d_cos, d_rgb, d_step, d_scalars = composite_bwd(sdf, cos_term, mask, rgb, step,
-                                                               scalars, *cts)
+        # the kernel reads nothing for an absent cotangent, and sums no partials for scalars without a gradient
+        cts = [None if ct is None else ct.contiguous() for ct in (ct_w, ct_ainv, ct_rgbm, ct_nstep)]
+        d_sdf, d_cos, d_rgb, d_step, d_scalars = composite_bwd(sdf, cos_term, mask, rgb, step, scalars, *cts,
+                                                               scalar_grads=ctx.needs_input_grad[5])
         return d_sdf, d_cos, None, d_rgb, d_step, d_scalars
 
 

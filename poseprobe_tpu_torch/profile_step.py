@@ -8,8 +8,9 @@ coarse: step 10,001; mid: step 18,001) it times steps without the profiler
 (host clock around synchronised steps), then traces the same number of steps
 with `torch.profiler` and prints the device time per step, the device busy
 share (device time / unprofiled step time), the device events per step, the
-device time of the hand-written kernels (fused trunk; trilinear and layout),
-the kernels with the most device time and the most frequent host (aten) ops.
+device time of the hand-written kernels (fused trunk; trilinear and layout;
+fused alpha-composite), the kernels with the most device time and the most
+frequent host (aten) ops.
 With `--superstep K` it also runs the steps as K-step superstep windows
 (`steps_scan(K)`: one captured CUDA graph replayed), timed in turns with the
 eager steps (eager, graph, graph, eager), and prints the same for them, the
@@ -71,6 +72,8 @@ def _traced(tr, name: str, mode: str, steps: int, k: int, step_ms: float, out: P
     grid_names = ("trilinear_", "scatter_rows", "rows_to_channels", "channels_to_rows", "tiled_transpose",
                   "materialize_kernel")
     grid_us = sum(e.self_device_time_total for e in events if any(n in e.key for n in grid_names))
+    composite_us = sum(e.self_device_time_total for e in events
+                       if "composite_fwd_kernel" in e.key or "composite_bwd_kernel" in e.key)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     host_ops = sorted((e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")),
@@ -85,6 +88,7 @@ def _traced(tr, name: str, mode: str, steps: int, k: int, step_ms: float, out: P
         "launches_per_step": launches / steps,
         "trunk_kernels_ms_per_step": trunk_us / 1e3 / steps,
         "grid_kernels_ms_per_step": grid_us / 1e3 / steps,
+        "composite_kernels_ms_per_step": composite_us / 1e3 / steps,
         "top": [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
                  "calls_per_step": e.count / steps} for e in top],
         "top_host_ops": [{"op": e.key, "calls_per_step": e.count / steps,
@@ -93,7 +97,8 @@ def _traced(tr, name: str, mode: str, steps: int, k: int, step_ms: float, out: P
     print(f"{name} {mode}: {step_ms:.2f} ms/step unprofiled, device {result['device_ms_per_step']:.2f} ms/step "
           f"(busy {100 * result['busy_share']:.1f}%), {result['launches_per_step']:.0f} device "
           f"events/step, trunk kernels {result['trunk_kernels_ms_per_step']:.2f} ms/step, trilinear + "
-          f"layout kernels {result['grid_kernels_ms_per_step']:.3f} ms/step")
+          f"layout kernels {result['grid_kernels_ms_per_step']:.3f} ms/step, composite kernels "
+          f"{result['composite_kernels_ms_per_step']:.4f} ms/step")
     for t in result["top"]:
         print(f"  {t['ms_per_step']:8.3f} ms  x{t['calls_per_step']:6.1f}  {t['kernel']}")
     print("  most frequent host ops: " + ", ".join(

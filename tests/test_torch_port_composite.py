@@ -259,6 +259,134 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     assert TFC._check_inputs(sdf, cos, mask, rgb, step, scalars) == (8, 5)
 
 
+# ---------------------------------------------------------------- the kernels' plan and scan order
+
+
+def _plan(N, S, backward, moved=(), by=1, absent=()):
+    """The launch plan with every array at a 16-byte aligned address except
+    those in `moved` (`by` elements past it) and those in `absent` (None)."""
+    arrays = TFC.BWD_ARRAYS if backward else TFC.FWD_ARRAYS
+    ptrs = {name: None if name in absent else (1 << 20) + (by * elem if name in moved else 0)
+            for name, elem in arrays}
+    return TFC.launch_plan(N, S, ptrs, backward)
+
+
+def _bits(backward, *names):
+    arrays = TFC.BWD_ARRAYS if backward else TFC.FWD_ARRAYS
+    return sum(1 << j for j, (name, _) in enumerate(arrays) if name in names)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("N,S,R,k,full_off,last_off", [
+    (1024, 76, 4, 3, (), ()),                      # the early step: 304 mask bytes a block, all bulk
+    (1024, 113, 4, 5, ("mask",), ("mask",)),       # 452 mask bytes: the mask by cooperative loads
+    (1024, 64, 4, 3, (), ()),                      # k = 2 made odd
+    (1023, 76, 4, 3, (), ("mask",)),               # a last block of 3 rays: 228 mask bytes
+    (37, 1000, 1, 33, ("mask",), ("mask",)),       # one ray a block, runs of 33 past the registers
+    (1, 1, 4, 1, ("mask",), ("sdf", "cos_term", "mask", "rgb", "step", "w", "ct_w", "d_sdf", "d_cos",
+                             "d_rgb", "d_step")),  # one block of one sample: 4-byte spans
+])
+def test_launch_plan_at_the_main_paths_shapes(N, S, R, k, full_off, last_off, backward):
+    """R from S, k = ceil(S / 32) made odd, enough blocks to cover the 132 SMs
+    at N = 1024, the tile within the shared memory a block takes without an
+    attribute, and the bulk path for each array whose span starts and ends on
+    16 bytes (full blocks and the last block apart)."""
+    plan = _plan(N, S, backward)
+    arrays = TFC.BWD_ARRAYS if backward else TFC.FWD_ARRAYS
+    everything = [name for name, _ in arrays]
+    assert (plan.rays_per_block, plan.run, plan.blocks) == (R, k, -(-N // R))
+    if N == 1024:
+        assert plan.blocks >= 132
+    assert plan.smem_bytes <= TFC.SMEM_LIMIT
+    n = R * S
+    regions = (7 if k <= TFC.RUN_IN_REGISTERS else 8) if backward else 6
+    assert plan.smem_bytes == 4 * (-(-n // 4) * 4) * regions + -(-n // 16) * 16
+    assert plan.bulk_full == _bits(backward, *(x for x in everything if x not in full_off))
+    assert plan.bulk_last == _bits(backward, *(x for x in everything if x not in last_off))
+
+
+def test_launch_plan_for_every_sample_count():
+    """For every S the kernels take: the block's tile fits, the odd runs of the
+    32 lanes cover the ray, and runs past RUN_IN_REGISTERS add the backward's
+    T region."""
+    for S in range(1, TFC.MAX_SAMPLES + 1):
+        for backward in (False, True):
+            plan = _plan(1024, S, backward)
+            R, k = plan.rays_per_block, plan.run
+            assert R * S <= TFC.TILE and plan.smem_bytes <= TFC.SMEM_LIMIT, S
+            assert k % 2 == 1 and 32 * k >= S and -(-S // k) <= 32 and k <= 33, S
+            assert (k <= TFC.RUN_IN_REGISTERS) == (S <= 160), S
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_launch_plan_takes_no_bulk_copy_off_the_16_byte_grid(backward):
+    """An array one element past a 16-byte boundary, or an absent cotangent,
+    is never a bulk copy; the others keep theirs."""
+    moved = ("sdf", "mask", "rgb", "d_rgb")
+    plan = _plan(1024, 76, backward, moved=moved, absent=("ct_w",))
+    arrays = TFC.BWD_ARRAYS if backward else TFC.FWD_ARRAYS
+    kept = [name for name, _ in arrays if name not in moved and name != "ct_w"]
+    assert plan.bulk_full == plan.bulk_last == _bits(backward, *kept)
+    # four elements on, the f32 arrays are back on the grid; the byte mask is not
+    plan = _plan(1024, 76, backward, moved=moved, by=4)
+    assert plan.bulk_full == _bits(backward, *(name for name, _ in arrays if name != "mask"))
+
+
+def _alpha(sdf, cos, mask, inv_s):
+    """The plain version's masked alpha, float32."""
+    sdf, cos = torch.tensor(sdf), torch.tensor(cos)
+    prev_cdf = torch.sigmoid((sdf - cos * DIST * 0.5) * inv_s)
+    next_cdf = torch.sigmoid((sdf + cos * DIST * 0.5) * inv_s)
+    alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
+    return torch.where(torch.tensor(mask), alpha, 0.0)
+
+
+@pytest.mark.parametrize("inv_s", [20.0, 2000.0])
+@pytest.mark.parametrize("kind,N,S", CASES)
+def test_transmittance_in_runs_matches_cumprod_and_jax(kind, N, S, inv_s):
+    """The kernels' order of multiplication (run products, a 32-lane scan,
+    serial inside the run; `transmittance_in_runs`) against the cumprod of
+    the plain version (T within 1e-5 relative) and, as weights and alphainv,
+    against the JAX reference (atol 1e-6, as the plain version is held);
+    rays within 1e-4 of the gate are left out."""
+    sdf, cos, mask, rgb, step = _case(kind, N, S, seed=N + S)
+    alpha = _alpha(sdf, cos, mask, inv_s)
+    om = torch.clamp(1.0 - alpha, 1e-10, 1.0)
+    T, alphainv = TFC.transmittance_in_runs(om)
+    T_cum = torch.cumprod(torch.cat([torch.ones_like(om[:, :1]), om[:, :-1]], dim=1), dim=1)
+    np.testing.assert_allclose(T.numpy(), T_cum.numpy(), rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(alphainv.numpy(), (T_cum[:, -1] * om[:, -1]).numpy(), rtol=1e-5, atol=1e-30)
+    keep = _away_from_gate(sdf, cos, mask, inv_s, DIST, rel=1e-4)
+    assert keep.sum() >= N - 3
+    weights = torch.where(T > 1e-3, T * alpha, 0.0)
+    ref = FC._jnp_reference(*(jnp.asarray(a) for a in (sdf, cos, mask, rgb, step)), inv_s, DIST)
+    np.testing.assert_allclose(weights.numpy()[keep], np.asarray(ref[0])[keep], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(alphainv.numpy()[keep], np.asarray(ref[1])[keep], rtol=0, atol=1e-6)
+
+
+def test_transmittance_in_runs_is_the_scan_it_names():
+    """Hand-checked on one ray of S = 7 (k = 1: one sample a lane): run
+    products are the samples, T is the exclusive product."""
+    om = torch.tensor([[0.5, 0.25, 1.0, 0.5, 0.5, 2.0, 1.0]])
+    T, alphainv = TFC.transmittance_in_runs(om)
+    assert TFC.run_length(7) == 1 and TFC.run_length(33) == 3 and TFC.run_length(64) == 3
+    assert T.tolist() == [[1.0, 0.5, 0.125, 0.125, 0.0625, 0.03125, 0.0625]]
+    assert alphainv.tolist() == [0.0625]
+
+
+def test_cpu_backward_takes_absent_cotangents_as_zeros():
+    """On the CPU, as on the card: a None cotangent is zeros; `scalar_grads=False` gives no d_scalars."""
+    sdf, cos, mask, rgb, step = (torch.tensor(a) for a in _case("march", 24, 30, seed=8))
+    scalars = torch.tensor([30.0, DIST])
+    rng = np.random.default_rng(1)
+    ct_w, ct_rgbm = (torch.tensor(rng.normal(size=s).astype(np.float32)) for s in ((24, 30), (24, 3)))
+    full = TFC.composite_bwd(sdf, cos, mask, rgb, step, scalars, ct_w, torch.zeros(24), ct_rgbm, torch.zeros(24))
+    part = TFC.composite_bwd(sdf, cos, mask, rgb, step, scalars, ct_w, None, ct_rgbm, None, scalar_grads=False)
+    assert part[4] is None
+    for a, b in zip(full[:4], part[:4]):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------- through render
 
 

@@ -505,12 +505,39 @@ def _away_from_gate(args, rel=1e-4):
     return ~((T / 1e-3 - 1.0).abs() < rel).any(dim=1)
 
 
+def _offset_view(t, by=1):
+    """`t` copied into a buffer `by` elements past its start: a contiguous view
+    whose base pointer is off the 16-byte grid (the cooperative load path)."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    buf[by:].copy_(t.reshape(-1))
+    return buf[by:].view(t.shape)
+
+
+def _bulk_bits(names, arrays):
+    return sum(1 << j for j, (name, _) in enumerate(arrays) if name in names)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("inv_s", [20.0, 2000.0])
-@pytest.mark.parametrize("N,S", [(1024, 76), (1024, 113), (1000, 7), (3, 33), (37, 1000), (1, 1)])
-def test_composite_kernels_match_plain_version(N, S, inv_s):
+@pytest.mark.parametrize("N,S,offset", [
+    (1024, 76, 0), (1024, 113, 0), (1000, 7, 0), (3, 33, 0), (37, 1000, 0), (1, 1, 0),
+    (1024, 64, 0),            # S = 2 x 32: a run of 3 (k = ceil(S / 32) made odd)
+    (1023, 76, 0),            # N not a multiple of the 4 rays of a block: a ragged last block
+    (1021, 113, 0),           # the same, its spans off the 16-byte grid
+    (1024, 76, 1),            # every input one element past a 16-byte boundary
+])
+def test_composite_kernels_match_plain_version(N, S, offset, inv_s):
     _need_card()
     args, cts = _composite_case(N, S, inv_s, 0.0125, seed=N + S)
+    if offset:
+        args = tuple(_offset_view(t, offset) for t in args[:5]) + args[5:]
+        cts = tuple(_offset_view(t, offset) for t in cts)
+        # the plan moves no input of the block's span by a bulk copy, every output by one
+        plan = fused_composite.launch_plan(N, S, {n: t.data_ptr() for n, t in zip(
+            ("sdf", "cos_term", "mask", "rgb", "step", "ct_w"), args[:5] + cts[:1])} | {
+            n: 0 for n in ("d_sdf", "d_cos", "d_rgb", "d_step")}, backward=True)
+        assert plan.bulk_full == plan.bulk_last == _bulk_bits(("d_sdf", "d_cos", "d_rgb", "d_step"),
+                                                              fused_composite.BWD_ARRAYS)
     before = (fused_composite.fwd_launches, fused_composite.bwd_launches)
     outs = fused_composite.composite_fwd(*args)
     grads = fused_composite.composite_bwd(*args, *cts)
@@ -529,6 +556,83 @@ def test_composite_kernels_match_plain_version(N, S, inv_s):
         # the scalar gradients are sums over every sample, of either sign
         assert torch.isfinite(grads[4]).all()
         assert (grads[4] - grefs[4]).abs().max() <= 1e-4 * grefs[4].abs().max() + 1e-6 * N * S
+
+
+@pytest.mark.cuda
+def test_composite_bwd_without_cotangents_or_scalar_grads():
+    """Absent cotangents (None: the kernel reads nothing for them) give what
+    zeros give, bit for bit; `scalar_grads=False` leaves d_scalars out and
+    changes no other gradient."""
+    _need_card()
+    args, cts = _composite_case(1024, 76, 20.0, 0.0125, seed=5)
+    full = fused_composite.composite_bwd(*args, cts[0], torch.zeros_like(cts[1]), cts[2], torch.zeros_like(cts[3]))
+    part = fused_composite.composite_bwd(*args, cts[0], None, cts[2], None, scalar_grads=False)
+    none_w = fused_composite.composite_bwd(*args, None, *cts[1:])
+    zero_w = fused_composite.composite_bwd(*args, torch.zeros_like(cts[0]), *cts[1:])
+    assert part[4] is None
+    for a, b in zip(full[:4], part[:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(none_w, zero_w):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S", [(1024, 76), (37, 1000)])
+def test_composite_kernels_replay_in_a_cuda_graph(N, S):
+    """Forward and backward captured in one CUDA graph: a replay on new
+    inputs copied into the captured ones equals the eager calls bit for bit."""
+    _need_card()
+    args, cts = _composite_case(N, S, 20.0, 0.0125, seed=3)
+    static = [t.clone() for t in (*args, *cts)]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm up (builds the library) off the capture
+        fused_composite.composite_bwd(*static[:6], *static[6:])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fused_composite.composite_fwd(*static[:6])
+        grads = fused_composite.composite_bwd(*static[:6], *static[6:])
+    new_args, new_cts = _composite_case(N, S, 2000.0, 0.0125, seed=4)
+    for dst, src in zip(static, (*new_args, *new_cts)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = (*fused_composite.composite_fwd(*new_args), *fused_composite.composite_bwd(*new_args, *new_cts))
+    for a, b in zip((*outs, *grads), eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_division_matches_ieee():
+    """The composite kernels divide without the IEEE division's slow-path
+    branch (`div_rn` in csrc/fused_composite.cu); on normal operands with a
+    normal quotient, as the kernels' divisions have them, it equals IEEE
+    division (torch's `/` on the card) bit for bit."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = 1 << 20
+    u = lambda: torch.rand(n, generator=g, device="cuda")  # noqa: E731
+    logu = lambda lo, hi: 10.0 ** (lo + (hi - lo) * u())  # noqa: E731
+    p, q_ = u(), u()
+    cases = {
+        "1 / (1 + e)": (torch.ones(n, device="cuda"), 1.0 + u()),
+        "quotient": (p - q_ + 1e-5, p + 1e-5),
+        "quotient, small p": (logu(-6, 0) - logu(-6, 0) + 1e-5, logu(-8, 0) + 1e-5),
+        "R / o": (torch.randn(n, generator=g, device="cuda") * logu(-3, 3), logu(-10, 0)),
+        "n / den^2": (logu(-30, 0), (logu(-5, 0) + 1e-5) ** 2),
+        "d_alpha / den": (torch.randn(n, generator=g, device="cuda") * logu(-3, 3), logu(-5, 0) + 1e-5),
+    }
+    lib = fused_composite._lib()
+    for name, (a, b) in cases.items():
+        q = torch.empty_like(a)
+        fused_composite._check(lib, lib.division_check(a.data_ptr(), b.data_ptr(), q.data_ptr(), n,
+                                                       torch.cuda.current_stream().cuda_stream), "division_check")
+        ref = a / b
+        normal = (a.abs() >= 1.18e-38) & (ref.abs() >= 1.18e-38) & (ref.abs() < 3.4e38)
+        assert int(normal.sum()) > n // 2, name
+        assert torch.equal(q[normal], ref[normal]), name
 
 
 @pytest.mark.cuda
