@@ -57,6 +57,16 @@ fixed-ray scores rendered on the card), a mask-cache refresh and a BA-polish
 event, then the probe health check and a validation render. OpenCV is
 optional: without it PnP runs the numpy RANSAC and the BA polish and the match
 refinement decline, as in the reference; the script says which path ran.
+Then it trains a published preset from data on disk (`drive_preset`): the
+synthetic scene rendered at DTU's 1600x1200 is written as a four-view DTU
+scan (IDR layout, PNGs by the port's own writer), loaded by `load_dtu` under
+`presets/dtu_generic` (the classical matcher when OpenCV is there, else the
+fixture's analytic packs, said on the line), the trainer built (PnP chain,
+feature maps), `fit(20, superstep=4)` run across the activation of view 2;
+then step 3001, past the last pg_scale doubling (the grid at 96^3), runs as a
+graph window held against eager steps, with the surface-feature term's valid
+rays counted, and is profiled (eager and graph step time, device time, busy
+share, peak memory; `profile_step.profile_phase`).
 With `--lookup-points FILE` it also saves the captured lookup points there
 (`torch.save`), for `tools/lookup_times.py`.
 
@@ -102,6 +112,8 @@ GRAPH_LOSS_RTOL = 1e-3
 OFF_PATH = ("transpose2d", "transpose_slice")
 DEVICE = "cuda"
 SMALL = False                          # bench scale
+PRESET_HW = (1200, 1600)               # the preset phase's DTU-layout fixture: DTU's own resolution
+PRESET_VIEWS = 4                       # three train views and one test view
 # the copy designs `materialize_kernel` was chosen against (`materialize_design` in csrc/layout.cu)
 MATERIALIZE_DESIGNS = {"unroll4_4_blocks_per_sm": 1, "unroll4_8_blocks_per_sm": 2, "bulk_ring_2_blocks_per_sm": 3}
 
@@ -1151,11 +1163,222 @@ def drive_fit(mods: dict, trainer_mod) -> dict:
     return {"fit": fit_counts}
 
 
+def _dtu_fixture(synthetic, H: int, W: int):
+    """The synthetic scene (noise texture) as a DTU scan of PRESET_VIEWS views:
+    its test view is DTU view 0 and its three train views are views 1-3, so
+    `selected_id=(1, 2, 3)` trains on them and view 0 survives DTU's exclude
+    list (views 3-7) as the test view."""
+    scene = synthetic.make_synthetic_scene(n_train=3, n_test=PRESET_VIEWS - 3, H=H, W=W, seed=0, texture="noise",
+                                           n_matches=256)
+    order = [3, 0, 1, 2]
+    return scene, dataclasses.replace(scene, images=scene.images[order], masks=scene.masks[order],
+                                      Ks=scene.Ks[order], poses_gt_w2c=scene.poses_gt_w2c[order],
+                                      depth_gt=scene.depth_gt[order])
+
+
+def check_path_kernels(fused_mlp, grid_ops, tr, label: str) -> dict:
+    """The trilinear and trunk kernels against their plain versions at the
+    shapes of one step of `tr` (run here, eager): every grid lookup's own
+    points (`capture_lookup_points`) on a random grid of its shape, the
+    forward (value, and gradient where the step takes it) and the backward
+    to grid and points under random cotangents; every trunk call's own
+    inputs, and its backward under random cotangents. Tolerances as in
+    `check_trilinear_kernels` and `check_trunk_kernels`. Returns the worst
+    max abs error by kernel."""
+    calls, trunk_fwd = [], fused_mlp.trunk_fwd
+
+    def watch(enc, w, b, L, skip, store_acts=True):
+        calls.append((enc.detach().clone(), w.detach().clone(), b.detach().clone(), L, skip))
+        return trunk_fwd(enc, w, b, L, skip, store_acts)
+
+    fused_mlp.trunk_fwd = watch
+    try:
+        lookups = capture_lookup_points(grid_ops, tr, label)
+    finally:
+        fused_mlp.trunk_fwd = trunk_fwd
+    worst = dict.fromkeys(("trilinear_fwd", "trilinear_bwd", "trunk_fwd", "trunk_bwd"), 0.0)
+    for i, (gs, wg, pts, lo, hi) in enumerate(lookups):
+        g = torch.Generator(device=DEVICE).manual_seed(100 + i)
+        grid = torch.randn(gs, generator=g, device=DEVICE)
+        ct_v = torch.randn((pts.shape[0], gs[0]), generator=g, device=DEVICE)
+        ct_g = torch.randn((pts.shape[0], gs[0], 3), generator=g, device=DEVICE) if wg else None
+        fwd = list(zip(grid_ops.trilinear_fwd(grid, pts, lo, hi, wg), grid_ops.trilinear_fwd_plain(grid, pts, lo, hi, wg)))
+        bwd = list(zip(grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, ct_g, True, True),
+                       grid_ops.trilinear_bwd_plain(grid, pts, lo, hi, ct_v, ct_g, True, True)))
+        torch.cuda.synchronize()
+        for name, pairs in (("trilinear_fwd", fwd), ("trilinear_bwd", bwd)):
+            worst[name] = max([worst[name]] + [_tri_close(f"{label} lookup {i} {name} against its plain version", a, b)
+                                               for a, b in pairs if a is not None])
+    for i, (enc, w, b, L, skip) in enumerate(calls):
+        n = enc.shape[0]
+        f_abs, f_rel = _max_err(fused_mlp.trunk_fwd(enc, w, b, L, skip), fused_mlp.trunk_fwd_plain(enc, w, b, L, skip))
+        feat, _, acts = fused_mlp.trunk_fwd_plain(enc, w, b, L, skip)
+        g = torch.Generator(device=DEVICE).manual_seed(200 + i)
+        g_feat = (torch.randn(feat.shape, generator=g, device=DEVICE) * 1e-3).to(torch.bfloat16)
+        g_dens = (torch.randn(n, generator=g, device=DEVICE) * 1e-3).to(torch.bfloat16)
+        b_abs, b_rel = _max_err(fused_mlp.trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L, skip),
+                                fused_mlp.trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L, skip))
+        print(f"{label} trunk call {i} (N={n}, its own inputs): fwd max abs err {f_abs:.3e} ({f_rel:.3e} of max "
+              f"|plain|), bwd max abs err {b_abs:.3e} ({b_rel:.3e} of max |plain|), tolerance {REL_TOL} of max")
+        if not (f_rel <= REL_TOL and b_rel <= REL_TOL):
+            raise AssertionError(f"{label}: trunk kernel disagrees with its plain version at N={n}")
+        worst["trunk_fwd"], worst["trunk_bwd"] = max(worst["trunk_fwd"], f_abs), max(worst["trunk_bwd"], b_abs)
+    if not (lookups and calls):
+        raise AssertionError(f"{label}: the step made {len(lookups)} lookups and {len(calls)} trunk calls")
+    print(f"{label} kernels against their plain versions at the step's {len(lookups)} lookups and {len(calls)} "
+          f"trunk call(s): worst max abs err " + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    return worst
+
+
+def drive_preset(mods: dict, trainer_mod) -> tuple[dict, dict]:
+    """The published `dtu_generic` preset trained from a DTU-layout dataset on
+    disk: the port's loader, matcher and feature maps, `fit()` from step 0
+    across the activation of view 2 in superstep windows, then one superstep
+    window past the last `pg_scale` doubling, where the surface-feature term
+    runs on the 96^3 grid, after the kernels are held against their plain
+    versions at that step's shapes. Returns the kernels' launch counts of
+    both runs and those checks' worst errors."""
+    import shutil
+    import tempfile
+    from poseprobe_tpu_torch.config.presets import dtu_generic
+    from poseprobe_tpu_torch.data import loaders, synthetic
+    from poseprobe_tpu_torch.eval.vgg_features import get_multi_features
+    from poseprobe_tpu_torch.pose_init import matching
+    from tools.dtu_fixture import write_dtu
+    fused_mlp, grid_ops = mods["fused_mlp"], mods["grid"]
+
+    def counts():
+        return {"trunk_fwd": fused_mlp.fwd_launches, "trunk_bwd": fused_mlp.bwd_launches,
+                "trilinear_fwd": grid_ops.fwd_launches, "trilinear_bwd": grid_ops.bwd_launches}
+
+    def reset():
+        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+        grid_ops.fwd_launches = grid_ops.bwd_launches = 0
+
+    H, W = PRESET_HW
+    tmp = tempfile.mkdtemp(prefix="poseprobe_preset_")
+    try:
+        root = os.path.join(tmp, "DTU", "scan_fixture")     # its masks go to .../idrmasks/scan_fixture
+        t0 = time.perf_counter()
+        scene, on_disk = _dtu_fixture(synthetic, H, W)
+        t_render = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_dtu(root, on_disk)
+        t_write = time.perf_counter() - t0
+        cfg = dtu_generic.get_config(datadir=root, selected_id=(1, 2, 3))
+        cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, incremental_step=12))
+        t0 = time.perf_counter()
+        data = loaders.load_dtu(cfg.data)
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # matching and feature maps timed apart, each called once more on the loaded views
+    t0 = time.perf_counter()
+    matching.build_match_packs(data.images, data.masks, data.i_train, data.pair_j, max_matcher=cfg.data.max_matcher)
+    t_match = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maps = get_multi_features(data.images[data.i_train], device=DEVICE)
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    del maps
+    packs = {k: [int(n) for n in (getattr(data, k)[..., 4] > 0).sum(axis=1)]
+             for k in ("obj_matches", "scene_matches", "ba_matches")}
+    if matching._HAS_CV2:
+        matcher = "classical (OpenCV SIFT, mutual ratio test)"
+    else:
+        matcher = "none: OpenCV not found, the classical matcher returned zero packs; trained on the fixture's analytic packs"
+        data.obj_matches, data.scene_matches = scene.obj_matches, scene.scene_matches
+        data.ba_matches, data.ba_pairs = scene.ba_matches, scene.ba_pairs
+    used = {k: [int(n) for n in (getattr(data, k)[..., 4] > 0).sum(axis=1)]
+            for k in ("obj_matches", "scene_matches", "ba_matches")}
+    if not (data.images.shape == (4, H, W, 3) and list(data.i_train) == [0, 1, 2]
+            and list(data.i_test) == [3] and data.masks.shape == (4, H, W, 1)):
+        raise AssertionError(f"the DTU fixture did not load as three train views and one test view of "
+                             f"{H}x{W}: {data.images.shape}, {data.i_train}, {data.i_test}")
+    if min(min(v) for v in used.values()) == 0:
+        raise AssertionError(f"a match pack of the preset's data is empty: {used}")
+    t0 = time.perf_counter()
+    tr = trainer_mod.JointTrainer(cfg, data, device=DEVICE)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    om, ot, sm = tr.cfg.object_model, tr.cfg.object_train, tr.cfg.scene_model
+    print(f"preset dtu_generic: {H}x{W} DTU-layout scan of {PRESET_VIEWS} views rendered in {t_render:.1f} s, "
+          f"written in {t_write:.2f} s; load {t_load:.2f} s (its matching included); matching alone "
+          f"(build_match_packs, called again) {t_match:.2f} s ({matcher}): matches per pack found {packs}, trained "
+          f"on {used}; feature maps {tuple(tr.feature_maps.shape)} (get_multi_features, called again) {t_feat:.3f} "
+          f"s; trainer built in {t_build:.2f} s (PnP chain and feature maps); grid {om.world_size} "
+          f"(pg_scale {ot.pg_scale}), {ot.N_rand} object rays, {sm.rand_rays} scene rays, {sm.sample_intvs}+"
+          f"{sm.sample_intvs_fine} samples, trunk {len(sm.layers_feat)}x{sm.layers_feat[0]} {sm.matmul_dtype}")
+    if not (fused_mlp.supports(sm) and sm.matmul_dtype == "bfloat16" and om.use_maskcache
+            and ot.weight_surface_projection > 0):
+        raise AssertionError("the dtu_generic preset does not take the fused trunk, the mask cache and the feature term")
+
+    # fit from step 0 across the activation of view 2 (step 12), in superstep windows
+    n_steps = 20
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    hist = [dict(h) for h in tr.fit(n_steps, log_every=SUPERSTEP, superstep=SUPERSTEP)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fit_counts = counts()
+    print(f"preset fit: {n_steps} steps in {dt:.2f} s (activation event included); launches {fit_counts}; "
+          f"feat_loss {[round(h['feat_loss'], 5) for h in hist]}, feature rays {[h['feat_rays'] for h in hist]}, "
+          f"active views {[(h['step'], h['n_active']) for h in hist]}")
+    if not (tr.n_active == 3 and all(math.isfinite(v) for h in hist for v in h.values())
+            and all("feat_loss" in h for h in hist)):
+        raise AssertionError("the preset's fit did not activate view 2, or a metric is non-finite or missing")
+    if min(v for v in fit_counts.values()) < n_steps:
+        raise AssertionError(f"a kernel of the preset's step was launched less than once a step: {fit_counts}")
+
+    # past the last pg_scale doubling (its grid rescales and mask-cache refreshes run as `fit` runs
+    # them): the feature term on the full 96^3 grid, inside the pose window and the object phase
+    last = max(ot.pg_scale)
+    tr.global_step = last
+    for s in ot.pg_scale:
+        tr.maybe_pg_scale(s)
+    tr.global_step = last + 1
+    flags = tr.phase_flags(tr.global_step)
+    if not (tr.cfg.object_model.num_voxels == tr._final_num_voxels and flags["object_on"] and flags["pose_on"]
+            and tr._feature_term_on(flags)):
+        raise AssertionError(f"step {tr.global_step} is not a full-grid object step with the feature term: {flags}")
+    errs = check_path_kernels(fused_mlp, grid_ops, tr, "preset")
+    torch.cuda.reset_peak_memory_stats()
+    start = tr.global_step
+    graph = check_superstep(tr, "preset", counts, reset)
+    steps = {k: v / SUPERSTEP for k, v in graph.items()}
+    reset()
+    window = tr.steps_scan(SUPERSTEP)
+    torch.cuda.synchronize()
+    feat = [float(v) for v in window["feat_loss"]]
+    rays = [int(v) for v in window["feat_rays"]]
+    replayed = counts()
+    print(f"preset step {start} (grid {tr.cfg.object_model.world_size}, object_on, pose_on, feature term on), a "
+          f"graph window: feat_loss {feat}, valid feature rays {rays} of {min(256, ot.N_rand)}; launches per step: "
+          f"trilinear fwd {steps['trilinear_fwd']:g} bwd {steps['trilinear_bwd']:g}, trunk fwd {steps['trunk_fwd']:g} "
+          f"bwd {steps['trunk_bwd']:g}")
+    if not (all(math.isfinite(x) for x in feat) and min(rays) > 0):
+        raise AssertionError("the feature term had no valid ray, or a non-finite value, in the graph window")
+    # per step: the trunk once each way (the coarse scene render); the trilinear forward for the render's
+    # two lookups, the reprojection query and the feature term's two surface queries, its backward for
+    # all but the cycle check's query, which takes no gradient
+    if steps != {"trunk_fwd": 1, "trunk_bwd": 1, "trilinear_fwd": 5, "trilinear_bwd": 4} or replayed != graph:
+        raise AssertionError(f"the preset's graph windows did not launch the kernels of its step: {graph}, {replayed}")
+    # step time eager and in graph windows (in turns), device time and busy share under torch.profiler
+    from poseprobe_tpu_torch import profile_step
+    prof = profile_step.profile_phase(tr, "preset", start, 8, SUPERSTEP, None)
+    print(json.dumps({k: v for k, v in prof.items() if k not in ("eager", "graph")}
+                     | {m: {k: v for k, v in prof[m].items() if k not in ("top", "top_host_ops")}
+                        for m in ("eager", "graph")}))
+    return {"preset": fit_counts, "preset_graph": graph}, errs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--lookup-points", metavar="FILE",
                         help="also save the captured lookup points there (torch.save), for tools/lookup_times.py")
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1198,7 +1421,14 @@ def main(argv=None) -> int:
     by_phase.update(drive_slice(fused_mlp, trainer_mod))
     by_phase.update(drive_fit({"fused_mlp": fused_mlp, "grid": grid_ops, "layout": layout,
                                "fused_composite": fused_composite}, trainer_mod))
+    t0 = time.perf_counter()
+    preset_counts, preset_errs = drive_preset({"fused_mlp": fused_mlp, "grid": grid_ops}, trainer_mod)
+    by_phase.update(preset_counts)
+    preset_s = time.perf_counter() - t0
     for rec in records:
+        if rec["name"] in preset_errs:
+            rec["preset_max_abs_err"] = preset_errs[rec["name"]]
+            rec["max_abs_err"] = max(rec["max_abs_err"], preset_errs[rec["name"]])
         rec["launches_by_phase"] = {ph: c[rec["name"]] for ph, c in by_phase.items() if rec["name"] in c}
         rec["launches"] = sum(rec["launches_by_phase"].values())
         if rec["launches"] == 0 and rec["name"] not in OFF_PATH:
@@ -1207,6 +1437,7 @@ def main(argv=None) -> int:
         torch.save({label: [(gs, wg, p.cpu(), lo.cpu(), hi.cpu()) for gs, wg, p, lo, hi in sets]
                     for label, sets in CAPTURED.items()}, args.lookup_points)
         print(f"lookup points saved to {args.lookup_points}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the preset phase {preset_s:.1f} s of it")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -15,12 +15,17 @@ polish, re-registration, probe health, the chord-K re-bound; `core/align.py`,
 `eval/evaluator.py`); and the hand-written Hopper kernels under `csrc/`: the
 fused 8x256 scene trunk (`ops/fused_mlp.py`), the trilinear gather/scatter
 (`ops/grid.py`), the layout kernels (`ops/layout.py`) and the fused
-alpha-composite, forward and backward (`ops/fused_composite.py`). Still
+alpha-composite, forward and backward (`ops/fused_composite.py`). The
+published presets train from data on disk: the full configuration and its
+presets (`config/`), the six dataset loaders with their PNG reader and the
+classical matcher (`data/loaders.py`, `data/png.py`, `pose_init/matching.py`),
+and the surface-feature loss with its feature maps and the image metrics
+(`losses/projection.py`, `eval/vgg_features.py`, `eval/metrics.py`). Still
 raising `NotImplementedError`: depth consistency from fresh pixels, the
-TensoRF feature grid, and `weight_surface_projection > 0`. Full evaluation,
-checkpoints, loaders and the CLIs are later slices (`ROADMAP.md`). OpenCV is
-optional: without it PnP runs a numpy RANSAC, and the BA polish and the match
-refinement decline.
+TensoRF feature grid, and the SuperGlue matcher. Full evaluation, checkpoints
+and the CLIs are later slices (`ROADMAP.md`). OpenCV is optional: without it
+PnP runs a numpy RANSAC, the BA polish and the match refinement decline, and
+the classical matcher returns empty packs.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``. On a CUDA tensor each hand-written kernel launches (or the

@@ -1,9 +1,10 @@
-"""Experiment configuration: the dataclasses the ported training step reads.
+"""Unified experiment configuration.
 
-Port of `poseprobe_tpu/config/config.py`, cut to the fields the joint
-training step, its trainer and the trainer's host pose events read; every
-field keeps the reference's name and default. The data block holds only what
-the ported slices use (loaders come later).
+Port of `poseprobe_tpu/config/config.py`: one dataclass tree for the data,
+the cameras, PnP seeding, the object and scene models and their training
+blocks. Every field keeps the reference's name and default. Presets live in
+`poseprobe_tpu_torch/config/presets/`; `data/loaders.load_data` reads the
+data block.
 """
 from __future__ import annotations
 
@@ -16,8 +17,26 @@ from ..models.scene_nerf import SceneConfig
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    datadir: str = ""
+    dataset_type: str = "synthetic"     # dtu | blender | toy | custom | replica | scene_with_shapenet | synthetic
+    selected_id: tuple = (22, 25, 28)   # train view ids
+    test_id: Optional[tuple] = None
+    inverse_y: bool = True
+    flip_x: bool = False
+    flip_y: bool = False
+    white_bkgd: bool = False
+    ndc: bool = False
+    testskip: int = 1
+    trainskip: int = 10
     near: float = 0.3
     far: float = 4.0
+    xyz_min: tuple = (-0.4, -0.4, -0.5)
+    xyz_max: tuple = (0.4, 0.4, 0.3)
+    # matcher settings
+    max_keypoints: int = 512
+    max_matcher: int = 256
+    match_threshold: float = 0.2
+    exclude_test: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,7 +140,7 @@ class ObjectTrainConfig:
     sdf_tv: float = 0.1
     smooth_grad_tv: float = 0.05
     tv_updates: tuple = ((4000, (("sdf_tv", 0.1), ("smooth_grad_tv", 0.2))),)
-    weight_surface_projection: float = 0.0   # > 0 is not ported (needs VGG feature maps)
+    weight_surface_projection: float = 0.0   # surface-feature agreement (losses/projection.py)
     projection_dis_error: float = 0.001
     weight_near_surface: float = 0.1
     # deform-prior dynamic weight endpoints, exp-decayed over the object phase
@@ -147,11 +166,14 @@ class SceneTrainConfig:
     max_iter: int = 60000
     lr: float = 5e-4
     lr_end: float = 1e-4
+    lr_pose: float = 1e-3
+    lr_pose_end: float = 1e-4
     ratio_end_joint_nerf_pose_refinement: float = 0.3
     # when set past the rotation window, the translation dims keep refining
     # until this ratio of max_iter
     ratio_end_pose_trans: Optional[float] = None
     nerf_gradient_clipping: float = 0.1     # clip by global norm
+    pose_gradient_clipping: Optional[float] = None
     precrop_iters: int = 0
     precrop_frac: float = 0.5
     depth_regu_patch_size: int = 2
@@ -165,6 +187,9 @@ class SceneTrainConfig:
     gradually_decrease_corres_weight: bool = True
     iter_start_decrease_corres_weight: int = 0
     corres_weight_reduct_at_x_iter: int = 5000
+    # eval
+    test_photo: bool = True
+    test_iter: int = 100
     # scene ray-sampler fractions: fg-mask wins over center when both set
     sampled_fraction_in_center: float = 0.0
     sample_fraction_in_fg_mask: float = 0.0
@@ -175,6 +200,8 @@ class SceneTrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
+    expname: str = "exp"
+    basedir: str = "./logs"
     data: DataConfig = DataConfig()
     camera: CameraConfig = CameraConfig()
     pnp: PnPConfig = PnPConfig()
@@ -183,3 +210,21 @@ class ExperimentConfig:
     scene_model: SceneConfig = SceneConfig()
     scene_train: SceneTrainConfig = SceneTrainConfig()
     seed: int = 0
+    # logging cadence
+    i_print: int = 200
+    i_validate: int = 5000
+    i_validate_mesh: int = 2000
+    world_bound_scale: float = 1.5
+
+
+def replace(cfg, **kwargs):
+    """Dataclass-aware override helper."""
+    return dataclasses.replace(cfg, **kwargs)
+
+
+def max_iter_for(dataset_type: str, n_train: int) -> int:
+    """Iteration budget by dataset and number of training views."""
+    if dataset_type in ("dtu", "replica", "toy", "scene_with_shapenet", "synthetic", "blender"):
+        return {2: 60000, 3: 60000, 6: 150000}.get(n_train, 80000)
+    # llff-style
+    return {2: 60000, 3: 100000, 6: 170000}.get(n_train, 220000)

@@ -56,6 +56,34 @@ def project_to_cam(points: torch.Tensor, camera_mat: torch.Tensor) -> torch.Tens
     return xy[..., :2] / (xy[..., 2:] + 1e-12)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip` with its gradient: at a tie with a bound half the cotangent
+    passes (`torch.clamp` passes all of it)."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)), torch.full_like(x, hi))
+
+
+def bilinear_image_sample(image: torch.Tensor, pixels: torch.Tensor) -> torch.Tensor:
+    """Bilinearly sample an [H, W, C] image at [N, 2] (x, y) pixel coordinates
+    (`F.grid_sample`'s align_corners=True on the pixel lattice, border-clamped).
+    Differentiable w.r.t. the pixels; a point exactly on the border takes the
+    reference's half gradient there (`clip`)."""
+    H, W = image.shape[0], image.shape[1]
+    x = clip(pixels[..., 0], 0.0, W - 1.0)
+    y = clip(pixels[..., 1], 0.0, H - 1.0)
+    x0 = torch.clamp(torch.floor(x), 0, W - 2).to(torch.int64)
+    y0 = torch.clamp(torch.floor(y), 0, H - 2).to(torch.int64)
+    wx = (x - x0.to(x.dtype))[..., None]
+    wy = (y - y0.to(y.dtype))[..., None]
+    flat = image.reshape(H * W, -1)
+
+    def at(yi, xi):     # index_select: graph-safe, and its backward adds by index
+        return flat.index_select(0, (yi * W + xi).reshape(-1)).reshape(xi.shape + flat.shape[1:])
+
+    top = at(y0, x0) * (1 - wx) + at(y0, x0 + 1) * wx
+    bot = at(y0 + 1, x0) * (1 - wx) + at(y0 + 1, x0 + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
 def point_to_ray_distance(ray_origins: torch.Tensor, ray_directions: torch.Tensor,
                           point: torch.Tensor) -> torch.Tensor:
     """Distance of a point to rays; rays that point away from it use the

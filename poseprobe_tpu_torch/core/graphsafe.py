@@ -4,8 +4,8 @@ A captured step may only launch work on the device: it may not copy from
 pageable host memory (`torch.tensor(..., device="cuda")` does) or read a
 value back to the host (indexing with a CUDA scalar tensor may). The step's
 constants therefore come from `const`, made once per (values, dtype, device)
-outside the capture and reused after, and its picks of one row by a drawn
-index go through `take` and `index`.
+by an asynchronous copy from pinned memory, before the capture, and reused
+after; its picks of one row by a drawn index go through `take` and `index`.
 """
 from __future__ import annotations
 
@@ -16,7 +16,12 @@ import torch
 
 @functools.lru_cache(maxsize=None)
 def _make(values: tuple, dtype, device):
-    return torch.tensor(values, dtype=dtype, device=device)
+    if device.type != "cuda":
+        return torch.tensor(values, dtype=dtype, device=device)
+    # an asynchronous copy from pinned memory: the first step of a cell, which
+    # runs under the sync-debug error mode before the capture, makes its
+    # constants without a synchronisation
+    return torch.tensor(values, dtype=dtype).pin_memory().to(device, non_blocking=True)
 
 
 def const(values: tuple, dtype=torch.float32, device="cpu") -> torch.Tensor:

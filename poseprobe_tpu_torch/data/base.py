@@ -1,7 +1,6 @@
 """Dataset container (numpy, host side).
 
-The port's own copy of `poseprobe_tpu/data/base.py` (the fields and helpers
-the ported slices use). Match packs are padded to [n_train, M, 5]
+The port's own copy of `poseprobe_tpu/data/base.py`. Match packs are padded to [n_train, M, 5]
 (x_prev, y_prev, x_cur, y_cur, conf); conf 0 marks padding. Semantic pixel
 pools are padded with counts.
 """
@@ -45,8 +44,11 @@ class SceneData:
     ba_matches: Optional[np.ndarray] = None     # [n_pairs, M, 5] (i-2, i) skip pairs
     ba_pairs: Optional[np.ndarray] = None       # [n_pairs, 2] int
     samplers: Optional[SemanticSamplers] = None
+    scale_mats: Optional[np.ndarray] = None     # DTU world-scale mats for mesh eval
     depth_gt: Optional[np.ndarray] = None       # [n_views, H, W] camera-z
     inverse_y: bool = True
+    flip_x: bool = False
+    flip_y: bool = False
     white_bkgd: bool = False
 
     @property

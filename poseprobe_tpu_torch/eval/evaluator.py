@@ -3,8 +3,9 @@ score and the chunked full-image render.
 
 Port of the part of `poseprobe_tpu/eval/evaluator.py` that the trainer calls
 (`align_train_poses`, `test_time_pose_optim`, `photometric_pose_score`,
-`render_full`). `evaluate_full`, the image metrics, LPIPS and video export
-belong to the evaluation slice and are not ported yet.
+`render_full`). The image metrics and LPIPS are in `eval/metrics.py`;
+`evaluate_full` and video export belong to the evaluation slice and are not
+ported yet.
 
 Random draws are injected: `test_time_pose_optim` takes the ray indices of
 every iteration (`ray_idx` [n_iters, rand_rays]) and `photometric_pose_score`

@@ -1,11 +1,13 @@
-"""Object-branch pose supervision: match reprojection through SDF surface points.
+"""Object-branch pose supervision: match reprojection and feature agreement
+through SDF surface points.
 
-Port of `poseprobe_tpu/losses/projection.py` (`_project_with_near_clamp`,
-`projection_error_loss`): rays are cast through matched pixels, the probe
-surface is found along them, and the reprojection disagreement in the paired
-view is penalised; this is how 2-D matches supervise the camera poses through
-the SDF. `surface_feature_loss` needs the VGG feature maps of the evaluation
-slice and is not ported yet.
+Port of `poseprobe_tpu/losses/projection.py`: rays are cast through matched
+pixels (`projection_error_loss`) or training pixels (`surface_feature_loss`),
+the probe surface is found along them, and the disagreement in the paired
+view -- pixel distance to the match, or feature-map dissimilarity -- is
+penalised; this is how 2-D observations supervise the camera poses through
+the SDF. Both are graph-safe: the view ids may be 0-dim device tensors, and
+validity gates are masks, never indices.
 """
 from __future__ import annotations
 
@@ -79,3 +81,43 @@ def projection_error_loss(obj_params: dict, obj_cfg: object_sdf.ObjectConfig,
         valid_all = valid_all & (diff.detach() <= pixel_thre)
     proj_err = compute_diff_loss("huber", diff, weights=conf2, mask=valid_all, delta=1.0)
     return proj_err, near_surface
+
+
+def surface_feature_loss(obj_params: dict, obj_cfg: object_sdf.ObjectConfig,
+                         current_pose: torch.Tensor, Ks: torch.Tensor, rays_o: torch.Tensor,
+                         rays_d: torch.Tensor, id_i, id_j, feature_maps: torch.Tensor, global_step,
+                         inverse_y: bool, use_deform: bool, near: float = 0.3, far: float = 4.0):
+    """Cosine feature agreement of SDF-surface points projected into both views.
+
+    rays_o / rays_d [M, 3] are rays of view i; feature_maps [n_views, H', W', C]
+    on the pixel grid. A cycle check gates validity: the point, projected into
+    view j and found again along view j's ray, must land within two voxels of
+    itself. Returns 1 - the masked mean cosine and the number of valid rays
+    (a 0-dim float tensor, left on the device).
+    """
+    ids = index((id_i, id_j), current_pose.device)
+    pose_ij = current_pose.index_select(0, ids)
+    K_ij = Ks.index_select(0, ids)
+    pts, valid, _ = object_sdf.query_surface_points_render(
+        obj_params, obj_cfg, rays_o, rays_d, global_step, use_deform=use_deform, near=near, far=far)
+
+    # project into view j, re-cast rays there, and re-query the surface
+    px_j, invalid_j = _project_with_near_clamp(pts[None], pose_ij[1:], K_ij[1:], inverse_y)
+    c2w_j = pose_ops.invert(pose_ij[1:])
+    ro_j, rd_j = rays_mod.get_ray_dir(px_j, K_ij[1:], c2w_j, inverse_y=inverse_y, mode="no_center")
+    pts_ref, valid_ref, _ = object_sdf.query_surface_points_render(
+        obj_params, obj_cfg, ro_j.reshape(-1, 3), rd_j.reshape(-1, 3), global_step,
+        use_deform=use_deform, near=near, far=far)
+    cycle_ok = torch.linalg.norm(pts - pts_ref, dim=-1) < obj_cfg.voxel_size * 2
+
+    px_i, invalid_i = _project_with_near_clamp(pts[None], pose_ij[:1], K_ij[:1], inverse_y)
+    valid_all = (valid & valid_ref & cycle_ok & ~invalid_i[0] & ~invalid_j[0]).to(torch.float32)
+
+    maps = feature_maps.index_select(0, ids)
+    f_i = geometry.bilinear_image_sample(maps[0], px_i[0])
+    f_j = geometry.bilinear_image_sample(maps[1], px_j[0])
+    cos = (f_i * f_j).sum(-1) / (torch.linalg.norm(f_i, dim=-1) * torch.linalg.norm(f_j, dim=-1) + 1e-8)
+    # masked mean cosine similarity -> loss (1 - mean_cos)
+    n_valid = valid_all.sum()
+    loss = 1.0 - (cos * valid_all).sum() / (n_valid + 1e-6)
+    return loss, n_valid

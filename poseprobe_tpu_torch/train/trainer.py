@@ -11,7 +11,8 @@ updates the scene params and, while the pose window is open, the poses.
 `JointTrainer` extends it with the object branch (the early phase, steps up
 to `object_train.N_iters`): the semantic ray batch, the SDF render through
 the deformation field, the object losses, the k0 and SDF total-variation
-terms, the shell prior and the match-reprojection term, mixed as
+terms, the shell prior, the match-reprojection term and, while the pose
+window is open, the surface-feature agreement term, mixed as
 ``0.1 * object_loss + scene_loss``, one backward pass and a third optimizer;
 plus the mask cache (`refresh_maskcache`) and progressive grid scaling
 (`scale_volume_grid`, `maybe_pg_scale`).
@@ -43,9 +44,8 @@ are one captured step replayed K - 1 times after an eager first step
 kernels each cost a launch); on the CPU the same step runs K times.
 
 Not ported yet, and raising `NotImplementedError` where a config asks for
-them: depth consistency from fresh pixels (the corres term off), the TensoRF
-feature grid, and the surface-feature loss (`weight_surface_projection > 0`).
-Checkpoints (`host_extras`) are a later slice.
+them: depth consistency from fresh pixels (the corres term off) and the
+TensoRF feature grid. Checkpoints (`host_extras`) are a later slice.
 """
 from __future__ import annotations
 
@@ -61,6 +61,7 @@ from ..core.graphsafe import take
 from ..core.tree import tree_leaves, tree_unflatten
 from ..data.base import SceneData
 from ..eval import evaluator
+from ..eval.vgg_features import get_multi_features
 from ..losses import (common as loss_common, object as object_losses_mod,
                       projection as projection_losses, scene as scene_losses)
 from ..models import object_sdf, pose_refine, scene_nerf
@@ -501,10 +502,6 @@ class JointTrainer(SceneTrainer):
     def __init__(self, cfg: ExperimentConfig, data: SceneData, seed: int | None = None,
                  device="cuda"):
         ot = cfg.object_train
-        if ot.weight_surface_projection > 0:
-            raise NotImplementedError("weight_surface_projection > 0: the surface-feature loss needs "
-                                      "the VGG feature maps of the evaluation slice (ROADMAP.md, "
-                                      "modules to port: the surface-feature loss)")
         # progressive scaling: start at num_voxels / 2^len(pg_scale) and double
         # the voxel count at each checkpoint step
         self._pg_scale = tuple(ot.pg_scale)
@@ -522,6 +519,10 @@ class JointTrainer(SceneTrainer):
         self.sampler_pixels = dev(data.samplers.pixels, torch.int64)
         self.sampler_counts = dev(data.samplers.counts, torch.int64)
         self.obj_matches = dev(data.obj_matches)
+        # feature maps of the train views for the surface-feature agreement term
+        self.feature_maps = None
+        if ot.weight_surface_projection > 0:
+            self.feature_maps = get_multi_features(data.images[it], device=self.device)
 
         om = cfg.object_model
         self.obj_params = self._probe_params(seed)
@@ -559,7 +560,19 @@ class JointTrainer(SceneTrainer):
                                                 device=self.device)
             draws["proj_view"] = torch.randint(0, flags["n_active"], (), generator=self.generator,
                                                device=self.device)
+            if self._feature_term_on(flags):
+                draws["feat_view"] = torch.randint(0, flags["n_active"], (), generator=self.generator,
+                                                   device=self.device)
         return draws
+
+    def _feature_term_on(self, flags: dict) -> bool:
+        """Whether the step adds the surface-feature agreement term: with its
+        weight, while the object branch and the pose window are on."""
+        return bool(self.cfg.object_train.weight_surface_projection > 0 and flags["object_on"]
+                    and flags["pose_on"] and self.feature_maps is not None)
+
+    def _cell(self, flags: dict) -> tuple:
+        return super()._cell(flags) + (self._feature_term_on(flags),)
 
     def _trained(self, flags: dict) -> list:
         return (["obj"] if flags["object_on"] else []) + super()._trained(flags)
@@ -609,6 +622,17 @@ class JointTrainer(SceneTrainer):
                 near=self.data.near, far=self.data.far, mask_grid=self.mask_arr, mask_k=self._mask_k)
             obj_loss = obj_loss + ot.projection_dis_error * proj_err + ot.weight_near_surface * near_surf
             metrics["proj_err"] = proj_err
+        if self._feature_term_on(flags):
+            r2 = draws["feat_view"]
+            n_feat_rays = min(256, ot.N_rand)
+            feat_loss, n_valid = projection_losses.surface_feature_loss(
+                obj_p, oc, current_pose, self.Ks, batch.rays_o[:n_feat_rays],
+                batch.rays_d[:n_feat_rays], id_i=r2, id_j=take(self.pair_j_t, r2),
+                feature_maps=self.feature_maps, global_step=step_f, inverse_y=self.data.inverse_y,
+                use_deform=True, near=self.data.near, far=self.data.far)
+            obj_loss = obj_loss + ot.weight_surface_projection * feat_loss
+            metrics["feat_loss"] = feat_loss
+            metrics["feat_rays"] = n_valid      # the valid rays of the term (the port's own metric)
         return obj_loss, metrics
 
     def joint_loss(self, obj_p: dict, scene_p: dict, pose_p: dict, step, flags: dict,

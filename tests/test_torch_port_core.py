@@ -445,5 +445,9 @@ def test_port_imports_no_jax():
                  "models.object_sdf", "losses.object", "losses.projection", "train.trainer", "train.optim",
                  "train.batching", "convert", "profile_step", "config.config", "data.synthetic",
                  "ops.fused_composite", "core.align", "pose_init.pnp", "pose_init.ba", "pose_init.relpose",
-                 "eval.evaluator"):
+                 "eval.evaluator", "eval.metrics", "eval.vgg_features", "data.png", "data.loaders",
+                 "pose_init.matching", "config.presets", "config.presets.dtu_generic", "config.presets.dtu_scan",
+                 "config.presets.dtu_scan1", "config.presets.nerf_synthetic", "config.presets.replica_room0",
+                 "config.presets.replica_room1", "config.presets.replica_scene", "config.presets.shapenet_car",
+                 "config.presets.toy_candy", "config.presets.toy_desk", "config.presets.toy_scene"):
         assert f"poseprobe_tpu_torch.{name}" in loaded, name

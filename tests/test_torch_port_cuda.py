@@ -477,6 +477,78 @@ def test_early_step_runs_through_the_kernels():
     assert tuple(b - a for a, b in zip(before, counts())) == (1, 1, 3, 3, 0, 0, 0)
 
 
+@pytest.mark.cuda
+def test_preset_step_replays_as_a_cuda_graph_with_the_feature_term(tmp_path):
+    """The `dtu_generic` preset (its 8x256 bf16 trunk and mask cache; a 24^3
+    grid after its pg_scale shrink, 256 rays, 32 + 32 samples) trained from a
+    DTU-layout fixture on disk, with the surface-feature term on: 4 steps as
+    a superstep window (eager first step under the sync-debug error mode,
+    capture, three replays) and as four replays, against 4 eager steps from
+    the same state, by `test_graph_replays_match_eager_steps_on_the_card`'s
+    rule (losses rtol 1e-3, each parameter within 2e-2 in the L2 norm
+    relative to its own, counters and launches equal). Per step the term adds
+    two trilinear forwards (its two surface queries) and one backward (the
+    cycle check's query takes no gradient)."""
+    _need_card()
+    import dataclasses
+    from poseprobe_tpu_torch.config.presets import dtu_generic
+    from poseprobe_tpu_torch.core.tree import tree_leaves
+    from poseprobe_tpu_torch.data import loaders, synthetic
+    from poseprobe_tpu_torch.train import graphs
+    from tools.dtu_fixture import write_dtu
+    scene = synthetic.make_synthetic_scene(n_train=3, n_test=6, H=96, W=128, seed=0, texture="noise", n_matches=64)
+    root = str(tmp_path / "DTU" / "scan_fixture")
+    write_dtu(root, scene)
+    cfg = dtu_generic.get_config(datadir=root, selected_id=(0, 1, 2))
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, max_matcher=64),
+        object_model=dataclasses.replace(cfg.object_model, num_voxels=8 * 24 ** 3, num_voxels_base=8 * 24 ** 3),
+        object_train=dataclasses.replace(cfg.object_train, N_rand=256),
+        scene_model=dataclasses.replace(cfg.scene_model, rand_rays=256, sample_intvs=32, sample_intvs_fine=32))
+    data = loaders.load_dtu(cfg.data)
+    if not data.scene_matches[..., 4].any():        # no OpenCV: the fixture's own packs
+        data.obj_matches, data.scene_matches, data.ba_matches = (scene.obj_matches, scene.scene_matches,
+                                                                 scene.ba_matches)
+    tr = JointTrainer(cfg, data, device="cuda")
+    assert fused_mlp.supports(tr.cfg.scene_model) and tr.cfg.object_model.world_size == (24, 24, 24)
+    tr.global_step = 1
+    assert tr._feature_term_on(tr.phase_flags(1))
+    tr.step()
+    start = ([t.clone() for t in tr.state_tensors()], tr.generator.get_state(), tr.global_step)
+
+    def run(window: bool):
+        for t, c in zip(tr.state_tensors(), start[0]):
+            t.copy_(c)
+        tr.generator.set_state(start[1])
+        tr.global_step = start[2]
+        before = graphs._counts()
+        grid_before = (fused_mlp.fwd_launches, fused_mlp.bwd_launches, grid_ops.fwd_launches, grid_ops.bwd_launches)
+        if window:
+            metrics = tr.steps_scan(4)
+        else:
+            rows = [tr.step() for _ in range(4)]
+            metrics = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        torch.cuda.synchronize()
+        launched = [b - a for a, b in zip(before, graphs._counts())]
+        per_step = tuple((b - a) / 4 for a, b in zip(grid_before, (fused_mlp.fwd_launches, fused_mlp.bwd_launches,
+                                                                   grid_ops.fwd_launches, grid_ops.bwd_launches)))
+        params = [t.clone() for n in tr.GROUPS for t in tree_leaves(getattr(tr, f"{n}_params"))]
+        counters = [int(tr._step_t)] + [int(getattr(tr, f"opt_{n}_state")["count"]) for n in tr.GROUPS
+                                        if getattr(tr, f"opt_{n}_state") is not None]
+        return {k: v.cpu() for k, v in metrics.items()}, params, counters, launched, per_step
+
+    eager = run(False)
+    assert eager[4] == (1, 1, 5, 4), eager[4]
+    assert (eager[0]["feat_rays"] > 0).all() and torch.isfinite(eager[0]["feat_loss"]).all()
+    for name, out in (("capture", run(True)), ("replays", run(True))):
+        assert tr._graphs.graph is not None, name
+        for key in ("loss_total", "feat_loss"):
+            np.testing.assert_allclose(out[0][key].numpy(), eager[0][key].numpy(), rtol=1e-3, err_msg=(name, key))
+        assert out[2] == eager[2] and out[3] == eager[3] and out[4] == eager[4], (name, out[2:], eager[2:])
+        for a, b in zip(out[1], eager[1]):
+            assert (a - b).norm().item() <= 2e-2 * max(b.norm().item(), 1e-30), name
+
+
 # ---------------------------------------------------------------- fused alpha-composite
 
 

@@ -289,11 +289,31 @@ def test_pg_scale_resizes_grids_and_restarts_the_optimizer():
     assert tr.opt_obj_state["count"] == 1 and tr.opt_obj_state["mu"]["sdf_grid"].shape == (1,) + big
 
 
-@pytest.mark.parametrize("field,value", [("weight_surface_projection", 0.1)])
+@pytest.mark.parametrize("field,value", [("grid_type", "tensorf")])
 def test_unported_options_raise(field, value):
     import dataclasses
     from poseprobe_tpu_torch.train.trainer import _bench_workload
     cfg, data = _bench_workload(True, "float32")
-    cfg = dataclasses.replace(cfg, object_train=dataclasses.replace(cfg.object_train, **{field: value}))
+    cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(cfg.object_model, **{field: value}))
     with pytest.raises(NotImplementedError):
         TJointTrainer(cfg, data, device="cpu")
+
+
+def test_surface_feature_term_builds_and_takes_its_own_cell():
+    """`weight_surface_projection > 0` (ported): the trainer builds the feature
+    maps, the early step adds the term, and a step with the term is a cell of
+    its own for the captured-graph cache."""
+    import dataclasses
+    from poseprobe_tpu_torch.train.trainer import _bench_workload
+    cfg, data = _bench_workload(True, "float32")
+    cfg = dataclasses.replace(cfg, object_train=dataclasses.replace(cfg.object_train, lr_pose=1e-3))
+    off = TJointTrainer(cfg, data, device="cpu")
+    cfg = dataclasses.replace(cfg, object_train=dataclasses.replace(cfg.object_train, weight_surface_projection=0.1))
+    on = TJointTrainer(cfg, data, device="cpu")
+    assert off.feature_maps is None and tuple(on.feature_maps.shape) == (3, 64, 64, 5)
+    flags = on.phase_flags(1)
+    assert on._feature_term_on(flags) and not off._feature_term_on(flags)
+    assert on._cell(flags)[-1] and not off._cell(flags)[-1]
+    on.global_step = 1
+    m = on.step()
+    assert np.isfinite(m["feat_loss"].item()) and "feat_loss" not in off.step()

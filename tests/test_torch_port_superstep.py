@@ -299,3 +299,20 @@ def test_graph_replays_match_eager_steps_on_the_card():
         for a, b in zip(out[1], eager[1]):
             assert (a - b).norm().item() <= 2e-2 * max(b.norm().item(), 1e-30), name
     assert tr.global_step == start[2] + 4
+
+
+@pytest.mark.cuda
+def test_fit_in_superstep_windows_from_a_fresh_trainer_on_the_card():
+    """`fit(superstep=K)` as the first thing a process trains: the first
+    window's eager step runs under the sync-debug error mode and makes the
+    step's device constants there (`core/graphsafe.const`: an asynchronous
+    copy from pinned memory, no synchronisation)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from poseprobe_tpu_torch.core import graphsafe
+    graphsafe._make.cache_clear()
+    tr = build_trainer(small=True, device="cuda")
+    tr.global_step = 1
+    hist = tr.fit(8, log_every=4, superstep=4)
+    assert tr._graphs.graph is not None and [h["step"] for h in hist] == [4, 8]
+    assert all(math.isfinite(v) for h in hist for v in h.values())
