@@ -67,6 +67,20 @@ then step 3001, past the last pg_scale doubling (the grid at 96^3), runs as a
 graph window held against eager steps, with the surface-feature term's valid
 rays counted, and is profiled (eager and graph step time, device time, busy
 share, peak memory; `profile_step.profile_phase`).
+Last, the two CLIs on that scan (`drive_cli`, in a working directory of
+its own): `python -m poseprobe_tpu_torch.run` trains `dtu_generic` at full
+width for 40 steps (pg_scale doublings at 8, 16 and 24, view 2 activated and
+the phases flipped at 12, checkpoints at 20 and 40, the test-set evaluation,
+the mesh); the checkpoint is read back and written again, timed; a trainer
+resumed from a checkpoint is held against the run without the break;
+`python -m poseprobe_tpu_torch.evaluate` evaluates the last checkpoint (with
+and without test-time optimization, the mesh from a 256^3 volume); a full
+render, a test-time optimization, the volume and the marching are timed
+apart with their launches; the synthetic run + evaluate pair gives its
+chamfer; three frames of the spiral video are rendered; and the trunk and
+trilinear kernels are held against their plain versions at the evaluation
+path's shapes (a render chunk, a test-time iteration, a volume chunk, a mesh
+colour chunk).
 With `--lookup-points FILE` it also saves the captured lookup points there
 (`torch.save`), for `tools/lookup_times.py`.
 
@@ -83,8 +97,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1196,17 +1212,32 @@ def check_path_kernels(fused_mlp, grid_ops, tr, label: str) -> dict:
         lookups = capture_lookup_points(grid_ops, tr, label)
     finally:
         fused_mlp.trunk_fwd = trunk_fwd
-    worst = dict.fromkeys(("trilinear_fwd", "trilinear_bwd", "trunk_fwd", "trunk_bwd"), 0.0)
+    if not (lookups and calls):
+        raise AssertionError(f"{label}: the step made {len(lookups)} lookups and {len(calls)} trunk calls")
+    return _hold_captured(fused_mlp, grid_ops, lookups, calls, label, lookup_bwd=True)
+
+
+def _hold_captured(fused_mlp, grid_ops, lookups: list, calls: list, label: str, lookup_bwd: bool) -> dict:
+    """Each captured lookup [(grid shape, with_grad, points, lo, hi)] on a
+    random grid of its shape, and each captured trunk call [(enc, w, b, L,
+    skip)] on its own inputs, through the kernels and their plain versions:
+    the forwards, and the backwards under random cotangents (the lookups'
+    only with `lookup_bwd`). Returns the worst max abs error by kernel."""
+    held = ("trilinear_fwd", "trilinear_bwd") if lookup_bwd else ("trilinear_fwd",)
+    worst = dict.fromkeys(held + ("trunk_fwd", "trunk_bwd"), 0.0)
     for i, (gs, wg, pts, lo, hi) in enumerate(lookups):
         g = torch.Generator(device=DEVICE).manual_seed(100 + i)
         grid = torch.randn(gs, generator=g, device=DEVICE)
         ct_v = torch.randn((pts.shape[0], gs[0]), generator=g, device=DEVICE)
         ct_g = torch.randn((pts.shape[0], gs[0], 3), generator=g, device=DEVICE) if wg else None
-        fwd = list(zip(grid_ops.trilinear_fwd(grid, pts, lo, hi, wg), grid_ops.trilinear_fwd_plain(grid, pts, lo, hi, wg)))
-        bwd = list(zip(grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, ct_g, True, True),
-                       grid_ops.trilinear_bwd_plain(grid, pts, lo, hi, ct_v, ct_g, True, True)))
+        checks = [("trilinear_fwd", list(zip(grid_ops.trilinear_fwd(grid, pts, lo, hi, wg),
+                                             grid_ops.trilinear_fwd_plain(grid, pts, lo, hi, wg))))]
+        if lookup_bwd:
+            checks.append(("trilinear_bwd", list(zip(
+                grid_ops.trilinear_bwd(grid, pts, lo, hi, ct_v, ct_g, True, True),
+                grid_ops.trilinear_bwd_plain(grid, pts, lo, hi, ct_v, ct_g, True, True)))))
         torch.cuda.synchronize()
-        for name, pairs in (("trilinear_fwd", fwd), ("trilinear_bwd", bwd)):
+        for name, pairs in checks:
             worst[name] = max([worst[name]] + [_tri_close(f"{label} lookup {i} {name} against its plain version", a, b)
                                                for a, b in pairs if a is not None])
     for i, (enc, w, b, L, skip) in enumerate(calls):
@@ -1223,23 +1254,22 @@ def check_path_kernels(fused_mlp, grid_ops, tr, label: str) -> dict:
         if not (f_rel <= REL_TOL and b_rel <= REL_TOL):
             raise AssertionError(f"{label}: trunk kernel disagrees with its plain version at N={n}")
         worst["trunk_fwd"], worst["trunk_bwd"] = max(worst["trunk_fwd"], f_abs), max(worst["trunk_bwd"], b_abs)
-    if not (lookups and calls):
-        raise AssertionError(f"{label}: the step made {len(lookups)} lookups and {len(calls)} trunk calls")
-    print(f"{label} kernels against their plain versions at the step's {len(lookups)} lookups and {len(calls)} "
+    if not (lookups or calls):
+        raise AssertionError(f"{label}: nothing was captured")
+    print(f"{label} kernels against their plain versions at {len(lookups)} lookups and {len(calls)} "
           f"trunk call(s): worst max abs err " + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
     return worst
 
 
-def drive_preset(mods: dict, trainer_mod) -> tuple[dict, dict]:
+def drive_preset(mods: dict, trainer_mod, root: str) -> tuple[dict, dict, tuple]:
     """The published `dtu_generic` preset trained from a DTU-layout dataset on
-    disk: the port's loader, matcher and feature maps, `fit()` from step 0
-    across the activation of view 2 in superstep windows, then one superstep
-    window past the last `pg_scale` doubling, where the surface-feature term
-    runs on the 96^3 grid, after the kernels are held against their plain
-    versions at that step's shapes. Returns the kernels' launch counts of
-    both runs and those checks' worst errors."""
-    import shutil
-    import tempfile
+    disk (written to `root`, where it stays for `drive_cli`): the port's
+    loader, matcher and feature maps, `fit()` from step 0 across the
+    activation of view 2 in superstep windows, then one superstep window past
+    the last `pg_scale` doubling, where the surface-feature term runs on the
+    96^3 grid, after the kernels are held against their plain versions at
+    that step's shapes. Returns the kernels' launch counts of both runs,
+    those checks' worst errors, and (config, data, the rendered scene)."""
     from poseprobe_tpu_torch.config.presets import dtu_generic
     from poseprobe_tpu_torch.data import loaders, synthetic
     from poseprobe_tpu_torch.eval.vgg_features import get_multi_features
@@ -1256,22 +1286,17 @@ def drive_preset(mods: dict, trainer_mod) -> tuple[dict, dict]:
         grid_ops.fwd_launches = grid_ops.bwd_launches = 0
 
     H, W = PRESET_HW
-    tmp = tempfile.mkdtemp(prefix="poseprobe_preset_")
-    try:
-        root = os.path.join(tmp, "DTU", "scan_fixture")     # its masks go to .../idrmasks/scan_fixture
-        t0 = time.perf_counter()
-        scene, on_disk = _dtu_fixture(synthetic, H, W)
-        t_render = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        write_dtu(root, on_disk)
-        t_write = time.perf_counter() - t0
-        cfg = dtu_generic.get_config(datadir=root, selected_id=(1, 2, 3))
-        cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, incremental_step=12))
-        t0 = time.perf_counter()
-        data = loaders.load_dtu(cfg.data)
-        t_load = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    scene, on_disk = _dtu_fixture(synthetic, H, W)
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_dtu(root, on_disk)
+    t_write = time.perf_counter() - t0
+    cfg = dtu_generic.get_config(datadir=root, selected_id=(1, 2, 3))
+    cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, incremental_step=12))
+    t0 = time.perf_counter()
+    data = loaders.load_dtu(cfg.data)
+    t_load = time.perf_counter() - t0
     # matching and feature maps timed apart, each called once more on the loaded views
     t0 = time.perf_counter()
     matching.build_match_packs(data.images, data.masks, data.i_train, data.pair_j, max_matcher=cfg.data.max_matcher)
@@ -1370,7 +1395,300 @@ def drive_preset(mods: dict, trainer_mod) -> tuple[dict, dict]:
     print(json.dumps({k: v for k, v in prof.items() if k not in ("eager", "graph")}
                      | {m: {k: v for k, v in prof[m].items() if k not in ("top", "top_host_ops")}
                         for m in ("eager", "graph")}))
-    return {"preset": fit_counts, "preset_graph": graph}, errs
+    return {"preset": fit_counts, "preset_graph": graph}, errs, (cfg, data, scene)
+
+
+# The CLI phase: the training run's flags (full width; depth cut to 40 steps with the schedule
+# resolved against them, pg_scale's doublings moved to steps 8, 16 and 24 and the view
+# activation to step 12, so that the run crosses all of them), the resume check's steps and the
+# video's frames (the CLI renders 40-60)
+CLI_FLAGS = ["--steps", "40", "--pg_scale", "8,16,24", "--incremental_step", "12", "--superstep", "4",
+             "--i_ckpt", "20", "--i_print", "4"]
+RESUME_AT, RESUME_STEPS = 13, 16
+VIDEO_FRAMES = 3
+EVAL_RES = 256                         # the evaluation CLI's volume
+# `dtu_generic` on the fixture scan's views: the preset's own train views (22, 25, 28) are not in a
+# four-view scan, and the CLIs take the view selection from the preset, as the reference's do
+FIXTURE_PRESET = """from poseprobe_tpu_torch.config.presets import dtu_generic
+
+
+def get_config(datadir: str = "", scan_id: int = 2):
+    return dtu_generic.get_config(datadir=datadir, scan_id=scan_id, selected_id=(1, 2, 3))
+"""
+
+
+def check_eval_kernels(fused_mlp, grid_ops, tr, data) -> dict:
+    """The trunk and trilinear kernels against their plain versions at the
+    evaluation path's shapes, on `tr`'s state: each trunk call of one
+    `render_full` chunk (4096 rays: a 64x64 image is one chunk) and of one
+    test-time iteration (1024 rays; the backward under random cotangents),
+    the trilinear value at one `extract_sdf_volume` chunk (65,536 points) and
+    the lookups of one `mesh_color_forward` chunk (65,536 vertices: the SDF's
+    value+grad and the k0 value). Returns the worst max abs error by kernel."""
+    from poseprobe_tpu_torch.eval import evaluator
+    from poseprobe_tpu_torch.models import object_sdf
+    calls, lookups, saved = [], [], (fused_mlp.trunk_fwd, grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad)
+
+    def watch_trunk(enc, w, b, L, skip, store_acts=True):
+        calls.append((enc.detach().clone(), w.detach().clone(), b.detach().clone(), L, skip))
+        return saved[0](enc, w, b, L, skip, store_acts)
+
+    def watch_lookup(fn, with_grad):
+        def call(grid, xyz, lo, hi):
+            if xyz.reshape(-1, 3).shape[0] == 65536:
+                lookups.append((tuple(grid.shape), with_grad, xyz.detach().reshape(-1, 3).clone(),
+                                torch.as_tensor(lo, device=DEVICE).float(), torch.as_tensor(hi, device=DEVICE).float()))
+            return fn(grid, xyz, lo, hi)
+        return call
+
+    sm, om, i = tr.cfg.scene_model, tr.cfg.object_model, int(data.i_test[0])
+    progress = min(tr.global_step / sm.max_iter, 1.0)
+    pose = tr.current_pose_host()[0]
+    fused_mlp.trunk_fwd = watch_trunk
+    grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = watch_lookup(saved[1], False), watch_lookup(saved[2], True)
+    try:
+        evaluator.render_full(tr.scene_params, sm, pose, data.Ks[i], 64, 64, (data.near, data.far), progress=progress)
+        n_render = len(calls)
+        evaluator.test_time_pose_optim(tr.scene_params, sm, pose, data.Ks[i], data.images[i], (data.near, data.far),
+                                       n_iters=1, progress=progress)
+        object_sdf.extract_sdf_volume(tr.obj_params, om, resolution=41)          # 68,921 points: one full chunk
+        verts = torch.rand((65536, 3), generator=torch.Generator().manual_seed(0)).numpy() * 0.6 - 0.3
+        object_sdf.mesh_color_forward(tr.obj_params, om, verts)
+    finally:
+        fused_mlp.trunk_fwd, grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = saved
+    torch.cuda.synchronize()
+    print(f"eval path captured: render_full chunk trunk calls N={[c[0].shape[0] for c in calls[:n_render]]}, test-time "
+          f"iteration trunk calls N={[c[0].shape[0] for c in calls[n_render:]]}, lookups "
+          + ", ".join(f"grid {list(gs)}{' value+grad' if wg else ''}: {p.shape[0]} points" for gs, wg, p, _, _ in lookups))
+    if not (n_render and len(calls) > n_render and len(lookups) == 3):
+        raise AssertionError(f"the eval path made {n_render} / {len(calls) - n_render} trunk calls and "
+                             f"{len(lookups)} lookups of a chunk")
+    return _hold_captured(fused_mlp, grid_ops, lookups, calls, "eval", lookup_bwd=False)
+
+
+def _check_resume(trainer_mod, state_mod, cfg, data, path: str) -> dict:
+    """Fit a trainer A from step 0 to RESUME_AT in superstep windows (across
+    the doubling at 8 and the activation at 12) and save it; load the file into
+    fresh trainers B and C. Held: B's state right after the load is A's at the
+    save, bit for bit (every state tensor, the generator's state, the step, the
+    views, the voxel count, the mask-cache budgets); the steps up to the next
+    doubling (RESUME_AT to 16) agree between A and B as a graph window agrees
+    with eager steps in `check_superstep` (losses within GRAPH_LOSS_RTOL, each
+    parameter within REL_TOL in the L2 norm relative to its own). Then all
+    three run on to RESUME_AT + RESUME_STEPS across the doublings at 16 and 24,
+    where Adam restarts and normalises each element's first step, so that the
+    atomics' run-dependent order of summation moves near-cancelling elements
+    by up to 2 lr either way: A against B (the resume) is held to what B
+    against C (two runs from one state) shows, times 3, or REL_TOL."""
+    from poseprobe_tpu_torch.core.tree import tree_leaves
+    first = min(s for s in cfg.object_train.pg_scale + (RESUME_AT + RESUME_STEPS,) if s > RESUME_AT)
+
+    def trainer(restored: bool):
+        tr = trainer_mod.JointTrainer(cfg, data, device=DEVICE)
+        if restored:
+            state_mod.restore_state(tr, state_mod.load_checkpoint(path))
+        return tr
+
+    def host(tr):
+        return (tr.global_step, tr.n_active, tr.cfg, tr._mask_k, tr._k_phase, bytes(tr.generator.get_state().numpy()))
+
+    def params(tr):
+        return [t.clone() for n in tr.GROUPS for t in tree_leaves(getattr(tr, f"{n}_params"))]
+
+    def rel_l2(pa, pb):
+        return max(float((x - y).norm()) / max(float(y.norm()), 1e-30) for x, y in zip(pa, pb))
+
+    def run(tr, n):
+        start = tr.global_step
+        hist = tr.fit(n, log_every=SUPERSTEP, superstep=SUPERSTEP)
+        torch.cuda.synchronize()
+        return {h["step"]: h["loss_total"] for h in hist if h["step"] > start}, params(tr)
+
+    def loss_rel(la, lb):
+        return max(abs(la[k] - lb[k]) / abs(la[k]) for k in la if k in lb)
+
+    a = trainer(False)
+    a.fit(RESUME_AT, log_every=SUPERSTEP, superstep=SUPERSTEP)
+    state_mod.save_checkpoint(path, a, extras=a.host_extras())
+    saved = ([t.clone() for t in a.state_tensors()], host(a))
+    b = trainer(True)
+    loaded = b.state_tensors()
+    if not (host(b) == saved[1] and len(loaded) == len(saved[0])
+            and all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y) for x, y in zip(loaded, saved[0]))):
+        raise AssertionError("resume: the loaded state is not the saved state bit for bit")
+    (la, pa), (lb, pb) = run(a, first - RESUME_AT), run(b, first - RESUME_AT)
+    early = (loss_rel(la, lb), rel_l2(pb, pa))
+    c = trainer(True)
+    rest = RESUME_AT + RESUME_STEPS - first
+    (la, pa), (lb, pb), (lc, pc) = run(a, rest), run(b, rest), run(c, first - RESUME_AT + rest)
+    late = {"resume_loss_rel": loss_rel(la, lb), "resume_param_rel_l2": rel_l2(pb, pa),
+            "rerun_loss_rel": loss_rel(lc, lb), "rerun_param_rel_l2": rel_l2(pc, pb)}
+    out = {"saved_at": RESUME_AT, "state_bit_equal": True, "to_step": first, "loss_rel": early[0],
+           "param_rel_l2": early[1], "then_to_step": RESUME_AT + RESUME_STEPS, **late,
+           "host_equal": host(a) == host(b) == host(c), "num_voxels": a.cfg.object_model.num_voxels}
+    print("resume through a checkpoint against the run without the break: " + json.dumps(out))
+    if not (early[0] <= GRAPH_LOSS_RTOL and early[1] <= REL_TOL and out["host_equal"]
+            and late["resume_param_rel_l2"] <= max(REL_TOL, 3 * late["rerun_param_rel_l2"])
+            and late["resume_loss_rel"] <= max(GRAPH_LOSS_RTOL, 3 * late["rerun_loss_rel"])):
+        raise AssertionError("the resumed run disagrees with the run without the break")
+    return out
+
+
+def drive_cli(mods: dict, trainer_mod, root: str, preset: tuple) -> tuple[dict, dict]:
+    """The two CLIs on `drive_preset`'s scan, in a working directory of their
+    own: `run` trains `dtu_generic` (through a preset file that selects the
+    scan's views) at full width for 40 steps across three doublings, the
+    activation of view 2 and the phase flips at step 12, writing checkpoints,
+    the test-set evaluation and the mesh; the checkpoint's size and its write
+    and read times; a resume through a checkpoint against the run without the
+    break; `evaluate` on the run's last checkpoint (with and without
+    test-time optimization, the mesh from a 256^3 volume); a full render, a
+    test-time optimization, the 256^3 volume and the marching timed apart,
+    with their launches; the synthetic pair (`run --synthetic --steps 20`,
+    `evaluate --synthetic --eval_mesh` with its chamfer, on one test view);
+    VIDEO_FRAMES frames
+    of the spiral video at 1600x1200; the kernels held at the eval path's
+    shapes. Returns the launches by part and the kernel checks' worst errors."""
+    from poseprobe_tpu_torch import evaluate as evaluate_cli, run as run_cli
+    from poseprobe_tpu_torch.eval import evaluator, mesh as mesh_mod, video as video_mod
+    from poseprobe_tpu_torch.models import object_sdf
+    from poseprobe_tpu_torch.pose_init import matching
+    from poseprobe_tpu_torch.train import state as state_mod
+    fused_mlp, grid_ops = mods["fused_mlp"], mods["grid"]
+    _, data, _ = preset
+
+    def counts():
+        return {"trunk_fwd": fused_mlp.fwd_launches, "trunk_bwd": fused_mlp.bwd_launches,
+                "trilinear_fwd": grid_ops.fwd_launches, "trilinear_bwd": grid_ops.bwd_launches}
+
+    def reset():
+        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+        grid_ops.fwd_launches = grid_ops.bwd_launches = 0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts()
+
+    work = os.path.join(os.path.dirname(os.path.dirname(root)), "cli")
+    os.makedirs(work)
+    preset_file = os.path.join(work, "dtu_fixture_views.py")
+    with open(preset_file, "w") as f:
+        f.write(FIXTURE_PRESET)
+    flags = ["--config", preset_file, "--datadir", root]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        print(f"cli: matching {'OpenCV SIFT' if matching._HAS_CV2 else 'none (no OpenCV: empty match packs)'}")
+        _, run_s, run_counts = timed(lambda: run_cli.main(flags + CLI_FLAGS + ["--render_test", "--export_mesh"]))
+        args = run_cli.build_parser().parse_args(flags + CLI_FLAGS)
+        cfg = run_cli.apply_overrides(run_cli.load_config(args), args)
+        out_dir = os.path.join(work, cfg.basedir, cfg.expname)
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        ms = [(b["wall"] - a["wall"]) / (b["step"] - a["step"]) * 1e3 for a, b in zip(rows, rows[1:])]
+        with open(os.path.join(out_dir, f"{cfg.expname}.json")) as f:
+            test_res = json.load(f)
+        print(f"cli run: 40 steps in {run_s:.2f} s wall in all (data load, trainer build, fit, 3 checkpoints, the "
+              f"test-set evaluation, the 128^3 mesh); ms/step between logs (4 steps each, host events "
+              f"included): {[round(x, 1) for x in ms]}; launches {run_counts}; test set: "
+              + json.dumps({k: test_res[k] for k in ("psnr", "ssim", "rot_error", "trans_error")}))
+        ckpt = os.path.join(out_dir, "last_ckpt.pkl")
+        if not ([r["step"] for r in rows] == list(range(4, 41, 4)) and rows[-1]["n_active"] == 3
+                and all(math.isfinite(r["loss_total"]) for r in rows)
+                and os.path.exists(os.path.join(out_dir, "meshes", "deform_final.ply")) and os.path.exists(ckpt)
+                and min(run_counts.values()) > 0):
+            raise AssertionError(f"the CLI run did not log 40 steps with view 2 active and write its outputs: {rows}")
+
+        # the checkpoint: read into a trainer of the run's config, then written again
+        tr = trainer_mod.JointTrainer(cfg, data, device=DEVICE)
+        (_, read_s, _) = timed(lambda: state_mod.restore_state(tr, state_mod.load_checkpoint(ckpt)))
+        again = os.path.join(work, "again.npz")
+        (_, write_s, _) = timed(lambda: state_mod.save_checkpoint(again, tr, extras=tr.host_extras()))
+        print(f"checkpoint: {os.path.getsize(ckpt)} bytes, read and restored in {read_s:.3f} s, written in "
+              f"{write_s:.3f} s ({os.path.getsize(again)} bytes); restored step {tr.global_step}, grid "
+              f"{tr.cfg.object_model.world_size}")
+        if not (tr.global_step == 40 and tr.cfg.object_model.num_voxels == tr._final_num_voxels):
+            raise AssertionError("the restored trainer is not at step 40 with the full grid")
+        resume = _check_resume(trainer_mod, state_mod, cfg, data, os.path.join(work, "resume.npz"))
+
+        # the evaluation CLI on the run's last checkpoint
+        _, eval_s, eval_counts = timed(lambda: evaluate_cli.main(flags + ["--ckpt", ckpt, "--eval_mesh"]))
+        with open(os.path.join(out_dir, "eval", f"{cfg.expname}.json")) as f:
+            ev = json.load(f)
+        print(f"cli evaluate: {eval_s:.2f} s; launches {eval_counts}; " + json.dumps(
+            {m: {k: ev[m][k] for k in ("psnr", "ssim", "rot_error", "trans_error")}
+             for m in ("w_test_optim", "without_test_optim")} | {"iteration": ev["iteration"]}))
+        if not (ev["iteration"] == 40 and eval_counts["trunk_fwd"] > 0 and eval_counts["trunk_bwd"] > 0
+                and eval_counts["trilinear_fwd"] > 0 and os.path.exists(os.path.join(out_dir, "eval", "mesh.ply"))):
+            raise AssertionError(f"the evaluation CLI did not run through the kernels or write its mesh: {eval_counts}")
+
+        # its parts, timed apart on the restored trainer
+        sm, om, i = tr.cfg.scene_model, tr.cfg.object_model, int(data.i_test[0])
+        progress = min(tr.global_step / sm.max_iter, 1.0)
+        cur = tr.current_pose_host()
+        _, sim3 = evaluator.align_train_poses(cur, data.poses_gt_w2c[data.i_train])
+        from poseprobe_tpu_torch.core import align
+        pose = align.backtrack_from_aligning_the_trajectory(data.poses_gt_w2c[i:i + 1], sim3)[0]
+        rng = (data.near, data.far)
+        out, render_s, render_counts = timed(lambda: evaluator.render_full(
+            tr.scene_params, sm, pose, data.Ks[i], data.H, data.W, rng, progress=progress))
+        _, tto_s, tto_counts = timed(lambda: evaluator.test_time_pose_optim(
+            tr.scene_params, sm, pose, data.Ks[i], data.images[i], rng, n_iters=tr.cfg.scene_train.test_iter,
+            progress=progress))
+        vol, vol_s, vol_counts = timed(lambda: object_sdf.extract_sdf_volume(tr.obj_params, om, resolution=EVAL_RES))
+        t0 = time.perf_counter()
+        verts, tris = mesh_mod.extract_mesh_world(vol, om.xyz_min_np, om.xyz_max_np, scale_mat=data.scale_mats)
+        march_s = time.perf_counter() - t0
+        parts = {"render_full": render_counts, "test_time_optim": tto_counts, "sdf_volume": vol_counts}
+        print(f"eval parts: full render {data.H}x{data.W} {render_s:.3f} s (launches {render_counts}); test-time "
+              f"optimization ({tr.cfg.scene_train.test_iter} iterations of 1024 rays) {tto_s:.3f} s (launches "
+              f"{tto_counts}); the {EVAL_RES}^3 volume {vol_s:.3f} s (launches {vol_counts}); marching tetrahedra "
+              f"({mesh_mod.native_path()}) {march_s:.3f} s: {len(verts)} vertices, {len(tris)} triangles")
+        # device time of one unit of each (torch.profiler), and the share of the host seconds above it fills
+        n_chunks = -(-data.H * data.W // 4096)
+        units = {
+            "render_full chunk (4096 rays)": (lambda: evaluator.render_full(
+                tr.scene_params, sm, pose, data.Ks[i], 64, 64, rng, progress=progress), n_chunks, render_s),
+            "test-time iteration (1024 rays)": (lambda: evaluator.test_time_pose_optim(
+                tr.scene_params, sm, pose, data.Ks[i], data.images[i], rng, n_iters=1, progress=progress),
+                tr.cfg.scene_train.test_iter, tto_s),
+            "40^3 volume (64,000 points, one chunk)": (lambda: object_sdf.extract_sdf_volume(
+                tr.obj_params, om, resolution=40), EVAL_RES ** 3 / 40 ** 3, vol_s)}
+        for name, (fn, n, host_s) in units.items():
+            ms, n_events, _ = _device_profile(fn, iters=5)
+            print(f"eval device time: {name} {ms:.3f} ms in {n_events:.0f} device events; x{n:g} = "
+                  f"{ms * n / 1e3:.3f} s of the call's {host_s:.3f} s host seconds ({ms * n / 1e3 / host_s:.1%} busy)")
+        if not (render_counts["trunk_fwd"] > 0 and tto_counts["trunk_bwd"] >= tr.cfg.scene_train.test_iter
+                and vol_counts["trilinear_fwd"] == -(-EVAL_RES ** 3 // 65536) and torch.isfinite(out["rgb"]).all()):
+            raise AssertionError(f"an eval part did not launch its kernels: {parts}")
+
+        # the synthetic pair
+        _, syn_s, _ = timed(lambda: run_cli.main(["--synthetic", "--steps", "20", "--n_test", "1"]))
+        syn_ckpt = os.path.join(work, "logs", "synthetic", "last_ckpt.pkl")
+        _, syn_eval_s, _ = timed(lambda: evaluate_cli.main(["--synthetic", "--n_test", "1", "--ckpt", syn_ckpt,
+                                                            "--eval_mesh"]))
+        with open(os.path.join(work, "logs", "synthetic", "eval", "chamfer.json")) as f:
+            chamfer = json.load(f)
+        print(f"synthetic pair: run 20 steps {syn_s:.2f} s, evaluate {syn_eval_s:.2f} s; chamfer.json "
+              + json.dumps(chamfer))
+        if not ({"d2s", "s2d", "overall"} <= set(chamfer) or chamfer.get("error") == "empty mesh"):
+            raise AssertionError(f"the synthetic evaluation wrote no chamfer: {chamfer}")
+
+        # the video, VIDEO_FRAMES frames of the CLI's spiral
+        poses = run_cli.spiral_w2c(cur, 60)[:VIDEO_FRAMES]
+        written, video_s, _ = timed(lambda: video_mod.render_video(
+            tr.scene_params, sm, poses, data.Ks[data.i_train[0]], data.H, data.W, rng,
+            os.path.join(work, "video", "spiral_rgb.mp4"), depth_out_path=os.path.join(work, "video", "spiral_depth.mp4")))
+        print(f"video: {VIDEO_FRAMES} frames at {data.H}x{data.W} in {video_s:.2f} s, {video_s / VIDEO_FRAMES:.3f} "
+              f"s per frame (rgb and coloured depth), written to {os.path.relpath(written, work)}")
+        errs = check_eval_kernels(fused_mlp, grid_ops, tr, data)
+    finally:
+        os.chdir(cwd)
+    return {"cli": run_counts, "cli_eval": eval_counts, **{f"eval_{k}": v for k, v in parts.items()}}, errs
 
 
 def main(argv=None) -> int:
@@ -1421,14 +1739,24 @@ def main(argv=None) -> int:
     by_phase.update(drive_slice(fused_mlp, trainer_mod))
     by_phase.update(drive_fit({"fused_mlp": fused_mlp, "grid": grid_ops, "layout": layout,
                                "fused_composite": fused_composite}, trainer_mod))
-    t0 = time.perf_counter()
-    preset_counts, preset_errs = drive_preset({"fused_mlp": fused_mlp, "grid": grid_ops}, trainer_mod)
-    by_phase.update(preset_counts)
-    preset_s = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="poseprobe_smoke_")
+    try:
+        root = os.path.join(work, "DTU", "scan_fixture")     # its masks go to .../idrmasks/scan_fixture
+        t0 = time.perf_counter()
+        preset_counts, preset_errs, preset = drive_preset({"fused_mlp": fused_mlp, "grid": grid_ops}, trainer_mod, root)
+        by_phase.update(preset_counts)
+        preset_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_counts, cli_errs = drive_cli({"fused_mlp": fused_mlp, "grid": grid_ops}, trainer_mod, root, preset)
+        by_phase.update(cli_counts)
+        cli_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     for rec in records:
-        if rec["name"] in preset_errs:
-            rec["preset_max_abs_err"] = preset_errs[rec["name"]]
-            rec["max_abs_err"] = max(rec["max_abs_err"], preset_errs[rec["name"]])
+        for tag, errs in (("preset", preset_errs), ("cli", cli_errs)):
+            if rec["name"] in errs:
+                rec[f"{tag}_max_abs_err"] = errs[rec["name"]]
+                rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]])
         rec["launches_by_phase"] = {ph: c[rec["name"]] for ph, c in by_phase.items() if rec["name"] in c}
         rec["launches"] = sum(rec["launches_by_phase"].values())
         if rec["launches"] == 0 and rec["name"] not in OFF_PATH:
@@ -1437,7 +1765,8 @@ def main(argv=None) -> int:
         torch.save({label: [(gs, wg, p.cpu(), lo.cpu(), hi.cpu()) for gs, wg, p, lo, hi in sets]
                     for label, sets in CAPTURED.items()}, args.lookup_points)
         print(f"lookup points saved to {args.lookup_points}")
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the preset phase {preset_s:.1f} s of it")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the preset phase {preset_s:.1f} s and the "
+          f"cli phase {cli_s:.1f} s of it")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -20,12 +20,18 @@ published presets train from data on disk: the full configuration and its
 presets (`config/`), the six dataset loaders with their PNG reader and the
 classical matcher (`data/loaders.py`, `data/png.py`, `pose_init/matching.py`),
 and the surface-feature loss with its feature maps and the image metrics
-(`losses/projection.py`, `eval/vgg_features.py`, `eval/metrics.py`). Still
-raising `NotImplementedError`: depth consistency from fresh pixels, the
-TensoRF feature grid, and the SuperGlue matcher. Full evaluation, checkpoints
-and the CLIs are later slices (`ROADMAP.md`). OpenCV is optional: without it
-PnP runs a numpy RANSAC, the BA polish and the match refinement decline, and
-the classical matcher returns empty packs.
+(`losses/projection.py`, `eval/vgg_features.py`, `eval/metrics.py`). After
+training: checkpoints in the JAX package's format v2 (`train/state.py`, the
+trainer's `host_extras`), the full test-set evaluation
+(`eval/evaluator.evaluate_full`), mesh export (`models/object_sdf`'s
+`extract_sdf_volume` / `mesh_color_forward`, `eval/mesh.py` over the native
+library `native/mesh_native.cpp`, `eval/dtu_protocol.py`), video export
+(`eval/video.py`, `eval/turbo.py`), `utils/`, and the two CLIs
+(`python -m poseprobe_tpu_torch.run`, `python -m poseprobe_tpu_torch.evaluate`).
+Still raising `NotImplementedError`: depth consistency from fresh pixels, the
+TensoRF feature grid, and the SuperGlue matcher (`ROADMAP.md`). OpenCV is
+optional: without it PnP runs a numpy RANSAC, the BA polish and the match
+refinement decline, and the classical matcher returns empty packs.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``. On a CUDA tensor each hand-written kernel launches (or the

@@ -8,13 +8,19 @@ is recognised by its fields: the optax chain's `ScaleByAdamState` has
 object optimizer's `multi_transform` state holds one such chain per label
 under `inner_states[label].inner_state`, its moments shaped like the whole
 param tree with the other labels' leaves masked out.
+
+The same map, between the port's states and the keypath strings
+(`jax.tree_util.keystr`) under which a JAX checkpoint file stores each leaf,
+is `keyed_leaves`, `adam_entries` / `object_adam_entries` and their inverses
+`adam_state_from_entries` / `object_adam_state_from_entries`; `train/state.py`
+reads and writes the files with them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.tree import tree_map
+from .core.tree import tree_map, tree_unflatten
 from .train.optim import _OBJECT_MODULES
 
 
@@ -124,3 +130,91 @@ def load_trainer_state(trainer, state, mask_arr=None, mask_k=None, k_phase=None)
         trainer._mask_k = None if mask_k is None else int(mask_k)
         if k_phase is not None:
             trainer._k_phase = int(k_phase)
+
+
+# ------------------------------------------------ checkpoint-file keypaths
+
+
+def keyed_leaves(tree, prefix: str = "") -> list:
+    """[(keypath, leaf)] of a nested dict/list tree in `jax.tree` order, with
+    the path as `jax.tree_util.keystr` writes it: ``['key']`` for a dict key,
+    ``[i]`` for a list index."""
+    if isinstance(tree, dict):
+        return [e for k in sorted(tree) for e in keyed_leaves(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [e for i, v in enumerate(tree) for e in keyed_leaves(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def _count_np(count) -> np.ndarray:
+    """An optimizer count as the JAX file holds it (int32, 0-dim)."""
+    return np.asarray(int(count), np.int32)
+
+
+def adam_entries(state: dict | None, adam_index: int, prefix: str = "") -> list:
+    """The port's {count, mu, nu} as the leaves of an optax chain whose
+    `scale_by_adam` is element `adam_index` and whose schedule follows it:
+    ``[a].count``, ``[a].mu...``, ``[a].nu...``, ``[a+1].count``. [] for no
+    state (the chain is `set_to_zero`)."""
+    if state is None:
+        return []
+    a, count = adam_index, _count_np(state["count"])
+    return ([(f"{prefix}[{a}].count", count)]
+            + [(f"{prefix}[{a}].mu{p}", leaf_to_numpy(v)) for p, v in keyed_leaves(state["mu"])]
+            + [(f"{prefix}[{a}].nu{p}", leaf_to_numpy(v)) for p, v in keyed_leaves(state["nu"])]
+            + [(f"{prefix}[{a + 1}].count", count)])
+
+
+def object_adam_entries(state: dict | None) -> list:
+    """The port's `ObjectOptimizer` state as the leaves of the reference's
+    `multi_transform` state: per trainable module, in the order of its label,
+    ``.inner_states['<label>'].inner_state[0|1]...`` holding that module's
+    moments only."""
+    if state is None:
+        return []
+    out = []
+    for key in sorted(state["mu"], key=_OBJECT_MODULES.__getitem__):
+        sub = {"count": state["count"], "mu": {key: state["mu"][key]}, "nu": {key: state["nu"][key]}}
+        out += adam_entries(sub, 0, f".inner_states[{_OBJECT_MODULES[key]!r}].inner_state")
+    return out
+
+
+def leaf_to_numpy(t) -> np.ndarray:
+    """A tensor or array leaf as a numpy array."""
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _counts_agree(arrays: dict, what: str) -> int:
+    counts = {int(v) for p, v in arrays.items() if p.endswith(".count")}
+    if len(counts) != 1:
+        raise ValueError(f"{what}: optimizer counts differ or are missing: {sorted(counts)}")
+    return counts.pop()
+
+
+def adam_state_from_entries(arrays: dict, template: dict | None, adam_index: int, device,
+                            prefix: str = "") -> dict | None:
+    """Inverse of `adam_entries`: `arrays` maps keypaths to arrays, `template`
+    is a state of the same structure (its shapes are not used)."""
+    if template is None:
+        return None
+    a = adam_index
+
+    def tree(moment):
+        return tree_unflatten(template[moment], [
+            torch.as_tensor(np.array(arrays[f"{prefix}[{a}].{moment}{p}"], dtype=np.float32), device=device)
+            for p, _ in keyed_leaves(template[moment])])
+    return {"count": _count(_counts_agree(arrays, "optimizer"), device), "mu": tree("mu"), "nu": tree("nu")}
+
+
+def object_adam_state_from_entries(arrays: dict, template: dict | None, device) -> dict | None:
+    """Inverse of `object_adam_entries`; one count, which every module's must equal."""
+    if template is None:
+        return None
+    count = _counts_agree(arrays, "object optimizer")
+    mu, nu = {}, {}
+    for key in template["mu"]:
+        sub = {"count": 0, "mu": {key: template["mu"][key]}, "nu": {key: template["nu"][key]}}
+        one = adam_state_from_entries(arrays, sub, 0, device,
+                                      f".inner_states[{_OBJECT_MODULES[key]!r}].inner_state")
+        mu[key], nu[key] = one["mu"][key], one["nu"][key]
+    return {"count": _count(count, device), "mu": mu, "nu": nu}

@@ -28,6 +28,24 @@ def compose_pair(pose_a: torch.Tensor, pose_b: torch.Tensor) -> torch.Tensor:
     return make(R_b @ R_a, (R_b @ t_a + t_b)[..., 0])
 
 
+def compose(pose_list) -> torch.Tensor:
+    """pose_new(x) = poseN o ... o pose2 o pose1(x)."""
+    pose_new = pose_list[0]
+    for pose in pose_list[1:]:
+        pose_new = compose_pair(pose_new, pose)
+    return pose_new
+
+
+def angle_to_rotation_matrix(a: torch.Tensor, axis: str) -> torch.Tensor:
+    """[...] Euler angles about `axis` ("X", "Y" or "Z") -> [..., 3, 3] rotations."""
+    roll = dict(X=1, Y=2, Z=0)[axis]
+    zeros, ones = torch.zeros_like(a), torch.ones_like(a)
+    M = torch.stack([torch.stack([torch.cos(a), -torch.sin(a), zeros], dim=-1),
+                     torch.stack([torch.sin(a), torch.cos(a), zeros], dim=-1),
+                     torch.stack([zeros, zeros, ones], dim=-1)], dim=-2)
+    return torch.roll(M, shifts=(roll, roll), dims=(-2, -1))
+
+
 def pad(pose: torch.Tensor) -> torch.Tensor:
     """[..., 3, 4] -> [..., 4, 4] with homogeneous bottom row."""
     bottom = const((0.0, 0.0, 0.0, 1.0), pose.dtype, pose.device).expand(pose[..., :1, :4].shape)

@@ -12,6 +12,20 @@ import torch
 from . import pose as pose_ops
 
 
+def get_rays(H: int, W: int, K: torch.Tensor, c2w: torch.Tensor, inverse_y: bool):
+    """Per-pixel object-branch rays through pixel centres: (rays_o, rays_d),
+    each [H, W, 3]; the directions are not normalised."""
+    i, j = torch.meshgrid(torch.arange(W, dtype=torch.float32, device=K.device) + 0.5,
+                          torch.arange(H, dtype=torch.float32, device=K.device) + 0.5, indexing="xy")
+    x, y = (i - K[0][2]) / K[0][0], (j - K[1][2]) / K[1][1]
+    if inverse_y:
+        dirs = torch.stack([x, y, torch.ones_like(i)], -1)
+    else:
+        dirs = torch.stack([x, -y, -torch.ones_like(i)], -1)
+    rays_d = torch.einsum("hwc,rc->hwr", dirs, c2w[:3, :3])
+    return c2w[:3, 3].expand(rays_d.shape), rays_d
+
+
 def get_ray_dir(points: torch.Tensor, K: torch.Tensor, c2w: torch.Tensor, inverse_y: bool,
                 mode: str = "center"):
     """Rays through 2D pixel coords (the object branch's reprojection path).

@@ -1,11 +1,14 @@
-"""A PNG reader on zlib and numpy, and the image reader the loaders use.
+"""A PNG reader and writer on zlib and numpy, and the image reader the loaders use.
 
 `read_png` decodes the PNGs that the datasets hold: bit depth 8 or 16; grey,
 grey + alpha, RGB or RGBA; not interlaced; any of the five row filters. It
 returns what `imageio.imread` returns for them: uint8 or uint16 pixels,
 [H, W] for grey and [H, W, C] otherwise. `imread` reads a PNG through it on
 every machine, and any other format (the JPEGs of the custom and Replica
-layouts) through imageio or PIL where one is installed.
+layouts) through imageio or PIL where one is installed. `write_png` writes
+8- or 16-bit grey, grey + alpha, RGB or RGBA pixels, every row unfiltered:
+the evaluation panels, the video frames and the test fixtures go through it,
+since the machine with the card has neither imageio nor PIL.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}        # colour type -> channels
+_COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
 
 
 def read_png(path: str) -> np.ndarray:
@@ -90,6 +94,36 @@ def _unfilter(ftype: np.ndarray, rows: np.ndarray) -> np.ndarray:
                                                                 np.where(f == 4, paeth, 0))))
         pad[r + 1, i + 1] = (x[r, i] + pred) & 255
     return pad[1:, 1:].astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray, level: int = 1) -> bytes:
+    """A PNG of uint8 or uint16 pixels, [H, W] or [H, W, C] with C in 1-4,
+    every row with filter None."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"PNG pixels are uint8 or uint16, not {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[2] not in _COLOUR_TYPE:
+        raise ValueError(f"PNG pixels are [H, W] or [H, W, C] with C in 1-4, not {img.shape}")
+    H, W, C = img.shape
+    depth = 8 * img.dtype.itemsize
+    body = img.astype(">u2").view(np.uint8) if depth == 16 else img
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), body.reshape(H, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", W, H, depth, _COLOUR_TYPE[C], 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 1) -> None:
+    """Write `img` (see `encode_png`) to `path` as a PNG file."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img, level))
 
 
 def imread(path: str) -> np.ndarray:

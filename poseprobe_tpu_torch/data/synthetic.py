@@ -43,6 +43,29 @@ def _probe_sdf(p: np.ndarray, half: float, probe: str) -> np.ndarray:
     raise ValueError(f"unknown probe shape: {probe!r}")
 
 
+def probe_surface_points(n: int = 200_000, half: float = 0.35, probe: str = "cube",
+                         seed: int = 0) -> np.ndarray:
+    """Uniform-area samples [n, 3] of the GT probe surface in world
+    coordinates: the synthetic scene's analytic "scan", against which
+    `evaluate.py --eval_mesh` scores the extracted object mesh."""
+    rng = np.random.default_rng(seed)
+    if probe == "sphere":
+        v = rng.normal(size=(n, 3))
+        v /= np.linalg.norm(v, axis=-1, keepdims=True)
+        return (v * half).astype(np.float64)
+    if probe == "cube":
+        face = rng.integers(0, 6, n)
+        uv = rng.uniform(-half, half, (n, 2))
+        ax, sg = face // 2, (face % 2) * 2.0 - 1.0
+        pts = np.zeros((n, 3))
+        rows = np.arange(n)
+        pts[rows, ax] = sg * half
+        other = np.array([[a for a in range(3) if a != x] for x in range(3)])
+        pts[rows, other[ax, 0]] = uv[:, 0]
+        pts[rows, other[ax, 1]] = uv[:, 1]
+        return pts
+    raise ValueError(f"unknown probe shape: {probe!r}")
+
 def _value_noise(u: np.ndarray, v: np.ndarray, seed: float = 0.0,
                  octaves: int = 3, base_freq: float = 6.0) -> np.ndarray:
     """Deterministic smooth value noise in [0, 1], a pure function of (u, v).

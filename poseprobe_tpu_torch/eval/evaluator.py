@@ -1,27 +1,38 @@
-"""Pose alignment, test-time pose optimization, the fixed-ray photometric
-score and the chunked full-image render.
+"""Final evaluation: pose alignment, test-time pose optimization, the
+fixed-ray photometric score, the chunked full-image render and the full
+test-set evaluation.
 
-Port of the part of `poseprobe_tpu/eval/evaluator.py` that the trainer calls
-(`align_train_poses`, `test_time_pose_optim`, `photometric_pose_score`,
-`render_full`). The image metrics and LPIPS are in `eval/metrics.py`;
-`evaluate_full` and video export belong to the evaluation slice and are not
-ported yet.
+Port of `poseprobe_tpu/eval/evaluator.py`: `align_train_poses`,
+`test_time_pose_optim`, `photometric_pose_score`, `render_full` and
+`evaluate_full` (align the optimized train poses to GT; for each test view,
+map its GT pose into the optimized frame through the inverse sim3, optimize
+a per-image se3 refinement photometrically, render the full image; report
+PSNR / SSIM (/ LPIPS where its weights are present), depth errors and the
+train poses' rotation / translation errors). The image metrics are in
+`eval/metrics.py`; the panels are written by the port's PNG writer.
 
 Random draws are injected: `test_time_pose_optim` takes the ray indices of
-every iteration (`ray_idx` [n_iters, rand_rays]) and `photometric_pose_score`
-its fixed ray subset (`ray_idx` [n]); when the caller passes none they are
-drawn from a `torch.Generator` seeded with `seed`, so a pose score stays
-comparable between two poses of one view.
+every iteration (`ray_idx` [n_iters, rand_rays]), `evaluate_full` those of
+each test image, and `photometric_pose_score` its fixed ray subset
+(`ray_idx` [n]); when the caller passes none they are drawn from a
+`torch.Generator` seeded with `seed` (the test image's index in
+`evaluate_full`), so a pose score stays comparable between two poses of one
+view.
 """
 from __future__ import annotations
+
+import os
+from typing import Any
 
 import numpy as np
 import torch
 
 from ..core import align, lie, pose as pose_ops, rays as rays_mod
 from ..core.tree import tree_leaves
+from ..data.png import write_png
 from ..models import scene_nerf
 from ..train.optim import _Adam
+from . import metrics as metrics_mod
 
 
 def align_train_poses(pose_w2c, pose_GT_w2c):
@@ -184,3 +195,82 @@ def render_full(scene_params, scene_cfg, pose_w2c, K, H: int, W: int, depth_rang
             for k in outs:
                 outs[k].append(rets[k + suffix])
     return {k: torch.cat(v, dim=1).reshape(H, W, -1) for k, v in outs.items()}
+
+
+def evaluate_full(
+    scene_params: dict,
+    scene_cfg: scene_nerf.SceneConfig,
+    train_pose_w2c,                  # [B, 3, 4] optimized
+    train_pose_GT_w2c,               # [B, 3, 4]
+    test_images: np.ndarray,         # [T, H, W, 3]
+    test_pose_GT_w2c,                # [T, 3, 4]
+    test_Ks,                         # [T, 3, 3]
+    depth_range,
+    test_photo: bool = True,
+    test_iter: int = 100,
+    lr_pose: float = 1e-3,
+    save_dir: str | None = None,
+    progress: float = 1.0,
+    test_depth_gt: np.ndarray | None = None,  # [T, H, W] camera-z, 0 = invalid
+    ray_idx=None,
+) -> dict[str, Any]:
+    """Full test-set evaluation; returns the reference's result dict:
+    `rot_error` / `trans_error` of the aligned train poses, `psnr` and `ssim`
+    mean, median and per image, `lpips` where its weights are present, and
+    `depth_abs` / `depth_rmse` (the rendered depth scaled by the alignment's
+    sim3.s) where GT depth is given.
+
+    `ray_idx`: per test image, the flat pixel indices of every test-time
+    iteration ([test_iter, 1024] each), or None to draw them from a generator
+    seeded with the image's index. With `save_dir`, writes each image's
+    gt | pred | depth | opacity panel as ``test_%03d.png``."""
+    from ..utils.vis import validation_panel
+
+    aligned, sim3 = align_train_poses(train_pose_w2c, train_pose_GT_w2c)
+    err = align.evaluate_camera_alignment(aligned, _to_numpy(train_pose_GT_w2c))
+    device = tree_leaves(scene_params)[0].device
+    test_pose_GT_w2c, test_Ks = _to_numpy(test_pose_GT_w2c), _to_numpy(test_Ks)
+    H, W = test_images.shape[1:3]
+    psnrs, ssims, lpips_vals, depth_abs, depth_rmse = [], [], [], [], []
+    for t in range(test_images.shape[0]):
+        pose = align.backtrack_from_aligning_the_trajectory(test_pose_GT_w2c[t:t + 1], sim3)[0]
+        if test_photo:
+            pose = test_time_pose_optim(scene_params, scene_cfg, pose, test_Ks[t], test_images[t],
+                                        depth_range, n_iters=test_iter, lr=lr_pose, seed=t,
+                                        progress=progress,
+                                        ray_idx=None if ray_idx is None else ray_idx[t])
+        out = render_full(scene_params, scene_cfg, pose, test_Ks[t], H, W, depth_range,
+                          progress=progress)
+        gt = _on(device, test_images[t])[0]
+        psnrs.append(float(metrics_mod.psnr(out["rgb"], gt)))
+        ssims.append(float(metrics_mod.ssim(out["rgb"], gt)))
+        if metrics_mod.lpips_available():
+            lpips_vals.append(metrics_mod.lpips_fn(out["rgb"], gt))
+        if test_depth_gt is not None:
+            a, r = metrics_mod.depth_abs_rmse(out["depth"], test_depth_gt[t], scale=sim3.s)
+            depth_abs.append(a)
+            depth_rmse.append(r)
+        if save_dir is not None:
+            os.makedirs(save_dir, exist_ok=True)
+            panel = validation_panel(np.asarray(test_images[t]), _to_numpy(out["rgb"]),
+                                     _to_numpy(out["depth"]), _to_numpy(out["opacity"][..., 0]))
+            write_png(os.path.join(save_dir, f"test_{t:03d}.png"), panel)
+
+    results = {
+        "rot_error": float(err["R"].mean()),
+        "trans_error": float(err["t"].mean()),
+        "psnr": float(np.mean(psnrs)),
+        # the median beside the mean: one near-degenerate test view can move the mean
+        "psnr_median": float(np.median(psnrs)),
+        "ssim": float(np.mean(ssims)),
+        "ssim_median": float(np.median(ssims)),
+        "psnr_per_img": psnrs,
+        "ssim_per_img": ssims,
+    }
+    if lpips_vals:
+        results["lpips"] = float(np.mean(lpips_vals))
+    if depth_abs:
+        results["depth_abs"] = float(np.nanmean(depth_abs))
+        results["depth_rmse"] = float(np.nanmean(depth_rmse))
+        results["depth_abs_per_img"] = depth_abs
+    return results

@@ -16,20 +16,21 @@ compositing tail of `render` -- NeuS alpha, transmittance, weights and the
 per-ray colour and step sums -- runs through `ops/fused_composite.py`, i.e.
 through its hand-written forward and backward kernels on the card.
 
-Not ported yet: the TensoRF feature grid (``grid_type="tensorf"``), which
-raises `NotImplementedError`, and the mesh helpers of the evaluation slice
-(`mesh_color_forward`, `extract_sdf_volume`).
+The mesh helpers `extract_sdf_volume` (the dense -SDF volume that
+`eval/mesh.py` meshes) and `mesh_color_forward` (vertex colours) run their
+lookups through the same kernels. Not ported yet: the TensoRF feature grid
+(``grid_type="tensorf"``), which raises `NotImplementedError`.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.graphsafe import const
 from ..ops import compositing, fused_composite, grid as grid_ops, maskcache, pe, ray_sampling
 from . import deform as deform_mod
 from .mlp import apply_mlp, init_mlp
@@ -214,14 +215,12 @@ def processed_sdf_grid(params: dict, cfg: ObjectConfig) -> torch.Tensor:
     return alpha * (torch.sigmoid(beta * sdf) - 0.5)
 
 
-@functools.lru_cache(maxsize=None)
-def _bounds_cached(xyz_min: tuple, xyz_max: tuple, device: torch.device):
-    return (torch.tensor(xyz_min, dtype=torch.float32, device=device),
-            torch.tensor(xyz_max, dtype=torch.float32, device=device))
-
-
 def _bounds(cfg: ObjectConfig, device):
-    return _bounds_cached(cfg.xyz_min, cfg.xyz_max, torch.device(device))
+    """The box as two [3] float32 tensors on `device`, made once per box and
+    device by `graphsafe.const` (no synchronising copy, so a step that makes
+    them first, under the sync check before a capture, does not raise)."""
+    return (const(tuple(cfg.xyz_min), torch.float32, device),
+            const(tuple(cfg.xyz_max), torch.float32, device))
 
 
 def sdf_with_deform(params: dict, cfg: ObjectConfig, sdf_grid: torch.Tensor, pts: torch.Tensor,
@@ -426,3 +425,42 @@ def query_surface_points_render(params: dict, cfg: ObjectConfig, rays_o: torch.T
     n_step = (weights * step).sum(dim=1)
     depth = samp.t_min + n_step / d_norm
     return rays_o + rays_d * depth[:, None], n_step > 0.0, depth
+
+
+def mesh_color_forward(params: dict, cfg: ObjectConfig, pts: np.ndarray, chunk: int = 65536) -> np.ndarray:
+    """Vertex colours for mesh export, with the surface normal as the view
+    direction: pts [V, 3] world vertices -> [V, 3] rgb in [0, 1]. The normal
+    comes from the value+gradient lookup of the processed SDF grid at the
+    deformed points; the chunks run on the params' device."""
+    device = params["sdf_grid"].device
+    lo, hi = _bounds(cfg, device)
+    out = []
+    with torch.no_grad():
+        sdf_grid = processed_sdf_grid(params, cfg)
+        for i in range(0, len(pts), chunk):
+            p = torch.as_tensor(np.asarray(pts[i:i + chunk], np.float32), device=device)
+            deform, _ = deform_mod.apply_deform(params["warpnet"], p)
+            _, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, p + deform, lo, hi)
+            gradient = tri_grad[:, 0, :]
+            normal = gradient / (safe_norm(gradient, keepdim=True) + 1e-5)
+            rgb = _color_head(params, cfg, p[:, None, :], -normal, gradient[:, None, :], 1.0, lo, hi)
+            out.append(rgb[:, 0].cpu().numpy())
+    return np.clip(np.concatenate(out), 0.0, 1.0)
+
+
+def extract_sdf_volume(params: dict, cfg: ObjectConfig, resolution: int, use_deform: bool = True,
+                       chunk: int = 65536) -> np.ndarray:
+    """Dense (-SDF) volume [R, R, R] over the bounding box for marching cubes:
+    the processed SDF at a regular grid of R^3 world points, through the
+    deformation field, in chunks of `chunk` points on the params' device."""
+    device = params["sdf_grid"].device
+    lo, hi = cfg.xyz_min_np, cfg.xyz_max_np
+    # float64 linspace cast to float32, as the reference builds its points
+    axes = [torch.as_tensor(np.linspace(lo[a], hi[a], resolution).astype(np.float32), device=device)
+            for a in range(3)]
+    pts = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
+    with torch.no_grad():
+        sdf_grid = processed_sdf_grid(params, cfg)
+        out = torch.cat([-sdf_with_deform(params, cfg, sdf_grid, pts[i:i + chunk], use_deform)[0]
+                         for i in range(0, pts.shape[0], chunk)])
+    return out.cpu().numpy().reshape(resolution, resolution, resolution)

@@ -45,7 +45,9 @@ kernels each cost a launch); on the CPU the same step runs K times.
 
 Not ported yet, and raising `NotImplementedError` where a config asks for
 them: depth consistency from fresh pixels (the corres term off) and the
-TensoRF feature grid. Checkpoints (`host_extras`) are a later slice.
+TensoRF feature grid. `host_extras` / `restore_host_extras` hold the
+host-side state that `train/state.py`'s checkpoints carry beside the tensors
+(the generator, the mask cache and its budgets, the object voxel count).
 """
 from __future__ import annotations
 
@@ -433,6 +435,24 @@ class SceneTrainer:
         """Drop the captured steps and free their memory pools."""
         self._graphs.clear()
 
+    # ---------------------------------------------------------- ckpt extras
+
+    def host_extras(self) -> dict:
+        """Host-side state for an exact resume (`train/state.py`'s extras), as
+        arrays: the state of the device generator the step draws from
+        (`generator`, uint8: on the card its seed and offset, which graph
+        replays advance)."""
+        return {"generator": self.generator.get_state().numpy()}
+
+    def restore_host_extras(self, extras: dict) -> None:
+        """Inverse of `host_extras`; names it does not know are ignored. A JAX
+        checkpoint holds the loop key of a JAX PRNG stream (`loop_key`), which
+        torch cannot reproduce: without `generator` the trainer keeps its own
+        generator, so the run resumes, but not draw for draw."""
+        self.drop_graphs()
+        if "generator" in extras:
+            self.generator.set_state(torch.as_tensor(np.asarray(extras["generator"], np.uint8)))
+
     def _host_events(self, step: int) -> None:
         """The host events that fire before `step` (`JointTrainer` has them)."""
 
@@ -466,6 +486,18 @@ class SceneTrainer:
                 if callback is not None:
                     callback(host)
         return self._metrics_hist
+
+    def render_full_image(self, pose_w2c, K, chunk: int = 2048, fine: bool = True) -> dict:
+        """Chunked full-image render of the scene branch at the trainer's
+        training progress: {'rgb', 'depth', 'opacity', 'depth_var'}, each
+        [H, W, C]; the fine network's output when `fine` and the config
+        samples fine."""
+        sm = self.cfg.scene_model
+        out = evaluator.render_full(self.scene_params, sm, pose_w2c, K, self.H, self.W,
+                                    (self.data.near, self.data.far), chunk=chunk,
+                                    use_fine=bool(fine and sm.fine_sampling),
+                                    progress=min(self.global_step / sm.max_iter, 1.0))
+        return {k: out[k] for k in ("rgb", "depth", "opacity", "depth_var")}
 
     def validate(self, n_views: int = 5) -> float:
         """Validation PSNR over (up to) `n_views` test views rendered in the
@@ -543,6 +575,44 @@ class JointTrainer(SceneTrainer):
                 all_poses, all_Ks, self.H, self.W, om.xyz_min_np, om.xyz_max_np,
                 om.stepsize * om.voxel_size))
             self.refresh_maskcache()
+
+    def host_extras(self) -> dict:
+        """`SceneTrainer.host_extras` plus the mask cache (`mask_arr`, bool),
+        its lane budget (`mask_k`), the plastic-phase chord bound (`k_phase`)
+        and the trainer's object voxel count (`num_voxels`), which progressive
+        scaling has reached; int64 scalars, each where set."""
+        ex = super().host_extras()
+        ex["num_voxels"] = np.int64(self.cfg.object_model.num_voxels)
+        if self.mask_arr is not None:
+            ex["mask_arr"] = _np(self.mask_arr)
+        for name, val in (("mask_k", self._mask_k), ("k_phase", self._k_phase)):
+            if val is not None:
+                ex[name] = np.int64(val)
+        return ex
+
+    def restore_host_extras(self, extras: dict) -> None:
+        """Inverse of `host_extras`. The object config takes the saved voxel
+        count; a JAX checkpoint has none, and then it takes the count of the
+        pg_scale schedule whose grid has the shape of the loaded SDF grid, so
+        that the step size, the sample count and the mask-cache budget follow
+        the grid (the JAX trainer keeps the shrunk template's count there)."""
+        super().restore_host_extras(extras)
+        om = self.cfg.object_model
+        shape = tuple(self.obj_params["sdf_grid"].shape[1:])
+        if "num_voxels" in extras:
+            counts = [int(extras["num_voxels"])]
+        else:
+            counts = [int(self._final_num_voxels / 2 ** k) for k in range(len(self._pg_scale) + 1)]
+        fits = [n for n in counts if dataclasses.replace(om, num_voxels=n).world_size == shape]
+        if not fits:
+            raise ValueError(f"the loaded SDF grid {shape} is no grid of voxel count {counts}")
+        self.cfg = dataclasses.replace(self.cfg, object_model=dataclasses.replace(om, num_voxels=fits[0]))
+        if "mask_arr" in extras:
+            self.mask_arr = torch.as_tensor(np.asarray(extras["mask_arr"], bool), device=self.device)
+        if "mask_k" in extras:
+            self._mask_k = int(extras["mask_k"])
+        if "k_phase" in extras:
+            self._k_phase = int(extras["k_phase"])
 
     def phase_flags(self, step: int) -> dict:
         n_iters = self.cfg.object_train.N_iters

@@ -449,5 +449,7 @@ def test_port_imports_no_jax():
                  "pose_init.matching", "config.presets", "config.presets.dtu_generic", "config.presets.dtu_scan",
                  "config.presets.dtu_scan1", "config.presets.nerf_synthetic", "config.presets.replica_room0",
                  "config.presets.replica_room1", "config.presets.replica_scene", "config.presets.shapenet_car",
-                 "config.presets.toy_candy", "config.presets.toy_desk", "config.presets.toy_scene"):
+                 "config.presets.toy_candy", "config.presets.toy_desk", "config.presets.toy_scene",
+                 "train.state", "eval.mesh", "eval.video", "eval.turbo", "eval.dtu_protocol", "utils.vis",
+                 "utils.logging", "utils.profiling", "run", "evaluate"):
         assert f"poseprobe_tpu_torch.{name}" in loaded, name

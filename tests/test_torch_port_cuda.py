@@ -778,3 +778,77 @@ def test_early_step_with_the_fused_composite_runs_through_its_kernels():
     assert all(np.isfinite(v.item()) for v in m.values()), m
     assert abs(m["loss_total"].item() - plain.item()) <= 1e-5 * abs(plain.item())
     assert (fused_composite.fwd_launches - before[0], fused_composite.bwd_launches - before[1]) == (1, 1)
+
+
+# ---------------------------------------------------------------- checkpoints and evaluation
+
+
+def _draws_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_draws_equal(a[k], b[k]) for k in a)
+    if a is None or b is None:
+        return a is b
+    return torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+@pytest.mark.cuda
+def test_a_state_saved_after_graph_windows_resumes_draw_for_draw(tmp_path):
+    """The bench-scale (small) joint trainer runs `fit(8, superstep=4)`: a
+    captured step replayed, which advances the device generator's offset on
+    the card. Its checkpoint, loaded into a fresh trainer, holds the same
+    state tensors bit for bit and the same generator state, draws the same
+    next batch, and its next graph window (captured anew: the load rebound
+    the state) gives the losses of the run without the break (rtol 1e-3, as
+    a graph window against eager steps: the scatters add in a run-dependent
+    order)."""
+    _need_card()
+    from poseprobe_tpu_torch.train import state as state_mod
+    a = build_trainer(small=True, device="cuda")
+    a.fit(8, superstep=4)
+    assert a._graphs.graph is not None
+    path = str(tmp_path / "ckpt.npz")
+    state_mod.save_checkpoint(path, a, extras=a.host_extras())
+    b = build_trainer(small=True, device="cuda")
+    state_mod.restore_state(b, state_mod.load_checkpoint(path))
+    assert b._graphs.graph is None and b.global_step == a.global_step == 8
+    sa, sb = a.state_tensors(), b.state_tensors()
+    assert len(sa) == len(sb)
+    assert [i for i, (x, y) in enumerate(zip(sa, sb)) if not (x.shape == y.shape and torch.equal(x, y))] == []
+    gen_a = a.generator.get_state()
+    assert torch.equal(gen_a, b.generator.get_state()), (gen_a.tolist(), b.generator.get_state().tolist())
+    flags = a.phase_flags(8)
+    da, db = a.sample_draws(flags), b.sample_draws(flags)
+    assert _draws_equal(da, db)
+    a.generator.set_state(gen_a)
+    b.generator.set_state(gen_a)
+    wa, wb = a.steps_scan(4), b.steps_scan(4)
+    np.testing.assert_allclose(wb["loss_total"].cpu().numpy(), wa["loss_total"].cpu().numpy(), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sdf_volume_and_evaluate_full_launch_the_kernels():
+    """`extract_sdf_volume` launches one trilinear forward per 65,536-point
+    chunk, `mesh_color_forward` one value+gradient lookup per chunk, and
+    `evaluate_full` runs its renders through the trunk forward and its
+    test-time iterations through the trunk backward."""
+    _need_card()
+    from poseprobe_tpu_torch.eval import evaluator
+    from poseprobe_tpu_torch.models import object_sdf
+    tr = build_trainer(small=True, device="cuda")
+    om = tr.cfg.object_model
+    before = grid_ops.fwd_launches
+    vol = object_sdf.extract_sdf_volume(tr.obj_params, om, resolution=48)
+    assert vol.shape == (48, 48, 48) and np.isfinite(vol).all()
+    assert grid_ops.fwd_launches - before == 2                 # 110,592 points, 2 chunks
+    before = grid_ops.fwd_launches
+    rgb = object_sdf.mesh_color_forward(tr.obj_params, om, np.zeros((70_000, 3), np.float32))
+    assert rgb.shape == (70_000, 3) and grid_ops.fwd_launches - before == 2 * 2    # value+grad and k0, 2 chunks
+    data = tr.data
+    before = (fused_mlp.fwd_launches, fused_mlp.bwd_launches)
+    res = evaluator.evaluate_full(tr.scene_params, tr.cfg.scene_model, tr.current_pose_host(),
+                                  data.poses_gt_w2c[data.i_train], data.images[data.i_test],
+                                  data.poses_gt_w2c[data.i_test], data.Ks[data.i_test], (data.near, data.far),
+                                  test_iter=2, progress=0.5)
+    assert np.isfinite(res["psnr"])
+    fwd, bwd = fused_mlp.fwd_launches - before[0], fused_mlp.bwd_launches - before[1]
+    assert fwd > 2 * len(data.i_test) and bwd >= 2 * len(data.i_test), (fwd, bwd)

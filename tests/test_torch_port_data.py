@@ -65,9 +65,9 @@ def _png_with_every_filter(img: np.ndarray) -> bytes:
         out.append(np.concatenate([[f], (x - pred) % 256]).astype(np.uint8))
     colour = {1: 0, 2: 4, 3: 2, 4: 6}[1 if img.ndim == 2 else img.shape[2]]
     header = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], 8 * img.dtype.itemsize, colour, 0, 0, 0)
-    return (dtu_fixture._SIGNATURE + dtu_fixture._chunk(b"IHDR", header)
-            + dtu_fixture._chunk(b"IDAT", zlib.compress(np.concatenate(out).tobytes()))
-            + dtu_fixture._chunk(b"IEND", b""))
+    return (png._SIGNATURE + png._chunk(b"IHDR", header)
+            + png._chunk(b"IDAT", zlib.compress(np.concatenate(out).tobytes()))
+            + png._chunk(b"IEND", b""))
 
 
 def _filters_used(data: bytes) -> set:
@@ -107,7 +107,7 @@ def test_png_reader_matches_imageio(kind, tmp_path):
     every.write_bytes(_png_with_every_filter(img))
     assert _filters_used(every.read_bytes()) == {0, 1, 2, 3, 4}
     ours = tmp_path / "ours.png"
-    dtu_fixture.write_png(ours, img)
+    png.write_png(ours, img)
     for path in (by_imageio, every, ours):
         ref = np.asarray(imageio.imread(path))
         got = png.read_png(path)
@@ -121,7 +121,7 @@ def test_png_reader_refuses_what_it_does_not_read(tmp_path):
     (tmp_path / "x.txt").write_bytes(b"not a png")
     with pytest.raises(ValueError):
         png.read_png(tmp_path / "x.txt")
-    data = bytearray(dtu_fixture.encode_png(np.zeros((3, 4), np.uint8)))
+    data = bytearray(png.encode_png(np.zeros((3, 4), np.uint8)))
     data[8 + 8 + 12] = 1                             # the IHDR's interlace byte
     with pytest.raises(ValueError, match="interlaced"):
         png.decode_png(bytes(data))

@@ -1,7 +1,7 @@
 """Write a scene as a DTU scan on disk, in the IDR layout that
-`poseprobe_tpu_torch.data.loaders.load_dtu` reads, with a PNG encoder on
-zlib and numpy (no imageio needed). `chip_smoke.py` and the port's tests
-write their DTU fixtures with it.
+`poseprobe_tpu_torch.data.loaders.load_dtu` reads, with the port's PNG
+writer (`poseprobe_tpu_torch/data/png.py`; no imageio needed). `chip_smoke.py`
+and the port's tests write their DTU fixtures with it.
 
     from tools.dtu_fixture import write_dtu
     write_dtu(".../DTU/scan_x", scene)      # masks go to .../idrmasks/scan_x
@@ -9,40 +9,10 @@ write their DTU fixtures with it.
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOUR_TYPE = {1: 0, 3: 2, 2: 4, 4: 6}     # channels -> colour type
-
-
-def _chunk(kind: bytes, body: bytes) -> bytes:
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-
-def encode_png(img: np.ndarray, level: int = 1) -> bytes:
-    """A PNG of uint8 or uint16 pixels, [H, W] or [H, W, C] with C in 1-4,
-    every row with filter None."""
-    img = np.asarray(img)
-    if img.dtype not in (np.uint8, np.uint16):
-        raise TypeError(f"PNG pixels are uint8 or uint16, not {img.dtype}")
-    if img.ndim == 2:
-        img = img[..., None]
-    H, W, C = img.shape
-    depth = 8 * img.dtype.itemsize
-    body = img.astype(">u2").view(np.uint8) if depth == 16 else img
-    rows = np.concatenate([np.zeros((H, 1), np.uint8), body.reshape(H, -1)], axis=1)
-    header = struct.pack(">IIBBBBB", W, H, depth, _COLOUR_TYPE[C], 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
-
-
-def write_png(path: str, img: np.ndarray, level: int = 1) -> None:
-    with open(path, "wb") as f:
-        f.write(encode_png(img, level))
+from poseprobe_tpu_torch.data.png import write_png
 
 
 def write_dtu(datadir: str, data) -> None:
