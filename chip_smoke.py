@@ -81,6 +81,22 @@ chamfer; three frames of the spiral video are rendered; and the trunk and
 trilinear kernels are held against their plain versions at the evaluation
 path's shapes (a render chunk, a test-time iteration, a volume chunk, a mesh
 colour chunk).
+Last, the single-card paths that came last (`drive_last_paths`): the early
+step of `build_trainer()`'s workload with the TensoRF k0 (96^3, 24
+components, 12 channels) -- eager steps, the kernels held at its lookups and
+trunk calls, one step against the plain versions, a graph window against
+eager steps and its profile, `tensorf_sample`'s device time beside the dense
+12-channel lookup, a doubling through `tensorf_resize` after which the next
+window captures again, a checkpoint read back bit for bit; the mid step of
+`build_scene_trainer()` with the corres weight removed, so that depth
+consistency renders fresh reference pixels (trunk launches counted, the
+kernels held at its calls, a graph window against eager steps); SuperPoint +
+SuperGlue with seeded random weights on the preset's 1600x1200 scan
+(`load_dtu` with the SuperGlue backend on the card, device time per image and
+per pair, the card's maps and log assignment against the CPU's, a trainer
+fitted on those packs); and `run --synthetic --grid_type tensorf
+--match_source superglue --matcher superglue` with `evaluate --eval_mesh` on
+its checkpoint.
 With `--lookup-points FILE` it also saves the captured lookup points there
 (`torch.save`), for `tools/lookup_times.py`.
 
@@ -1261,6 +1277,17 @@ def _hold_captured(fused_mlp, grid_ops, lookups: list, calls: list, label: str, 
     return worst
 
 
+def _launch_counters(fused_mlp, grid_ops):
+    def counts():
+        return {"trunk_fwd": fused_mlp.fwd_launches, "trunk_bwd": fused_mlp.bwd_launches,
+                "trilinear_fwd": grid_ops.fwd_launches, "trilinear_bwd": grid_ops.bwd_launches}
+
+    def reset():
+        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+        grid_ops.fwd_launches = grid_ops.bwd_launches = 0
+    return counts, reset
+
+
 def drive_preset(mods: dict, trainer_mod, root: str) -> tuple[dict, dict, tuple]:
     """The published `dtu_generic` preset trained from a DTU-layout dataset on
     disk (written to `root`, where it stays for `drive_cli`): the port's
@@ -1276,14 +1303,7 @@ def drive_preset(mods: dict, trainer_mod, root: str) -> tuple[dict, dict, tuple]
     from poseprobe_tpu_torch.pose_init import matching
     from tools.dtu_fixture import write_dtu
     fused_mlp, grid_ops = mods["fused_mlp"], mods["grid"]
-
-    def counts():
-        return {"trunk_fwd": fused_mlp.fwd_launches, "trunk_bwd": fused_mlp.bwd_launches,
-                "trilinear_fwd": grid_ops.fwd_launches, "trilinear_bwd": grid_ops.bwd_launches}
-
-    def reset():
-        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
-        grid_ops.fwd_launches = grid_ops.bwd_launches = 0
+    counts, reset = _launch_counters(fused_mlp, grid_ops)
 
     H, W = PRESET_HW
     t0 = time.perf_counter()
@@ -1556,14 +1576,7 @@ def drive_cli(mods: dict, trainer_mod, root: str, preset: tuple) -> tuple[dict, 
     from poseprobe_tpu_torch.train import state as state_mod
     fused_mlp, grid_ops = mods["fused_mlp"], mods["grid"]
     _, data, _ = preset
-
-    def counts():
-        return {"trunk_fwd": fused_mlp.fwd_launches, "trunk_bwd": fused_mlp.bwd_launches,
-                "trilinear_fwd": grid_ops.fwd_launches, "trilinear_bwd": grid_ops.bwd_launches}
-
-    def reset():
-        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
-        grid_ops.fwd_launches = grid_ops.bwd_launches = 0
+    counts, reset = _launch_counters(fused_mlp, grid_ops)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1691,6 +1704,401 @@ def drive_cli(mods: dict, trainer_mod, root: str, preset: tuple) -> tuple[dict, 
     return {"cli": run_counts, "cli_eval": eval_counts, **{f"eval_{k}": v for k, v in parts.items()}}, errs
 
 
+# The last single-card paths (`drive_last_paths`): the TensoRF early step, depth consistency from
+# fresh pixels in the mid step, the SuperGlue matcher on the preset's scan, and the CLI over them.
+# The TensoRF cell's steps: one eager step held against the plain versions, SUPERSTEP-step graph
+# windows; the SuperGlue trainer's fit steps; the CLI run's steps (synthetic scene, full width).
+TENSORF_STEPS = 4
+SG_FIT_STEPS = 8
+CLI13_FLAGS = ["--synthetic", "--grid_type", "tensorf", "--match_source", "superglue", "--matcher", "superglue",
+               "--steps", "8", "--superstep", "4", "--i_print", "4", "--n_test", "1"]
+SG_REL_TOL = 1e-4                      # SuperPoint maps (of max |CPU|) and SuperGlue's log assignment (abs)
+
+
+def _profile(tr, name: str) -> None:
+    """The cell's eager steps and graph windows in turns, then traced
+    (`profile_step.profile_phase`): step ms, device ms, busy share, device
+    events per step; printed, and as one JSON line."""
+    from poseprobe_tpu_torch import profile_step
+    prof = profile_step.profile_phase(tr, name, tr.global_step, 8, SUPERSTEP, None)
+    print(json.dumps({k: v for k, v in prof.items() if k not in ("eager", "graph")}
+                     | {m: {k: v for k, v in prof[m].items() if k not in ("top", "top_host_ops")}
+                        for m in ("eager", "graph")}))
+
+
+def _eager_steps(tr, n: int, counts, reset) -> tuple[float, dict, list]:
+    """`n` eager steps after two warm ones: (ms per step, launches, metrics)."""
+    for _ in range(2):
+        tr.step()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    metrics = [tr.step() for _ in range(n)]
+    torch.cuda.synchronize()
+    if not all(math.isfinite(float(v)) for m in metrics for v in m.values()):
+        raise AssertionError("non-finite metrics in an eager step")
+    return (time.perf_counter() - t0) / n * 1e3, counts(), metrics
+
+
+def _capture_trunk_calls(fused_mlp, tr) -> list:
+    """The trunk calls [(enc, w, b, L, skip)] of one eager step of `tr`."""
+    calls, trunk_fwd = [], fused_mlp.trunk_fwd
+
+    def watch(enc, w, b, L, skip, store_acts=True):
+        calls.append((enc.detach().clone(), w.detach().clone(), b.detach().clone(), L, skip))
+        return trunk_fwd(enc, w, b, L, skip, store_acts)
+
+    fused_mlp.trunk_fwd = watch
+    try:
+        tr.step()
+    finally:
+        fused_mlp.trunk_fwd = trunk_fwd
+    torch.cuda.synchronize()
+    return calls
+
+
+def _loss_against_plain(tr, loss_fn, grid_ops) -> tuple[float, float]:
+    """One step's loss through the kernels, against the same step through the
+    plain lookups (rel diff, tolerance 1e-5) and through the plain trunk (rel
+    diff, tolerance REL_TOL), on one set of draws."""
+    flags = tr.phase_flags(tr.global_step)
+    draws = tr.sample_draws(flags)
+    sm = tr.cfg.scene_model
+    with torch.no_grad():
+        fused = float(loss_fn(flags, draws))
+        kernels = grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad
+        grid_ops.trilinear_sample = grid_ops.trilinear_sample_reference
+        grid_ops.trilinear_sample_with_grad = grid_ops.trilinear_vg_reference
+        try:
+            plain_lookup = float(loss_fn(flags, draws))
+        finally:
+            grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = kernels
+        tr.cfg = dataclasses.replace(tr.cfg, scene_model=dataclasses.replace(sm, use_fused_trunk=False))
+        try:
+            plain_trunk = float(loss_fn(flags, draws))
+        finally:
+            tr.cfg = dataclasses.replace(tr.cfg, scene_model=sm)
+    return abs(fused - plain_lookup) / abs(plain_lookup), abs(fused - plain_trunk) / abs(plain_trunk)
+
+
+def drive_tensorf(mods: dict, trainer_mod, work: str) -> tuple[dict, dict]:
+    """`build_trainer()`'s early step with ``grid_type="tensorf"``: eager
+    steps, the kernels held at the step's lookups and trunk calls, one step
+    against the plain versions, a graph window against eager steps and its
+    profile, the device time of `tensorf_sample` with its backward beside the
+    dense 12-channel lookup at the same points, one doubling through
+    `tensorf_resize` after which the next window captures again, and a
+    checkpoint written and read back bit for bit."""
+    from poseprobe_tpu_torch.core.tree import tree_leaves
+    from poseprobe_tpu_torch.ops import tensorf
+    from poseprobe_tpu_torch.train import state as state_mod
+    fused_mlp, grid_ops = mods["fused_mlp"], mods["grid"]
+    counts, reset = _launch_counters(fused_mlp, grid_ops)
+    cfg, data = trainer_mod._bench_workload(SMALL, "bfloat16")
+    cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(cfg.object_model, grid_type="tensorf"))
+    t0 = time.perf_counter()
+    tr = trainer_mod.JointTrainer(cfg, data, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    om, ot = tr.cfg.object_model, tr.cfg.object_train
+    tr.global_step = 1
+    flags = tr.phase_flags(1)
+    k0 = tr.obj_params["k0_grid"]
+    if not (flags["object_on"] and isinstance(k0, dict) and tr._mask_k):
+        raise AssertionError("the TensoRF workload does not start in the early phase with a TensoRF k0")
+    ms, eager, metrics = _eager_steps(tr, TENSORF_STEPS, counts, reset)
+    per_step = {k: v / TENSORF_STEPS for k, v in eager.items()}
+    print(f"tensorf early (grid {om.world_size}, k0 {om.tensorf_n_comp} components x {om.rgbnet_dim} channels: "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in k0.items()) + f"; trainer built in {build_s:.2f} s; "
+          f"{ot.N_rand} object rays x {tr._mask_k} of {om.n_samples} lanes): eager {ms:.2f} ms/step, loss "
+          f"{float(metrics[0]['loss_total']):.5f} -> {float(metrics[-1]['loss_total']):.5f}, psnr_obj "
+          f"{float(metrics[-1]['psnr_obj']):.3f}; launches per step {per_step}")
+    # per step: the coarse scene render's trunk; the SDF's 1-channel value+gradient lookup at the deformed
+    # points, its value at the points (no merged 13-channel lookup: k0 is TensoRF) and the reprojection query
+    if per_step != {"trunk_fwd": 1, "trunk_bwd": 1, "trilinear_fwd": 3, "trilinear_bwd": 3}:
+        raise AssertionError(f"the TensoRF step did not launch the kernels of its lookups: {per_step}")
+    errs = check_path_kernels(fused_mlp, grid_ops, tr, "tensorf")
+    rel_lookup, rel_trunk = _loss_against_plain(
+        tr, lambda f, d: tr.joint_loss(tr.obj_params, tr.scene_params, tr.pose_params, tr.global_step, f, d)[0],
+        grid_ops)
+    print(f"tensorf step loss through the kernels against the plain lookups: rel diff {rel_lookup:.2e} (tolerance "
+          f"1e-5); against the plain trunk: rel diff {rel_trunk:.2e} (tolerance {REL_TOL})")
+    if not (rel_lookup <= 1e-5 and rel_trunk <= REL_TOL):
+        raise AssertionError("the TensoRF step's loss through the kernels disagrees with the plain versions'")
+    graph = check_superstep(tr, "tensorf", counts, reset)
+    if graph != {k: v * SUPERSTEP for k, v in per_step.items()}:
+        raise AssertionError(f"the TensoRF graph window did not launch the kernels of {SUPERSTEP} steps: {graph}")
+    _profile(tr, "tensorf")
+
+    # tensorf_sample and its backward at the step's own k0 points, beside the dense 12-channel lookup
+    seen, sample = [], tensorf.tensorf_sample
+    tensorf.tensorf_sample = lambda params, xyz, lo, hi: seen.append((xyz.detach().reshape(-1, 3).clone(), lo, hi)) \
+        or sample(params, xyz, lo, hi)
+    try:
+        tr.step()
+    finally:
+        tensorf.tensorf_sample = sample
+    pts, lo, hi = seen[0]
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in tr.obj_params["k0_grid"].items()}
+    g = torch.Generator(device=DEVICE).manual_seed(300)
+    ct = torch.randn((pts.shape[0], om.rgbnet_dim), generator=g, device=DEVICE)
+    dense = tensorf.tensorf_to_dense({k: v.detach() for k, v in leaves.items()}).contiguous().requires_grad_(True)
+
+    def tf_fwd_bwd():
+        torch.autograd.grad(tensorf.tensorf_sample(leaves, pts, lo, hi), list(leaves.values()), ct)
+
+    def dense_fwd_bwd():
+        torch.autograd.grad(grid_ops.trilinear_sample(dense, pts, lo, hi), [dense], ct)
+
+    with torch.no_grad():
+        tf_fwd = _device_ms(lambda: tensorf.tensorf_sample(leaves, pts, lo, hi))
+        dense_fwd = _device_ms(lambda: grid_ops.trilinear_sample(dense, pts, lo, hi))
+        err = float((tensorf.tensorf_sample(leaves, pts, lo, hi) - grid_ops.trilinear_sample(dense, pts, lo, hi)).abs().max())
+    tf_both, dense_both = _device_ms(tf_fwd_bwd), _device_ms(dense_fwd_bwd)
+    print(f"tensorf_sample at the step's {pts.shape[0]} k0 points (device time): forward {tf_fwd:.4f} ms, forward + "
+          f"backward {tf_both:.4f} ms; the dense 12-channel lookup of tensorf_to_dense(k0) {tuple(dense.shape)} at the "
+          f"same points: forward {dense_fwd:.4f} ms, forward + backward {dense_both:.4f} ms; max abs diff of the two "
+          f"{err:.2e}")
+    if not err <= 1e-4:
+        raise AssertionError("tensorf_sample disagrees with the lookup of its dense expansion")
+
+    # one doubling through tensorf_resize: the next window captures the step again
+    before = tr._graphs.graph
+    t0 = time.perf_counter()
+    tr.scale_volume_grid(om.num_voxels * 2)
+    tr.refresh_maskcache()
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t0
+    reset()
+    window = tr.steps_scan(SUPERSTEP)
+    torch.cuda.synchronize()
+    doubled = counts()
+    losses = [float(x) for x in window["loss_total"]]
+    k0 = tr.obj_params["k0_grid"]
+    print(f"tensorf doubling to {tr.cfg.object_model.world_size} in {resize_s:.3f} s (tensorf_resize: "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in k0.items()) + f"); the next window captured again "
+          f"(capture {tr._graphs.graph.capture_s:.3f} s): losses {losses}, launches {doubled}")
+    if not (tr._graphs.graph is not before and tr._graphs.graph is not None and all(map(math.isfinite, losses))
+            and tuple(k0["xy_plane"].shape[1:]) == tr.cfg.object_model.world_size[:2]
+            and doubled == {k: v * SUPERSTEP for k, v in per_step.items()}):
+        raise AssertionError("the window after the doubling did not capture again or launch the step's kernels")
+
+    # a checkpoint written and read back bit for bit
+    path = os.path.join(work, "tensorf.npz")
+    t0 = time.perf_counter()
+    state_mod.save_checkpoint(path, tr, extras=tr.host_extras())
+    write_s = time.perf_counter() - t0
+    back = trainer_mod.JointTrainer(cfg, data, device=DEVICE)
+    t0 = time.perf_counter()
+    state_mod.restore_state(back, state_mod.load_checkpoint(path))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(tr.state_tensors(), back.state_tensors()))
+    print(f"tensorf checkpoint: {os.path.getsize(path)} bytes written in {write_s:.3f} s, read into a fresh trainer "
+          f"in {read_s:.3f} s; {len(tr.state_tensors())} state tensors bit for bit: {same}; grid "
+          f"{back.cfg.object_model.world_size}, {len(tree_leaves(back.obj_params['k0_grid']))} k0 leaves")
+    if not (same and back.cfg.object_model.world_size == tr.cfg.object_model.world_size
+            and len(tr.state_tensors()) == len(back.state_tensors())):
+        raise AssertionError("the TensoRF checkpoint did not read back bit for bit")
+    return {"tensorf": eager, "tensorf_graph": graph, "tensorf_doubled": doubled}, errs
+
+
+def drive_fresh_dc(mods: dict, trainer_mod) -> tuple[dict, dict]:
+    """`build_scene_trainer()` at step 18,001 with the `corres` weight removed:
+    depth consistency renders its reference depth at fresh pixels. Eager
+    steps (the trunk launches counted), the trunk kernels held at the step's
+    calls, one step against the plain trunk, and a graph window against eager
+    steps."""
+    fused_mlp, grid_ops = mods["fused_mlp"], mods["grid"]
+    counts, reset = _launch_counters(fused_mlp, grid_ops)
+    cfg, data = trainer_mod._bench_workload(SMALL, "bfloat16")
+    lw = tuple((k, None if k == "corres" else v) for k, v in cfg.scene_train.loss_weight)
+    cfg = dataclasses.replace(cfg, scene_train=dataclasses.replace(cfg.scene_train, loss_weight=lw))
+    tr = trainer_mod.SceneTrainer(cfg, data, device=DEVICE)
+    sm = tr.cfg.scene_model
+    tr.global_step = tr.fine_start + 1
+    flags = tr.phase_flags(tr.global_step)
+    if not (flags["fine_on"] and flags["depth_cons_on"] and "dc_pixels" in tr.sample_draws(flags)):
+        raise AssertionError(f"step {tr.global_step} does not take depth consistency from fresh pixels: {flags}")
+    start = tr.global_step
+    ms, eager, metrics = _eager_steps(tr, 4, counts, reset)
+    per_step = {k: v / 4 for k, v in eager.items()}
+    n_ref = max(256, sm.rand_rays)
+    print(f"fresh-pixel mid step {start} (corres off; {n_ref} fresh reference pixels, {sm.rand_rays} rays, "
+          f"{sm.sample_intvs}+{sm.sample_intvs_fine} samples): eager {ms:.2f} ms/step, loss "
+          f"{float(metrics[0]['loss_total']):.5f} -> {float(metrics[-1]['loss_total']):.5f}; launches per step "
+          f"{per_step}")
+    # per step: the main, reference and unseen-pose renders coarse + fine and the visibility render coarse +
+    # fine (8 forwards); backwards for all but the visibility render's two and the reference's coarse pass,
+    # whose depth the loss does not read (5)
+    if per_step != {"trunk_fwd": 8, "trunk_bwd": 5, "trilinear_fwd": 0, "trilinear_bwd": 0}:
+        raise AssertionError(f"the fresh-pixel step did not launch the trunk kernels of its renders: {per_step}")
+    errs = _hold_captured(fused_mlp, grid_ops, [], _capture_trunk_calls(fused_mlp, tr), "fresh_dc", lookup_bwd=False)
+    _, rel = _loss_against_plain(
+        tr, lambda f, d: tr.loss(tr.scene_params, tr.pose_params, tr.global_step, f, d)[0], grid_ops)
+    print(f"fresh-pixel step loss through the trunk kernels against the plain trunk: rel diff {rel:.2e} "
+          f"(tolerance {REL_TOL})")
+    if not rel <= REL_TOL:
+        raise AssertionError("the fresh-pixel step's loss through the kernels disagrees with the plain trunk's")
+    graph = check_superstep(tr, "fresh_dc", counts, reset)
+    if graph != {k: v * SUPERSTEP for k, v in per_step.items()}:
+        raise AssertionError(f"the fresh-pixel graph window did not launch the trunk kernels of {SUPERSTEP} steps: "
+                             f"{graph}")
+    _profile(tr, "fresh_dc")
+    return {"fresh_dc": eager, "fresh_dc_graph": graph}, {k: v for k, v in errs.items() if k.startswith("trunk")}
+
+
+def drive_superglue(mods: dict, trainer_mod, work: str, root: str, preset: tuple) -> dict:
+    """SuperPoint + SuperGlue on `drive_preset`'s 1600x1200 scan with seeded
+    random weights (`tools/superglue_weights.py`, written through the port's
+    `convert.save_npz`): `load_dtu` with the SuperGlue backend on the card,
+    the matching timed again alone, the device time of SuperPoint per image
+    and SuperGlue per pair, the card's heat map, descriptor map and log
+    assignment against the same modules on the CPU, then a `JointTrainer`
+    from the SuperGlue packs (the PnP chain) and `fit(SG_FIT_STEPS)` in
+    graph windows."""
+    from poseprobe_tpu_torch.data import loaders
+    from poseprobe_tpu_torch.pose_init import matching, superglue
+    from tools.superglue_weights import write
+    fused_mlp, grid_ops = mods["fused_mlp"], mods["grid"]
+    counts, reset = _launch_counters(fused_mlp, grid_ops)
+    cfg = preset[0]
+    wdir = os.path.join(work, "superglue_weights")
+    write(wdir)
+    os.environ[matching.SUPERGLUE_WEIGHTS_ENV] = wdir
+    t0 = time.perf_counter()
+    data = loaders.load_dtu(cfg.data, matcher_backend="superglue", matcher_device=DEVICE)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    matching.build_match_packs(data.images, data.masks, data.i_train, data.pair_j, max_matcher=cfg.data.max_matcher,
+                               backend="superglue", device=DEVICE)
+    match_s = time.perf_counter() - t0
+    n_pairs = 2 * len(data.i_train)
+    packs = {k: [int(n) for n in (getattr(data, k)[..., 4] > 0).sum(axis=1)]
+             for k in ("obj_matches", "scene_matches", "ba_matches")}
+    sp, sg = superglue.load_networks(DEVICE)
+    H, W = data.H, data.W
+    gray = [torch.as_tensor(matching._grayscale_u8(data.images[i]), device=DEVICE).float() / 255.0 for i in (1, 0)]
+    with torch.no_grad():
+        sp_ms = _device_ms(lambda: sp(gray[0]), iters=5)
+        (k0, s0, d0), (k1, s1, d1) = sp(gray[0]), sp(gray[1])
+        sg_ms = _device_ms(lambda: sg(k0, s0, d0, k1, s1, d1, (H, W)), iters=5)
+        # the card against the CPU: the SuperPoint maps, and the log assignment at the card's keypoints
+        sp_cpu, sg_cpu = superglue.load_networks("cpu")
+        heat, desc_map = sp.maps(gray[0])
+        heat_c, desc_c = sp_cpu.maps(gray[0].cpu())
+        Z = sg.log_assignment(k0, s0, d0, k1, s1, d1, (H, W))
+        Z_c = sg_cpu.log_assignment(*[t.cpu() for t in (k0, s0, d0, k1, s1, d1)], (H, W))
+    heat_rel = float((heat.cpu() - heat_c).abs().max() / heat_c.abs().max())
+    desc_rel = float((desc_map.cpu() - desc_c).abs().max() / desc_c.abs().max())
+    z_abs = float((Z.cpu() - Z_c).abs().max())
+    print(f"superglue on the {H}x{W} scan (seeded random weights): load_dtu with matching {load_s:.2f} s; "
+          f"build_match_packs again alone {match_s:.2f} s for {n_pairs} pairs; matches per pack {packs}; device time "
+          f"SuperPoint {sp_ms:.3f} ms per image ({int((s0 > 0).sum())} of {k0.shape[0]} keypoints scored), "
+          f"SuperGlue {sg_ms:.3f} ms per pair ({k0.shape[0]}x{k1.shape[0]}, 20 Sinkhorn iterations); card against "
+          f"CPU: heat map max abs err {heat_rel:.2e} of max, descriptor map {desc_rel:.2e} of max, log assignment "
+          f"max abs err {z_abs:.2e} (tolerance {SG_REL_TOL})")
+    if not (heat_rel <= SG_REL_TOL and desc_rel <= SG_REL_TOL and z_abs <= SG_REL_TOL):
+        raise AssertionError("SuperPoint / SuperGlue on the card disagree with the CPU")
+    _require_matches(packs, "load_dtu's SuperGlue packs")
+    t0 = time.perf_counter()
+    tr = trainer_mod.JointTrainer(cfg, data, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset()
+    t0 = time.perf_counter()
+    hist = tr.fit(SG_FIT_STEPS, log_every=SUPERSTEP, superstep=SUPERSTEP)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit = counts()
+    print(f"superglue trainer (dtu_generic, the PnP chain on the SuperGlue packs) built in {build_s:.2f} s; "
+          f"fit({SG_FIT_STEPS}, superstep={SUPERSTEP}) {fit_s:.2f} s: losses {[round(h['loss_total'], 5) for h in hist]}, "
+          f"launches {fit}")
+    if not (len(hist) == SG_FIT_STEPS // SUPERSTEP and all(math.isfinite(h["loss_total"]) for h in hist)
+            and min(fit.values()) >= SG_FIT_STEPS):
+        raise AssertionError("the trainer on the SuperGlue packs did not fit through the kernels")
+    return {"superglue_fit": fit}
+
+
+def _require_matches(packs: dict, what: str) -> None:
+    """Every pair's pack holds matches at the published 0.2 threshold, so that
+    what follows fits on SuperGlue's matches and not on empty packs."""
+    if not all(n > 0 for v in packs.values() for n in v):
+        raise AssertionError(f"{what}: a pair has no match above the threshold: {packs}")
+
+
+def drive_tensorf_cli(mods: dict, work: str) -> dict:
+    """`run --synthetic --grid_type tensorf --match_source superglue --matcher
+    superglue` for a few steps at full width with one test view, then
+    `evaluate --eval_mesh` on its last checkpoint. The synthetic scene the run
+    builds is read back to check its SuperGlue packs."""
+    from poseprobe_tpu_torch import evaluate as evaluate_cli, run as run_cli
+    from poseprobe_tpu_torch.data import synthetic
+    fused_mlp, grid_ops = mods["fused_mlp"], mods["grid"]
+    counts, reset = _launch_counters(fused_mlp, grid_ops)
+    cwd = os.path.join(work, "cli_tensorf")
+    os.makedirs(cwd)
+    old, make_scene = os.getcwd(), synthetic.make_synthetic_scene
+    scenes = []
+    synthetic.make_synthetic_scene = lambda **kw: scenes.append(make_scene(**kw)) or scenes[-1]
+    os.chdir(cwd)
+    try:
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        run_cli.main(CLI13_FLAGS)
+        torch.cuda.synchronize()
+        run_s, run_counts = time.perf_counter() - t0, counts()
+        ckpt = os.path.join(cwd, "logs", "synthetic", "last_ckpt.pkl")
+        with open(os.path.join(cwd, "logs", "synthetic", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        reset()
+        t0 = time.perf_counter()
+        evaluate_cli.main(["--synthetic", "--n_test", "1", "--ckpt", ckpt, "--eval_mesh"])
+        torch.cuda.synchronize()
+        eval_s, eval_counts = time.perf_counter() - t0, counts()
+        with open(os.path.join(cwd, "logs", "synthetic", "eval", "synthetic.json")) as f:
+            ev = json.load(f)
+    finally:
+        os.chdir(old)
+        synthetic.make_synthetic_scene = make_scene
+    packs = {k: [int(n) for n in (getattr(scenes[0], k)[..., 4] > 0).sum(axis=1)]
+             for k in ("obj_matches", "scene_matches", "ba_matches")}
+    print(f"cli tensorf + superglue: the synthetic scene's SuperGlue matches per pack {packs}")
+    _require_matches(packs, "the CLI's synthetic SuperGlue packs")
+    print(f"cli tensorf + superglue: run {run_s:.2f} s ({[r['step'] for r in rows]} logged, losses "
+          f"{[round(r['loss_total'], 5) for r in rows]}), launches {run_counts}; evaluate --eval_mesh {eval_s:.2f} s, "
+          f"launches {eval_counts}; psnr with test-time optimization {ev['w_test_optim']['psnr']:.3f}")
+    # the synthetic config's scene trunk is float32 (the reference's), which the fused trunk does not take:
+    # the lookups carry this path
+    if not (rows and rows[-1]["step"] == 8 and all(math.isfinite(r["loss_total"]) for r in rows)
+            and ev["iteration"] == 8 and run_counts["trilinear_fwd"] > 0 and run_counts["trilinear_bwd"] > 0
+            and eval_counts["trilinear_fwd"] > 0):
+        raise AssertionError("the TensoRF + SuperGlue CLI run or its evaluation did not run through the kernels")
+    return {"cli_tensorf": run_counts, "cli_tensorf_eval": eval_counts}
+
+
+def drive_last_paths(mods: dict, trainer_mod, work: str, root: str, preset: tuple) -> tuple[dict, dict]:
+    """The last single-card paths, after the CLI phase: TensoRF, depth
+    consistency from fresh pixels, SuperGlue, and the CLI over TensoRF and
+    SuperGlue. Returns the launches by part and the kernel checks' worst
+    errors."""
+    counts, errs, secs = {}, {}, {}
+    parts = {"tensorf": lambda: drive_tensorf(mods, trainer_mod, work),
+             "fresh_dc": lambda: drive_fresh_dc(mods, trainer_mod),
+             "superglue": lambda: (drive_superglue(mods, trainer_mod, work, root, preset), {}),
+             "cli": lambda: (drive_tensorf_cli(mods, work), {})}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        c, e = part()
+        secs[name] = round(time.perf_counter() - t0, 1)
+        counts.update(c)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    print(f"last paths' phase, seconds by part: {secs}")
+    return counts, errs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--lookup-points", metavar="FILE",
@@ -1750,10 +2158,15 @@ def main(argv=None) -> int:
         cli_counts, cli_errs = drive_cli({"fused_mlp": fused_mlp, "grid": grid_ops}, trainer_mod, root, preset)
         by_phase.update(cli_counts)
         cli_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        last_counts, last_errs = drive_last_paths({"fused_mlp": fused_mlp, "grid": grid_ops}, trainer_mod, work,
+                                                  root, preset)
+        by_phase.update(last_counts)
+        last_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for rec in records:
-        for tag, errs in (("preset", preset_errs), ("cli", cli_errs)):
+        for tag, errs in (("preset", preset_errs), ("cli", cli_errs), ("last_paths", last_errs)):
             if rec["name"] in errs:
                 rec[f"{tag}_max_abs_err"] = errs[rec["name"]]
                 rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]])
@@ -1765,8 +2178,9 @@ def main(argv=None) -> int:
         torch.save({label: [(gs, wg, p.cpu(), lo.cpu(), hi.cpu()) for gs, wg, p, lo, hi in sets]
                     for label, sets in CAPTURED.items()}, args.lookup_points)
         print(f"lookup points saved to {args.lookup_points}")
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the preset phase {preset_s:.1f} s and the "
-          f"cli phase {cli_s:.1f} s of it")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the preset phase {preset_s:.1f} s, the "
+          f"cli phase {cli_s:.1f} s and the last paths' phase {last_s:.1f} s of it")
+    print(smi)                          # again beside the numbers: the head of a long log may be cut
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -28,10 +28,14 @@ trainer's `host_extras`), the full test-set evaluation
 library `native/mesh_native.cpp`, `eval/dtu_protocol.py`), video export
 (`eval/video.py`, `eval/turbo.py`), `utils/`, and the two CLIs
 (`python -m poseprobe_tpu_torch.run`, `python -m poseprobe_tpu_torch.evaluate`).
-Still raising `NotImplementedError`: depth consistency from fresh pixels, the
-TensoRF feature grid, and the SuperGlue matcher (`ROADMAP.md`). OpenCV is
-optional: without it PnP runs a numpy RANSAC, the BA polish and the match
-refinement decline, and the classical matcher returns empty packs.
+The rest of the single-card paths: the TensoRF feature grid (`ops/tensorf.py`,
+``grid_type="tensorf"``), depth consistency from fresh pixels (the step with
+the corres term off), the SuperPoint + SuperGlue matcher and its weight
+converter (`pose_init/superglue.py`, `pose_init/convert.py`), the mask
+cache's even windows and the 3-D smoothing kernel. Not ported: `parallel/`
+(`ROADMAP.md`). OpenCV is optional: without it PnP runs a numpy RANSAC, the BA
+polish and the match refinement decline, and the classical matcher returns
+empty packs.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``. On a CUDA tensor each hand-written kernel launches (or the

@@ -3,8 +3,9 @@ ShapeNet-in-scene.
 
 Port of `poseprobe_tpu/data/loaders.py`: the `load_data` dispatcher and the
 per-format loaders on top of the `SceneData` container. Feature matching runs
-at load time through `pose_init.matching`. Images are read by `data/png.py`:
-PNGs without imageio, other formats through imageio or PIL.
+at load time through `pose_init.matching` (SuperGlue's networks on
+`matcher_device`, the card unless the caller passes another). Images are read
+by `data/png.py`: PNGs without imageio, other formats through imageio or PIL.
 
 All loaders are host-side numpy; they only shape data for the trainer.
 """
@@ -65,7 +66,7 @@ def _resize(img: np.ndarray, H: int, W: int) -> np.ndarray:
 
 
 def _finalize(cfg: DataConfig, images, masks, Ks, poses_w2c, i_train, i_test,
-              scale_mats=None, matcher_backend: str = "auto",
+              scale_mats=None, matcher_backend: str = "auto", matcher_device="cuda",
               depth_gt=None) -> base.SceneData:
     """Match packs + semantic samplers + container assembly (shared tail)."""
     images = np.asarray(images, np.float32)
@@ -79,13 +80,13 @@ def _finalize(cfg: DataConfig, images, masks, Ks, poses_w2c, i_train, i_test,
     pair_j = base.default_pair_j(len(i_train))
     obj_m, scene_m = matching_mod.build_match_packs(
         images, masks, np.asarray(i_train), pair_j,
-        max_matcher=cfg.max_matcher, backend=matcher_backend)
+        max_matcher=cfg.max_matcher, backend=matcher_backend, device=matcher_device)
     # skip-pair packs for the match-BA pose polish (pose_init/ba.py)
     it = np.asarray(i_train)
     ba_pairs = np.array([[a - 2, a] for a in range(2, len(it))], np.int32) \
         if len(it) >= 3 else np.zeros((0, 2), np.int32)
     ba_m = np.stack([matching_mod.match_pair(images[it[b]], images[it[a]], None,
-                                             cfg.max_matcher, matcher_backend)
+                                             cfg.max_matcher, matcher_backend, matcher_device)
                      for a, b in ba_pairs]) if len(ba_pairs) else \
         np.zeros((0, cfg.max_matcher, 5), np.float32)
     samplers = base.build_semantic_samplers(masks[np.asarray(i_train)])
@@ -110,7 +111,8 @@ def _finalize(cfg: DataConfig, images, masks, Ks, poses_w2c, i_train, i_test,
 DTU_EXCLUDE_TEST = (3, 4, 5, 6, 7, 16, 17, 18, 19, 20, 21, 36, 37, 38, 39)
 
 
-def load_dtu(cfg: DataConfig, reso_level: int = 1, matcher_backend: str = "auto") -> base.SceneData:
+def load_dtu(cfg: DataConfig, reso_level: int = 1, matcher_backend: str = "auto",
+             matcher_device="cuda") -> base.SceneData:
     """DTU (IDR layout): image/*.png + cameras.npz + idrmasks
     (`load_dtu.py:40-172`). Train views = cfg.selected_id; test = the
     remaining 49 minus the standard exclude list."""
@@ -152,7 +154,8 @@ def load_dtu(cfg: DataConfig, reso_level: int = 1, matcher_backend: str = "auto"
     new_train = list(range(len(i_train)))
     new_test = list(range(len(i_train), len(order)))
     return _finalize(cfg, np.stack(images), np.stack(masks), np.stack(Ks),
-                     np.stack(poses), new_train, new_test, scale_mats, matcher_backend)
+                     np.stack(poses), new_train, new_test, scale_mats, matcher_backend,
+                     matcher_device)
 
 
 # ------------------------------------------------------------------- Blender
@@ -167,7 +170,8 @@ def _parse_raw_camera_blender(c2w_blender: np.ndarray) -> np.ndarray:
     return np.concatenate([R.T, (-R.T @ t)[:, None]], axis=1).astype(np.float32)
 
 
-def load_blender(cfg: DataConfig, half_res: bool = False, matcher_backend: str = "auto") -> base.SceneData:
+def load_blender(cfg: DataConfig, half_res: bool = False, matcher_backend: str = "auto",
+                 matcher_device="cuda") -> base.SceneData:
     """NeRF-synthetic transforms_{train,val,test}.json (`load_blender.py:142-270`)."""
     basedir = cfg.datadir
     images, poses = [], []
@@ -200,13 +204,13 @@ def load_blender(cfg: DataConfig, half_res: bool = False, matcher_backend: str =
     i_test = list(range(counts[2], counts[3]))
     Ks = np.tile(K[None], (len(images), 1, 1))
     return _finalize(cfg, images, masks, Ks, np.stack(poses), i_train, i_test,
-                     matcher_backend=matcher_backend)
+                     matcher_backend=matcher_backend, matcher_device=matcher_device)
 
 
 # ----------------------------------------------------------------------- Toy
 
 def load_toy(cfg: DataConfig, pose_scale: float = 5.0, inst_seg_tag: int = 1,
-             matcher_backend: str = "auto") -> base.SceneData:
+             matcher_backend: str = "auto", matcher_device="cuda") -> base.SceneData:
     """Toy-desk scenes: transforms json + *.instance.png masks
     (`load_toy.py:142-258`). Poses are OpenCV c2w scaled by `pose_scale`."""
     basedir = cfg.datadir
@@ -236,12 +240,12 @@ def load_toy(cfg: DataConfig, pose_scale: float = 5.0, inst_seg_tag: int = 1,
     i_test = list(cfg.test_id) if cfg.test_id is not None else list(range(counts[2], counts[3]))
     Ks = np.tile(K[None], (len(images), 1, 1))
     return _finalize(cfg, images, masks, Ks, np.stack(poses, 0).astype(np.float32),
-                     i_train, i_test, matcher_backend=matcher_backend)
+                     i_train, i_test, matcher_backend=matcher_backend, matcher_device=matcher_device)
 
 
 # -------------------------------------------------------------------- Custom
 
-def load_custom(cfg: DataConfig, matcher_backend: str = "auto") -> base.SceneData:
+def load_custom(cfg: DataConfig, matcher_backend: str = "auto", matcher_device="cuda") -> base.SceneData:
     """Custom captures: scene_image/%05d.jpg + scene_mask + w2c.npy +
     intrinsics.txt (`load_custom.py:184-260`)."""
     basedir = cfg.datadir
@@ -267,13 +271,13 @@ def load_custom(cfg: DataConfig, matcher_backend: str = "auto") -> base.SceneDat
         masks = masks[..., 0]
     Ks = np.tile(K[None], (len(images), 1, 1))
     return _finalize(cfg, images, masks, Ks, np.stack(poses), i_train, i_test,
-                     matcher_backend=matcher_backend)
+                     matcher_backend=matcher_backend, matcher_device=matcher_device)
 
 
 # ------------------------------------------------------------------- Replica
 
 def load_replica(cfg: DataConfig, png_depth_scale: float = 6553.5,
-                 matcher_backend: str = "auto") -> base.SceneData:
+                 matcher_backend: str = "auto", matcher_device="cuda") -> base.SceneData:
     """Replica sequences: results/frame*.jpg + depth*.png + traj.txt c2w
     (`load_replica.py`). Object masks fall back to depth>0 (`:395`)."""
     basedir = cfg.datadir
@@ -305,13 +309,13 @@ def load_replica(cfg: DataConfig, png_depth_scale: float = 6553.5,
     i_test = list(range(len(sel), len(order)))
     return _finalize(cfg, np.stack(images), np.stack(masks), Ks,
                      np.stack(poses), i_train, i_test, matcher_backend=matcher_backend,
-                     depth_gt=np.stack(depths))
+                     matcher_device=matcher_device, depth_gt=np.stack(depths))
 
 
 # ------------------------------------------------------- scene_with_shapenet
 
 def load_scene_with_shapenet(cfg: DataConfig, object_center=(0.0, 0.0, 0.0),
-                             matcher_backend: str = "auto") -> base.SceneData:
+                             matcher_backend: str = "auto", matcher_device="cuda") -> base.SceneData:
     """ShapeNet-probe scenes: blender transforms json, `colors` images with
     sibling `mask` files, blender c2w shifted by the probe object center
     (`load_scene_with_shapenet.py:188-242`)."""
@@ -341,26 +345,27 @@ def load_scene_with_shapenet(cfg: DataConfig, object_center=(0.0, 0.0, 0.0),
     i_test = list(cfg.test_id) if cfg.test_id is not None else list(range(counts[2], counts[3]))
     Ks = np.tile(K[None], (len(images), 1, 1))
     return _finalize(cfg, images, masks, Ks, np.stack(poses), i_train, i_test,
-                     matcher_backend=matcher_backend)
+                     matcher_backend=matcher_backend, matcher_device=matcher_device)
 
 
 # ---------------------------------------------------------------- dispatcher
 
-def load_data(cfg: DataConfig, matcher_backend: str = "auto", **kwargs) -> base.SceneData:
+def load_data(cfg: DataConfig, matcher_backend: str = "auto", matcher_device="cuda",
+              **kwargs) -> base.SceneData:
     """`lib/load_data.py:11-129` analog keyed on dataset_type."""
     if cfg.dataset_type == "dtu":
-        return load_dtu(cfg, matcher_backend=matcher_backend, **kwargs)
+        return load_dtu(cfg, matcher_backend=matcher_backend, matcher_device=matcher_device, **kwargs)
     if cfg.dataset_type == "blender":
-        return load_blender(cfg, matcher_backend=matcher_backend, **kwargs)
+        return load_blender(cfg, matcher_backend=matcher_backend, matcher_device=matcher_device, **kwargs)
     if cfg.dataset_type == "toy":
-        return load_toy(cfg, matcher_backend=matcher_backend, **kwargs)
+        return load_toy(cfg, matcher_backend=matcher_backend, matcher_device=matcher_device, **kwargs)
     if cfg.dataset_type == "custom":
-        return load_custom(cfg, matcher_backend=matcher_backend, **kwargs)
+        return load_custom(cfg, matcher_backend=matcher_backend, matcher_device=matcher_device, **kwargs)
     if cfg.dataset_type == "replica":
-        return load_replica(cfg, matcher_backend=matcher_backend, **kwargs)
+        return load_replica(cfg, matcher_backend=matcher_backend, matcher_device=matcher_device, **kwargs)
     if cfg.dataset_type == "scene_with_shapenet":
-        return load_scene_with_shapenet(cfg, matcher_backend=matcher_backend, **kwargs)
+        return load_scene_with_shapenet(cfg, matcher_backend=matcher_backend, matcher_device=matcher_device, **kwargs)
     if cfg.dataset_type == "synthetic":
         from .synthetic import make_synthetic_scene
-        return make_synthetic_scene(**kwargs)
+        return make_synthetic_scene(matcher_device=matcher_device, **kwargs)
     raise ValueError(f"unknown dataset_type: {cfg.dataset_type}")

@@ -180,6 +180,7 @@ def make_synthetic_scene(n_train: int = 3, n_test: int = 6, H: int = 64, W: int 
                          arc_half: float | None = None,
                          probe: str = "cube",
                          match_source: str = "analytic",
+                         matcher_device="cuda",
                          match_noise_px: float = 0.0,
                          match_outlier_frac: float = 0.0,
                          texture: str = "checker") -> base.SceneData:
@@ -191,6 +192,9 @@ def make_synthetic_scene(n_train: int = 3, n_test: int = 6, H: int = 64, W: int 
     Match realism knobs:
 
     * ``match_source="analytic"`` — GT-projected correspondences (exact).
+    * ``match_source="classical"|"superglue"`` — the real matcher run on the
+      rendered views, as the loaders match a dataset (SuperGlue's networks on
+      `matcher_device`).
     * ``match_noise_px`` — i.i.d. Gaussian pixel noise added to every
       analytic match endpoint (a real matcher's localisation error).
     * ``match_outlier_frac`` — this fraction of valid matches replaced by
@@ -294,7 +298,17 @@ def make_synthetic_scene(n_train: int = 3, n_test: int = 6, H: int = 64, W: int 
         pack[:m, 4] = 1.0
         return pack
 
-    if match_source == "analytic":
+    if match_source in ("classical", "superglue"):
+        from ..pose_init.matching import build_match_packs, match_pair
+
+        obj_matches, scene_matches = build_match_packs(
+            images, masks, i_train, pair_j, max_matcher=n_matches, backend=match_source,
+            device=matcher_device)
+        ba_matches = np.stack([
+            match_pair(images[i], images[j], None, n_matches, match_source, matcher_device)
+            for j, i in skip_pairs]) if len(skip_pairs) else \
+            np.zeros((0, n_matches, 5), np.float32)
+    elif match_source == "analytic":
         obj_matches = np.stack([analytic_pack(pair_j[i], i, True)
                                 for i in range(n_train)])
         scene_matches = np.stack([analytic_pack(pair_j[i], i, False)

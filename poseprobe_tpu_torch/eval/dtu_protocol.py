@@ -152,7 +152,7 @@ def icp_refine_sim3(pred_pts: np.ndarray, gt_points: np.ndarray,
     tree = cKDTree(gt_points)
     P = np.asarray(pred_pts, np.float64).copy()
     for _ in range(iters):
-        d, idx = tree.query(P)
+        d, idx = tree.query(P, workers=-1)
         keep = d < np.percentile(d, trim_pct)
         if keep.sum() < 16:
             break

@@ -3,11 +3,12 @@
 Port of `poseprobe_tpu/eval/mesh.py`. The C++ core
 (`poseprobe_tpu_torch/native/mesh_native.cpp`, the port's own copy of the
 JAX package's) is compiled with ``g++ -O3 -fopenmp`` at first use into
-`poseprobe_tpu_torch/build/` and loaded with ctypes: marching tetrahedra and a
-grid-hash nearest-neighbour search. Where it cannot be built or loaded, as in
-the reference, meshing falls back to the reference's numpy marching
-tetrahedra and the chamfer search to scipy's cKDTree; `native_path()` says
-which path runs. Each path gives the vertices and triangles of the JAX
+`poseprobe_tpu_torch/build/` and loaded with ctypes: marching tetrahedra.
+Where it cannot be built or loaded, as in the reference, meshing falls back to
+the reference's numpy marching tetrahedra; `native_path()` says which path
+runs. The chamfer's nearest-neighbour search is a KD-tree on both paths, its
+distances rounded as the reference's path of the same name rounds them
+(`nearest_sqdist`). Each path gives the vertices and triangles of the JAX
 package's same path; the two paths do not give the same mesh (on a random
 volume the numpy path emits fewer triangles, in both packages).
 """
@@ -45,10 +46,6 @@ def _load_native() -> ctypes.CDLL | None:
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
-    lib.nearest_neighbor_sqdist.restype = None
-    lib.nearest_neighbor_sqdist.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-        ctypes.c_float, ctypes.POINTER(ctypes.c_float)]
     return lib
 
 
@@ -150,23 +147,28 @@ def save_ply(path: str, verts: np.ndarray, tris: np.ndarray) -> None:
             f.write(f"3 {t[0]} {t[1]} {t[2]}\n")
 
 
-def nearest_sqdist(query: np.ndarray, ref: np.ndarray, cell_size: float | None = None) -> np.ndarray:
-    """Per-query squared distance to the nearest ref point [Q] float32."""
+def nearest_sqdist(query: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Per-query squared distance to the nearest ref point [Q] float32.
+
+    The nearest point comes from a KD-tree (queried on every core). Where the
+    native library is built, its squared distance is taken in float32 as the
+    reference's native grid search takes it, so the two agree bit for bit but
+    where two points tie; elsewhere it is the KD-tree's, as the reference's
+    fallback has it. The native search itself is not used: it walks shells of
+    grid cells outward from the query's cell at a cost that grows with the
+    fourth power of the distance in cells, so a mesh far from the GT (an early
+    run's poses put it there through the sim3) took minutes to hours."""
     query = np.ascontiguousarray(query, np.float32)
     ref = np.ascontiguousarray(ref, np.float32)
-    lib = _load_native()
-    if lib is not None and len(ref) > 0:
-        if cell_size is None:
-            bbox = ref.max(0) - ref.min(0)
-            cell_size = float(max(bbox.max(), 1e-6)) / max(int(len(ref) ** (1 / 3)), 1)
-        out = np.empty(len(query), np.float32)
-        lib.nearest_neighbor_sqdist(_fptr(query), len(query), _fptr(ref), len(ref),
-                                    ctypes.c_float(cell_size), _fptr(out))
-        return out
+    if len(ref) == 0:
+        return np.full(len(query), np.inf, np.float32)
     from scipy.spatial import cKDTree
 
-    d, _ = cKDTree(ref).query(query, k=1)
-    return (d ** 2).astype(np.float32)
+    dist, idx = cKDTree(ref).query(query, k=1, workers=-1)
+    if _load_native() is None:
+        return (dist ** 2).astype(np.float32)
+    d = query - ref[idx]
+    return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
 
 
 def chamfer_distance(pts_a: np.ndarray, pts_b: np.ndarray, max_dist: float | None = None):

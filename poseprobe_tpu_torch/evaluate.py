@@ -12,12 +12,14 @@ mesh from a 256^3 volume, drop its small components and score it: against a
 DTU scan (`--gt_stl`) or, for the synthetic scene, against its analytic probe
 surface with the symmetric observation culls (`chamfer.json`; an empty mesh
 writes a failure record there). `--render_video` renders the 60-frame spiral.
+The feature grid's backend (dense or TensoRF) is the checkpoint's.
 (`eval/` is a package of the port, hence the module's name.) It runs on the
 card and raises without one, unless `--cpu` asks for the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -64,12 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    run_mod.check_ported(args)
     device = run_mod.resolve_device(args.cpu)
     cfg = run_mod.load_config(args)
-    data = load_data(cfg.data, matcher_backend=args.matcher, **run_mod.synthetic_loader_kwargs(cfg, args, run=False))
+    payload = state_mod.load_checkpoint(args.ckpt)
+    cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(
+        cfg.object_model, grid_type=state_mod.grid_type(payload)))
+    data = load_data(cfg.data, matcher_backend=args.matcher, matcher_device=device,
+                     **run_mod.synthetic_loader_kwargs(cfg, args, run=False))
     trainer = JointTrainer(cfg, data, device=device)
-    state_mod.restore_state(trainer, state_mod.load_checkpoint(args.ckpt))
+    state_mod.restore_state(trainer, payload)
     print(f"[eval] restored step {trainer.global_step} from {args.ckpt} on {device}")
     out_dir = args.out_dir or os.path.join(cfg.basedir, cfg.expname, "eval")
     os.makedirs(out_dir, exist_ok=True)

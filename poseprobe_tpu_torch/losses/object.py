@@ -13,7 +13,7 @@ from typing import Any
 
 import torch
 
-from ..ops import grid as grid_ops
+from ..ops import grid as grid_ops, tensorf
 from .common import mse2psnr
 
 _abs = grid_ops.abs_one_sided   # |x| with the reference's derivative (+1) at exactly 0
@@ -108,11 +108,11 @@ def object_tv_losses(params: dict, cfg, nonempty_mask=None, sdf_tv: float = 0.0,
 
 
 def k0_total_variation(params: dict, nonempty_mask=None) -> torch.Tensor:
-    """TV of the (dense) color feature grid."""
+    """TV of the color feature grid: the dense grid's, or the TensoRF
+    planes' and vectors' smooth-L1 TV."""
     k0 = params["k0_grid"]
     if isinstance(k0, dict):
-        raise NotImplementedError("the TensoRF feature grid is not ported yet (ROADMAP.md, "
-                                  "modules to port: TensoRF)")
+        return tensorf.tensorf_total_variation(k0)
     return grid_ops.total_variation(k0, nonempty_mask)
 
 

@@ -184,3 +184,25 @@ def depth_consistency_from_ref_depth(scene_params: dict, scene_cfg: scene_nerf.S
     if "depth_fine" in ret_u:
         loss = loss + one("depth_fine", "opacity_fine")
     return loss
+
+
+def depth_consistency_loss(scene_params: dict, scene_cfg: scene_nerf.SceneConfig,
+                           poses_w2c: torch.Tensor, intr: torch.Tensor, pixels_ref: torch.Tensor,
+                           id_self, interp_w, H: int, W: int, depth_range, progress, iteration,
+                           compute_fine: bool, use_fine_depth_as_ref: bool, opt: Any,
+                           noise_ref: dict | None = None, noise: dict | None = None) -> torch.Tensor:
+    """Depth consistency with a fresh reference render: render depth at the
+    pixels `pixels_ref` [P, 2] of view `id_self` (an int or a 0-dim device
+    index) from its detached pose, then `depth_consistency_from_ref_depth`.
+    `noise_ref` / `noise`: the draws of the reference render and of the
+    render at the unseen pose."""
+    pose_w2c_ref = take(pose_ops.pad(poses_w2c.detach()), id_self)
+    center, ray = rays_mod.get_center_and_ray_at_pixels(pose_w2c_ref[:3], pixels_ref,
+                                                        take(intr, id_self))
+    ret_ref = scene_nerf.render_rays(scene_params, scene_cfg, center, ray, depth_range, progress,
+                                     noise=noise_ref, compute_fine=compute_fine)
+    depth_ref = (ret_ref["depth_fine"] if (use_fine_depth_as_ref and "depth_fine" in ret_ref)
+                 else ret_ref["depth"])[0, :, 0]
+    return depth_consistency_from_ref_depth(
+        scene_params, scene_cfg, poses_w2c, intr, pixels_ref, depth_ref, id_self, interp_w, H, W,
+        depth_range, progress, iteration, compute_fine, opt, noise=noise)

@@ -18,8 +18,14 @@ through its hand-written forward and backward kernels on the card.
 
 The mesh helpers `extract_sdf_volume` (the dense -SDF volume that
 `eval/mesh.py` meshes) and `mesh_color_forward` (vertex colours) run their
-lookups through the same kernels. Not ported yet: the TensoRF feature grid
-(``grid_type="tensorf"``), which raises `NotImplementedError`.
+lookups through the same kernels.
+
+The feature grid k0 is dense ([C, X, Y, Z], ``grid_type="dense"``) or the
+VM-decomposed TensoRF grid (``"tensorf"``, a dict of planes and vectors,
+`ops/tensorf.py`). The SDF grid is dense either way. With a dense k0 the SDF
+and k0 lookups at the sample points merge into one 13-channel lookup; with
+TensoRF the SDF goes through the 1-channel lookups and k0 through
+`tensorf_sample`.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.graphsafe import const
-from ..ops import compositing, fused_composite, grid as grid_ops, maskcache, pe, ray_sampling
+from ..ops import compositing, fused_composite, grid as grid_ops, maskcache, pe, ray_sampling, tensorf
 from . import deform as deform_mod
 from .mlp import apply_mlp, init_mlp
 
@@ -64,7 +70,7 @@ class ObjectConfig:
     step_start: int = 0
     # sampling
     stepsize: float = 1.5
-    grid_type: str = "dense"          # "dense" | "tensorf" (not ported)
+    grid_type: str = "dense"          # k0 backend: "dense" | "tensorf"
     tensorf_n_comp: int = 24
     # pose/barf
     barf_c2f: tuple | None = (0.6, 1.0)
@@ -135,12 +141,6 @@ class ObjectConfig:
         return d
 
 
-def _check_ported(cfg: ObjectConfig) -> None:
-    if cfg.grid_type != "dense":
-        raise NotImplementedError(f"grid_type={cfg.grid_type!r}: the TensoRF feature grid is not "
-                                  "ported yet (ROADMAP.md, modules to port: TensoRF)")
-
-
 def _grid_axes(cfg: ObjectConfig):
     X, Y, Z = cfg.world_size
     xs = np.linspace(cfg.xyz_min[0], cfg.xyz_max[0], X)
@@ -168,16 +168,30 @@ def cube_sdf_init(cfg: ObjectConfig) -> np.ndarray:
     return sdf[None].astype(np.float32)
 
 
+def init_k0_grid(generator: torch.Generator, cfg: ObjectConfig, device="cuda"):
+    """The feature grid: zeros [C, X, Y, Z], or TensoRF planes and vectors
+    drawn from `generator`."""
+    if cfg.grid_type == "tensorf":
+        return tensorf.init_tensorf_params(generator, cfg.rgbnet_dim, cfg.world_size,
+                                           cfg.tensorf_n_comp, device=device)
+    return torch.zeros((cfg.rgbnet_dim,) + tuple(cfg.world_size), dtype=torch.float32, device=device)
+
+
+def sample_k0(params: dict, cfg: ObjectConfig, pts, lo, hi):
+    """k0 features at world points [..., 3] -> [..., C], for either backend."""
+    if cfg.grid_type == "tensorf":
+        return tensorf.tensorf_sample(params["k0_grid"], pts, lo, hi)
+    return grid_ops.trilinear_sample(params["k0_grid"], pts, lo, hi)
+
+
 def init_object_params(generator: torch.Generator, cfg: ObjectConfig, device="cuda") -> dict:
-    _check_ported(cfg)
     dims = [cfg.rgbnet_in_dim()] + [cfg.rgbnet_width] * (cfg.rgbnet_depth - 1) + [3]
     rgbnet = init_mlp(generator, dims, scheme="torch")
     rgbnet[-1]["b"] = torch.zeros_like(rgbnet[-1]["b"])     # final bias zero
     scalar = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     return {
         "sdf_grid": torch.as_tensor(cube_sdf_init(cfg), device=device),
-        "k0_grid": torch.zeros((cfg.rgbnet_dim,) + tuple(cfg.world_size), dtype=torch.float32,
-                               device=device),
+        "k0_grid": init_k0_grid(generator, cfg, device),
         "rgbnet": [{k: v.to(device) for k, v in la.items()} for la in rgbnet],
         "warpnet": deform_mod.init_deform_params(generator, cfg.range_shape_max, device),
         "sdf_alpha": scalar(10.0),
@@ -243,7 +257,7 @@ def _color_head(params: dict, cfg: ObjectConfig, pts, viewdirs, gradient, progre
     view_emb = pe.posenc_object(viewdirs, cfg.viewbase_pe, progress, cfg.barf_c2f)
     view_emb = view_emb[:, None, :].expand(pts.shape[:2] + (view_emb.shape[-1],))
     if k0 is None:
-        k0 = grid_ops.trilinear_sample(params["k0_grid"], pts, lo, hi)
+        k0 = sample_k0(params, cfg, pts, lo, hi)
     feats = [k0, xyz_emb, view_emb]
     if cfg.geo_rgb_dim == 3:
         feats.append(gradient / (safe_norm(gradient, keepdim=True) + 1e-5))
@@ -277,7 +291,6 @@ def render(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor, rays_d: torch.
     Returns per-ray composited quantities plus the per-sample diagnostics the
     losses need (dense [N, S] with `mask` for validity).
     """
-    _check_ported(cfg)
     lo, hi = _bounds(cfg, rays_o.device)
     progress = (torch.clamp(torch.as_tensor(global_step, dtype=torch.float32) / cfg.N_iters, 0.0, 1.0)
                 if is_train else 1.0)
@@ -285,10 +298,13 @@ def render(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor, rays_d: torch.
                                     jitter if is_train else None, mask_grid, mask_k)
     sdf_grid = processed_sdf_grid(params, cfg)
 
-    # The sdf and the 12-channel k0 features are both sampled at `pts`: they
-    # share one 13-channel gather (forward) and one 13-channel row scatter
-    # (backward). The spatial gradient is analytic, so the loss backward stays
-    # a first-order VJP.
+    # With a dense k0, the sdf and the 12-channel k0 features are both sampled
+    # at `pts`: they share one 13-channel gather (forward) and one 13-channel
+    # row scatter (backward). With TensoRF the sdf takes the 1-channel lookups
+    # and the colour head samples k0. The spatial gradient is analytic, so the
+    # loss backward stays a first-order VJP.
+    merged = cfg.grid_type == "dense"
+    k0_feat = None
     aux = {}
     if use_deform:
         deform, correction, jac_warp, grad_corr = deform_mod.deform_with_jacobian_fwd(
@@ -297,14 +313,21 @@ def render(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor, rays_d: torch.
         sdf_final = sdf_val[..., 0] + correction[..., 0]
         # d sdf/d pts_j = sum_i J_warp[..., j, i] * d trilerp/d x_i + d corr/d pts_j
         gradient = torch.einsum("...ji,...i->...j", jac_warp, tri_grad[..., 0, :]) + grad_corr
-        both = grid_ops.trilinear_sample(torch.cat([sdf_grid, params["k0_grid"]], dim=0), pts, lo, hi)
-        sdf_wo_deform, k0_feat = both[..., 0], both[..., 1:]
+        if merged:
+            both = grid_ops.trilinear_sample(torch.cat([sdf_grid, params["k0_grid"]], dim=0), pts, lo, hi)
+            sdf_wo_deform, k0_feat = both[..., 0], both[..., 1:]
+        else:
+            sdf_wo_deform = grid_ops.trilinear_sample(sdf_grid, pts, lo, hi)[..., 0]
         aux = {"sdf_deform": sdf_final - sdf_wo_deform, "grad_deform": jac_warp,
                "sdf_correct": correction}
-    else:
+    elif merged:
         both, tri_grad = grid_ops.trilinear_sample_with_grad(
             torch.cat([sdf_grid, params["k0_grid"]], dim=0), pts, lo, hi)
         sdf_final, k0_feat = both[..., 0], both[..., 1:]
+        gradient = tri_grad[..., 0, :]
+    else:
+        sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts, lo, hi)
+        sdf_final = sdf_val[..., 0]
         gradient = tri_grad[..., 0, :]
 
     dist = cfg.stepsize * cfg.voxel_size

@@ -1,12 +1,12 @@
-// Native mesh utilities: isosurface extraction + chamfer nearest-neighbour.
+// Native mesh utilities: isosurface extraction.
 //
 // Host-side mesh tooling of the PyTorch port (a copy of the JAX package's
 // native library, built into poseprobe_tpu_torch/build/ by eval/mesh.py):
 //  * mcubes.marching_cubes used by `extract_geometry` (lib/dvgo_ori.py:695-703)
 //    -> marching tetrahedra here (table-free, same isosurface up to
 //       triangulation), on the CPU since meshing is off the device hot path.
-//  * sklearn KDTree nearest-neighbour queries inside the DTU chamfer eval
-//    (lib/dtu_eval.py:37-100) -> a uniform-grid hash with ring search.
+// The JAX package's copy also has a grid-hash nearest-neighbour search; the
+// port's chamfer uses a KD-tree instead (eval/mesh.py, nearest_sqdist).
 //
 // Exposed as a plain C ABI for ctypes.
 //
@@ -16,7 +16,6 @@
 #include <cstring>
 #include <cmath>
 #include <vector>
-#include <unordered_map>
 #include <algorithm>
 
 namespace {
@@ -113,71 +112,6 @@ int marching_tetrahedra(
     *n_verts = nv;
     *n_tris = nt;
     return truncated;
-}
-
-// For each query point, squared distance to the nearest reference point,
-// using a uniform grid hash with expanding ring search.
-void nearest_neighbor_sqdist(
-    const float* query /* [nq*3] */, int64_t nq,
-    const float* ref /* [nr*3] */, int64_t nr,
-    float cell_size, float* out_sqdist /* [nq] */) {
-    if (nr == 0) {
-        for (int64_t i = 0; i < nq; ++i) out_sqdist[i] = INFINITY;
-        return;
-    }
-    // bounding box of reference
-    float lo[3] = {ref[0], ref[1], ref[2]};
-    for (int64_t i = 0; i < nr; ++i)
-        for (int d = 0; d < 3; ++d) lo[d] = std::min(lo[d], ref[i * 3 + d]);
-
-    auto cell_of = [&](const float* p, int out[3]) {
-        for (int d = 0; d < 3; ++d)
-            out[d] = (int)std::floor((p[d] - lo[d]) / cell_size);
-    };
-    auto key_of = [](const int c[3]) -> int64_t {
-        return ((int64_t)c[0] * 73856093LL) ^ ((int64_t)c[1] * 19349663LL)
-             ^ ((int64_t)c[2] * 83492791LL);
-    };
-
-    std::unordered_map<int64_t, std::vector<int32_t>> grid;
-    grid.reserve((size_t)nr * 2);
-    for (int64_t i = 0; i < nr; ++i) {
-        int c[3]; cell_of(ref + i * 3, c);
-        grid[key_of(c)].push_back((int32_t)i);
-    }
-
-    #pragma omp parallel for schedule(dynamic, 256)
-    for (int64_t i = 0; i < nq; ++i) {
-        const float* q = query + i * 3;
-        int qc[3]; cell_of(q, qc);
-        float best = INFINITY;
-        for (int ring = 0; ring < 1024; ++ring) {
-            // once we have a candidate, only rings that could beat it matter
-            if (best < INFINITY) {
-                float safe = (float)(ring - 1) * cell_size;
-                if (safe > 0 && safe * safe > best) break;
-            }
-            bool found_any = false;
-            for (int dx = -ring; dx <= ring; ++dx)
-                for (int dy = -ring; dy <= ring; ++dy)
-                    for (int dz = -ring; dz <= ring; ++dz) {
-                        if (std::max({std::abs(dx), std::abs(dy), std::abs(dz)}) != ring)
-                            continue;  // shell only
-                        int c[3] = {qc[0] + dx, qc[1] + dy, qc[2] + dz};
-                        auto it = grid.find(key_of(c));
-                        if (it == grid.end()) continue;
-                        found_any = true;
-                        for (int32_t j : it->second) {
-                            const float* r = ref + (int64_t)j * 3;
-                            float d0 = q[0] - r[0], d1 = q[1] - r[1], d2 = q[2] - r[2];
-                            float d = d0 * d0 + d1 * d1 + d2 * d2;
-                            best = std::min(best, d);
-                        }
-                    }
-            (void)found_any;
-        }
-        out_sqdist[i] = best;
-    }
 }
 
 }  // extern "C"

@@ -357,7 +357,11 @@ def abs_one_sided(x: torch.Tensor) -> torch.Tensor:
 
 
 def resize_trilinear(grid: torch.Tensor, new_size) -> torch.Tensor:
-    """Trilinear grid resize [C, X, Y, Z] -> [C, *new_size] (align_corners=True)."""
+    """Trilinear grid resize [C, X, Y, Z] -> [C, *new_size] (align_corners=True).
+
+    A size-1 source axis is read as two equal cells, which the lookup kernels
+    take (they need 2 voxels per axis) and which give the same values."""
+    grid = grid.expand(*[max(s, 2) if a else s for a, s in enumerate(grid.shape)])
     C, X, Y, Z = grid.shape
     nx, ny, nz = new_size
     dev = grid.device
@@ -398,6 +402,27 @@ def sdf_gradient_grid(sdf: torch.Tensor, voxel_size) -> torch.Tensor:
     return torch.stack([gx, gy, gz])
 
 
+def gaussian_kernel_3d(ksize: int, sigma: float, device="cuda") -> torch.Tensor:
+    """Normalized [k, k, k] Gaussian kernel. No training path uses it: the
+    trainers smooth with the separable 1-D factor."""
+    r = torch.arange(-(ksize // 2), ksize // 2 + 1, dtype=torch.float32, device=device)
+    xx, yy, zz = torch.meshgrid(r, r, r, indexing="ij")
+    k = torch.exp(-(xx ** 2 + yy ** 2 + zz ** 2) / (2.0 * sigma ** 2))
+    return k / k.sum()
+
+
+def conv3d_replicate(grid: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3-D conv with replicate padding on [C, X, Y, Z]; only
+    `smooth_grad_tv`'s full-kernel branch, which no training path takes,
+    calls it."""
+    k = kernel.shape[0]
+    p = k // 2
+    C = grid.shape[0]
+    padded = F.pad(grid[None], (p,) * 6, mode="replicate")
+    weight = kernel.to(grid.dtype)[None, None].expand(C, 1, k, k, k)
+    return F.conv3d(padded, weight, groups=C)[0]
+
+
 def conv3d_separable_replicate(grid: torch.Tensor, k1d: torch.Tensor) -> torch.Tensor:
     """Separable depthwise smoothing on [C, X, Y, Z] with the 3-D kernel
     k1d (x) k1d (x) k1d: three 1-D passes of edge padding and shifted adds."""
@@ -431,11 +456,13 @@ def gaussian_kernel_1d(ksize: int, sigma: float, device="cuda") -> torch.Tensor:
 
 def smooth_grad_tv(sdf_grad: torch.Tensor, smooth_kernel: torch.Tensor,
                    mask: torch.Tensor | None = None) -> torch.Tensor:
-    """||smooth(grad).detach() - grad||^2 with the separable 1-D factor [k]
-    of the smoothing kernel."""
-    if smooth_kernel.ndim != 1:
-        raise NotImplementedError("only the separable 1-D smoothing kernel is ported")
-    smoothed = conv3d_separable_replicate(sdf_grad, smooth_kernel).detach()
+    """||smooth(grad).detach() - grad||^2. `smooth_kernel` is the separable
+    1-D factor [k] (three 1-D passes; what every caller passes) or a full
+    [k, k, k] kernel."""
+    if smooth_kernel.ndim == 1:
+        smoothed = conv3d_separable_replicate(sdf_grad, smooth_kernel).detach()
+    else:
+        smoothed = conv3d_replicate(sdf_grad, smooth_kernel).detach()
     err = (smoothed - sdf_grad) ** 2
     if mask is not None:
         err = err * mask.to(err.dtype)

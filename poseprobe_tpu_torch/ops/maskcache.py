@@ -25,13 +25,15 @@ class CompactSamples(NamedTuple):
 
 
 def _min_pool(sdf: torch.Tensor, dilate: int) -> torch.Tensor:
-    """Min over a dilate^3 window with SAME padding: max_pool3d pads with -inf,
-    the identity of the max, as the reference pads its min with +inf."""
+    """Min over a dilate^3 window with SAME padding, padded with +inf, the
+    identity of the min, as the reference pads it. SAME puts the extra cell of
+    an even window on the high side: low = (d-1)//2, high = d-1-low."""
     if dilate <= 1:
         return sdf
-    if dilate % 2 == 0:
-        raise NotImplementedError("even dilation windows are not ported")
-    return -F.max_pool3d(-sdf[None, None], dilate, 1, dilate // 2)[0, 0]
+    low = (dilate - 1) // 2
+    high = dilate - 1 - low
+    padded = F.pad(sdf[None, None], (low, high) * 3, value=float("inf"))
+    return -F.max_pool3d(-padded, dilate, 1)[0, 0]
 
 
 def build_mask_grid(sdf_grid: torch.Tensor, thres: float, dilate: int = 3) -> torch.Tensor:

@@ -5,8 +5,8 @@ padded match packs ``[max_matcher, 5]`` = (x_j, y_j, x_i, y_i, conf) between
 each training view i and its paired view j, in object-masked and full-image
 variants. The classical backend (cv2 SIFT, else ORB, with mutual-ratio
 matching) is the reference's, and without cv2 it returns zero packs as the
-reference does. The SuperGlue backend is not ported: where the reference
-would pick it, `match_pair` raises.
+reference does. The SuperGlue backend (`pose_init/superglue.py`) runs its
+networks on `device`, the card unless the caller passes another.
 """
 from __future__ import annotations
 
@@ -98,22 +98,22 @@ def superglue_available() -> bool:
 
 
 def match_pair(img_i: np.ndarray, img_j: np.ndarray, mask_j: np.ndarray | None,
-               max_matcher: int = 256, backend: str = "auto") -> np.ndarray:
-    """Dispatch to the matcher the reference picks: SuperGlue for
-    ``backend="superglue"`` and for ``"auto"`` with its weights present,
-    else the classical matcher. SuperGlue is not ported, so those two cases
-    raise rather than match with another backend."""
-    if backend == "superglue" or (backend == "auto" and superglue_available()):
-        raise NotImplementedError(
-            f"backend={backend!r} selects SuperGlue (${SUPERGLUE_WEIGHTS_ENV} set: "
-            f"{superglue_available()}), which is not ported yet (ROADMAP.md, modules to port: "
-            "matchers); use backend='classical'")
+               max_matcher: int = 256, backend: str = "auto", device="cuda") -> np.ndarray:
+    """Dispatch to the matcher the reference picks: SuperGlue (on `device`)
+    for ``backend="superglue"`` and for ``"auto"`` with its weights present,
+    else the classical matcher; ``"superglue"`` without weights raises."""
+    if backend in ("auto", "superglue") and superglue_available():
+        from . import superglue
+        return superglue.match_pair_superglue(img_i, img_j, mask_j, max_matcher, device=device)
+    if backend == "superglue":
+        raise RuntimeError(
+            f"SuperGlue weights not found; set ${SUPERGLUE_WEIGHTS_ENV} or use backend='classical'")
     return match_pair_classical(img_i, img_j, mask_j, max_matcher)
 
 
 def build_match_packs(images: np.ndarray, masks: np.ndarray | None,
                       i_train: np.ndarray, pair_j: np.ndarray,
-                      max_matcher: int = 256, backend: str = "auto"):
+                      max_matcher: int = 256, backend: str = "auto", device="cuda"):
     """Object-masked + full-scene match packs for all train views.
 
     Mirrors `matching_batch` (`load_dtu.py:133-155`): the object variant
@@ -130,9 +130,9 @@ def build_match_packs(images: np.ndarray, masks: np.ndarray | None,
             m_i, m_j = masks[i], masks[j]
             masked_i = img_i * (m_i > 0)
             masked_j = img_j * (m_j > 0)
-            obj_packs[a] = match_pair(masked_i, masked_j, m_j, max_matcher, backend)
-            scene_packs[a] = match_pair(img_i, img_j, None, max_matcher, backend)
+            obj_packs[a] = match_pair(masked_i, masked_j, m_j, max_matcher, backend, device)
+            scene_packs[a] = match_pair(img_i, img_j, None, max_matcher, backend, device)
         else:
-            scene_packs[a] = match_pair(img_i, img_j, None, max_matcher, backend)
+            scene_packs[a] = match_pair(img_i, img_j, None, max_matcher, backend, device)
             obj_packs[a] = scene_packs[a]
     return obj_packs, scene_packs

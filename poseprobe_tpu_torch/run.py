@@ -11,9 +11,9 @@ under ``cfg.basedir/cfg.expname``: `metrics.jsonl`, `best_ckpt.pkl` and
 `last_ckpt.pkl` (format-v2 ``.npz`` archives despite the name, as in the
 reference), the `--render_test` JSON, `train_renders/`, `meshes/` and the
 spiral video. It runs on the card and raises without one, unless `--cpu` asks
-for the CPU. Options that reach a part of the reference not ported yet
-(`--matcher superglue`, `--grid_type tensorf`, a non-analytic
-`--match_source`) raise `NotImplementedError` naming their `ROADMAP.md` item.
+for the CPU; the SuperGlue matcher (`--matcher superglue`, `--match_source
+superglue`) runs its networks on the same device, with the weights in
+``$POSEPROBE_SUPERGLUE_WEIGHTS``.
 """
 from __future__ import annotations
 
@@ -241,19 +241,6 @@ def resolve_device(cpu: bool) -> str:
     return "cuda"
 
 
-def check_ported(args) -> None:
-    """Refuse options that reach a part of the reference not ported yet."""
-    if getattr(args, "matcher", "auto") == "superglue":
-        raise NotImplementedError("--matcher superglue: the SuperGlue matcher is not ported yet "
-                                  "(ROADMAP.md, modules to port: matchers)")
-    if getattr(args, "grid_type", "") == "tensorf":
-        raise NotImplementedError("--grid_type tensorf: the TensoRF feature grid is not ported yet "
-                                  "(ROADMAP.md, modules to port: TensoRF)")
-    if getattr(args, "match_source", "analytic") != "analytic":
-        raise NotImplementedError(f"--match_source {args.match_source}: the synthetic scene's real-matcher "
-                                  "match sources are not ported yet (ROADMAP.md, modules to port: matchers)")
-
-
 def apply_steps_override(cfg, args):
     """Resolve --steps / --schedule_steps into the config's max_iters, so that
     every ratio-based schedule (pose windows, fine start, BARF c2f, BA and
@@ -407,6 +394,8 @@ def synthetic_loader_kwargs(cfg, args, run: bool) -> dict:
     if args.texture != "checker":
         kw["texture"] = args.texture
     if run:
+        if args.match_source != "analytic":
+            kw["match_source"] = args.match_source
         if args.arc_half:
             kw["arc_half"] = args.arc_half
         if args.match_noise_px:
@@ -428,14 +417,14 @@ def spiral_w2c(cur_w2c: np.ndarray, n: int) -> np.ndarray:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.cpu)
     cfg = apply_overrides(load_config(args), args)
 
     out_dir = os.path.join(cfg.basedir, cfg.expname)
     os.makedirs(out_dir, exist_ok=True)
     print(f"[run] loading data ({cfg.data.dataset_type}) ...")
-    data = load_data(cfg.data, matcher_backend=args.matcher, **synthetic_loader_kwargs(cfg, args, run=True))
+    data = load_data(cfg.data, matcher_backend=args.matcher, matcher_device=device,
+                     **synthetic_loader_kwargs(cfg, args, run=True))
     print(f"[run] {data.n_train} train views, {len(data.i_test)} test views, {data.H}x{data.W}, on {device}")
 
     trainer = JointTrainer(cfg, data, device=device)

@@ -99,6 +99,13 @@ def load_checkpoint(path: str) -> dict:
     return {"version": manifest["version"], "npz": z, "manifest": manifest}
 
 
+def grid_type(payload: dict) -> str:
+    """The feature grid's backend in a checkpoint: "tensorf" where k0 is a
+    tree of planes and vectors, else "dense"."""
+    paths = [e["path"] for e in payload["manifest"]["sections"]["obj_params"]]
+    return "tensorf" if any(p.startswith("['k0_grid'][") for p in paths) else "dense"
+
+
 def get_extras(payload: dict) -> dict:
     """The host-side extras saved with the state, by name."""
     z = payload["npz"]

@@ -43,10 +43,12 @@ are one captured step replayed K - 1 times after an eager first step
 (`train/graphs.py`), because the step is otherwise host-bound (its 1.6k-3.3k
 kernels each cost a launch); on the CPU the same step runs K times.
 
-Not ported yet, and raising `NotImplementedError` where a config asks for
-them: depth consistency from fresh pixels (the corres term off) and the
-TensoRF feature grid. `host_extras` / `restore_host_extras` hold the
-host-side state that `train/state.py`'s checkpoints carry beside the tensors
+With the corres term off, depth consistency renders its reference depth at
+fresh pixels of a drawn view (`losses/scene.depth_consistency_loss`); with it
+on, it reuses the corres pair's render. The object branch's k0 is dense or
+TensoRF (`ops/tensorf.py`), rescaled by `scale_volume_grid` either way.
+`host_extras` / `restore_host_extras` hold the host-side state that
+`train/state.py`'s checkpoints carry beside the tensors
 (the generator, the mask cache and its budgets, the object voxel count).
 """
 from __future__ import annotations
@@ -67,7 +69,7 @@ from ..eval.vgg_features import get_multi_features
 from ..losses import (common as loss_common, object as object_losses_mod,
                       projection as projection_losses, scene as scene_losses)
 from ..models import object_sdf, pose_refine, scene_nerf
-from ..ops import compositing, grid as grid_ops, maskcache, ray_sampling
+from ..ops import compositing, grid as grid_ops, maskcache, ray_sampling, tensorf
 from ..pose_init import ba as ba_mod, pnp as pnp_mod
 from . import batching, graphs
 from .optim import ObjectOptimizer, PoseOptimizer, SceneOptimizer
@@ -233,8 +235,21 @@ class SceneTrainer:
         }
         if flags["depth_cons_on"]:
             draws["dc_interp_w"] = torch.rand((), generator=self.generator, device=self.device)
-            draws["dc_render"] = ray_sampling.draw_render_noise(
-                self.generator, 1, M, sm.sample_intvs, sm.sample_intvs_fine, self.device)
+            if sc.loss_weight_dict().get("corres") is not None:
+                # the corres pair's self-view pixels are the reference pixels
+                draws["dc_render"] = ray_sampling.draw_render_noise(
+                    self.generator, 1, M, sm.sample_intvs, sm.sample_intvs_fine, self.device)
+            else:
+                # fresh reference pixels in a drawn view, and the draws of
+                # their render and of the render at the unseen pose
+                n_ref = max(256, sm.rand_rays)
+                u = torch.rand((2, n_ref), generator=self.generator, device=self.device)
+                draws["dc_view"] = torch.randint(0, n_active, (), generator=self.generator,
+                                                 device=self.device)
+                draws["dc_pixels"] = torch.stack([u[0] * (self.W - 2), u[1] * (self.H - 2)], -1)
+                draws["dc_render_ref"], draws["dc_render"] = (ray_sampling.draw_render_noise(
+                    self.generator, 1, n_ref, sm.sample_intvs, sm.sample_intvs_fine, self.device)
+                    for _ in range(2))
         return draws
 
     def loss(self, scene_p: dict, pose_p: dict, step, flags: dict, draws: dict):
@@ -297,10 +312,16 @@ class SceneTrainer:
             loss_dict["corres"] = scene_losses.correspondence_loss_from_depths(
                 depth_pair, depth_fine_pair, current_pose, self.Ks, px_self, px_other, conf,
                 id_self, id_other, step, sc)
-        if use_dc:
-            if not use_corres:
-                raise NotImplementedError("depth consistency without the corres term (fresh "
-                                          "reference pixels) is not ported yet")
+        if use_dc and not use_corres:
+            # no corres term: a fresh reference render at drawn pixels
+            loss_dict["depth_cons"] = scene_losses.depth_consistency_loss(
+                scene_pc, sm, active_pose, active_K, draws["dc_pixels"], draws["dc_view"],
+                interp_w=draws["dc_interp_w"], H=self.H, W=self.W, depth_range=depth_range,
+                progress=progress, iteration=step, compute_fine=flags["fine_on"],
+                use_fine_depth_as_ref=flags["fine_on"], opt=sc, noise_ref=draws["dc_render_ref"],
+                noise=draws["dc_render"])
+        elif use_dc:
+            # the corres pair's self-view pixels and their depth are the reference
             d_ref = depth_fine_pair[0] if depth_fine_pair is not None else depth_pair[0]
             loss_dict["depth_cons"] = scene_losses.depth_consistency_from_ref_depth(
                 scene_pc, sm, active_pose, active_K, px_self, d_ref, id_self,
@@ -740,7 +761,10 @@ class JointTrainer(SceneTrainer):
         obj = dict(self.obj_params)
         with torch.no_grad():
             obj["sdf_grid"] = grid_ops.resize_trilinear(obj["sdf_grid"], new_cfg.world_size)
-            obj["k0_grid"] = grid_ops.resize_trilinear(obj["k0_grid"], new_cfg.world_size)
+            if isinstance(obj["k0_grid"], dict):     # TensoRF planes and vectors
+                obj["k0_grid"] = tensorf.tensorf_resize(obj["k0_grid"], new_cfg.world_size)
+            else:
+                obj["k0_grid"] = grid_ops.resize_trilinear(obj["k0_grid"], new_cfg.world_size)
         self.cfg = dataclasses.replace(self.cfg, object_model=new_cfg)
         self.obj_params = obj
         self.opt_obj_state = self.opt_obj.init(obj)

@@ -11,9 +11,12 @@
 * `evaluate` on a checkpoint written by the JAX trainer at the same config.
 * Every flag of `run.py` and `eval.py` is a flag of the port's CLIs, and
   the two parse the reference's flag values into the same config.
+* `--grid_type tensorf` trains and checkpoints a TensoRF k0, which
+  `evaluate` reads; `--match_source classical|superglue` match the synthetic
+  views with the real matchers (SuperGlue on seeded random weights).
 * A port preset loads by its file path, in the package or copied elsewhere;
-  unported options raise `NotImplementedError`; without `--cpu` and without a
-  card the CLIs raise.
+  the options that once raised reach what they select; without `--cpu` and
+  without a card the CLIs raise.
 """
 import argparse
 import dataclasses
@@ -91,6 +94,57 @@ def test_run_then_evaluate_on_the_cpu(tmp_path, monkeypatch, cpu_cuts):
     else:
         assert {"d2s", "s2d", "overall", "sim3_scale", "mesh_components"} <= set(chamfer)
         assert (ev / "mesh.ply").exists()
+
+
+def test_tensorf_run_then_evaluate_on_the_cpu(tmp_path, monkeypatch, cpu_cuts):
+    """`--grid_type tensorf`: the run trains and checkpoints a TensoRF k0, and
+    `evaluate` takes the grid's backend from the checkpoint."""
+    monkeypatch.chdir(tmp_path)
+    assert trun.main(["--synthetic", "--tiny", "--cpu", "--grid_type", "tensorf", "--steps", "4", "--superstep",
+                      "2", "--i_ckpt", "4", "--i_print", "2", "--n_test", "1"]) == 0
+    out = tmp_path / "logs" / "synthetic"
+    rows = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [2, 4] and all(np.isfinite(r["loss_total"]) for r in rows)
+    paths = [e["path"] for e in json.loads(bytes(np.load(out / "last_ckpt.pkl")["__manifest__"]).decode())[
+        "sections"]["obj_params"]]
+    assert "['k0_grid']['xy_plane']" in paths and "['k0_grid']['f_vec']" in paths
+    assert tevaluate.main(["--synthetic", "--cpu", "--n_test", "1", "--res", "32", "--ckpt", str(out / "last_ckpt.pkl"),
+                           "--no_test_optim", "--eval_mesh"]) == 0
+    res = json.loads((out / "eval" / "synthetic.json").read_text())
+    assert res["iteration"] == 4 and np.isfinite(res["psnr"])
+    assert (out / "eval" / "chamfer.json").exists()
+
+
+@pytest.mark.parametrize("source", ["classical", "superglue"])
+def test_run_with_a_real_matcher_on_the_synthetic_scene(source, tmp_path, monkeypatch):
+    """`--match_source classical|superglue`: the synthetic scene's match
+    packs come from the matcher run on its rendered views (SuperGlue with
+    seeded random weights, on the CPU as `--cpu` asks), and the run trains on
+    them through the PnP chain."""
+    from poseprobe_tpu_torch.pose_init import matching, superglue
+    from tools.superglue_weights import write
+    monkeypatch.chdir(tmp_path)
+    flags = ["--match_source", source]
+    if source == "superglue":
+        write(str(tmp_path / "w"))
+        monkeypatch.setenv(matching.SUPERGLUE_WEIGHTS_ENV, str(tmp_path / "w"))
+        flags += ["--matcher", "superglue"]
+    seen = []
+    match = matching.match_pair
+    monkeypatch.setattr(matching, "match_pair", lambda *a, **k: seen.append((a[4], k.get("device", a[5:6])))
+                        or match(*a, **k))
+    sg, packs = superglue.match_pair_superglue, []
+    monkeypatch.setattr(superglue, "match_pair_superglue", lambda *a, **k: seen.append(("network", k["device"]))
+                        or packs.append(sg(*a, **k)) or packs[-1])
+    assert trun.main(["--synthetic", "--tiny", "--cpu", "--steps", "2", "--i_print", "1", "--n_test", "1"]
+                     + flags) == 0
+    rows = [json.loads(line) for line in (tmp_path / "logs" / "synthetic" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2] and all(np.isfinite(r["loss_total"]) for r in rows)
+    assert seen and {b for b, _ in seen if b != "network"} == {"classical" if source == "classical" else "superglue"}
+    assert (("network", "cpu") in seen) == (source == "superglue")
+    # every SuperGlue pack (object and scene for 3 pairs, one skip pair) holds
+    # matches at the published 0.2 threshold
+    assert len(packs) == (7 if source == "superglue" else 0) and all((p[:, 4] > 0).any() for p in packs)
 
 
 def test_evaluate_reads_a_jax_checkpoint(tmp_path, monkeypatch, cpu_cuts):
@@ -175,9 +229,19 @@ def test_a_port_preset_loads_by_its_path(tmp_path):
                                         (["--grid_type", "tensorf"], "TensoRF"),
                                         (["--match_source", "classical"], "matchers")])
 def test_unported_options_raise(flags, item, tmp_path, monkeypatch):
+    """The options that raised before they were ported (the name is kept from
+    then) now reach what they select: the loader's matcher, the object
+    config's grid, the synthetic scene's match source.
+    `test_run_with_a_real_matcher_on_the_synthetic_scene` and
+    `test_tensorf_run_then_evaluate_on_the_cpu` run them."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        trun.main(["--synthetic", "--cpu"] + flags)
+    args = trun.build_parser().parse_args(["--synthetic", "--cpu"] + flags)
+    cfg = trun.apply_overrides(trun.load_config(args), args)
+    kw = trun.synthetic_loader_kwargs(cfg, args, run=True)
+    got = {"matchers": (args.matcher, kw.get("match_source", "analytic")), "TensoRF": cfg.object_model.grid_type}
+    want = {("--matcher", "matchers"): ("superglue", "analytic"), ("--match_source", "matchers"): ("auto", "classical"),
+            ("--grid_type", "TensoRF"): "tensorf"}
+    assert got[item] == want[(flags[0], item)]
 
 
 def test_the_clis_need_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):

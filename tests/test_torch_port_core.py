@@ -451,5 +451,6 @@ def test_port_imports_no_jax():
                  "config.presets.replica_room1", "config.presets.replica_scene", "config.presets.shapenet_car",
                  "config.presets.toy_candy", "config.presets.toy_desk", "config.presets.toy_scene",
                  "train.state", "eval.mesh", "eval.video", "eval.turbo", "eval.dtu_protocol", "utils.vis",
-                 "utils.logging", "utils.profiling", "run", "evaluate"):
+                 "utils.logging", "utils.profiling", "run", "evaluate", "ops.tensorf", "pose_init.superglue",
+                 "pose_init.convert"):
         assert f"poseprobe_tpu_torch.{name}" in loaded, name

@@ -852,3 +852,107 @@ def test_sdf_volume_and_evaluate_full_launch_the_kernels():
     assert np.isfinite(res["psnr"])
     fwd, bwd = fused_mlp.fwd_launches - before[0], fused_mlp.bwd_launches - before[1]
     assert fwd > 2 * len(data.i_test) and bwd >= 2 * len(data.i_test), (fwd, bwd)
+
+
+def _window_against_eager(tr):
+    """4 eager steps, a superstep window and four replays from one state: the
+    losses, counters and launches of the windows against the eager steps'
+    (`test_torch_port_superstep.py`'s rule: losses rtol 1e-3, each parameter
+    within 2e-2 in the L2 norm relative to its own). Returns the launches of
+    the eager steps."""
+    from poseprobe_tpu_torch.core.tree import tree_leaves
+    from poseprobe_tpu_torch.train import graphs
+    tr.step()
+    start = ([t.clone() for t in tr.state_tensors()], tr.generator.get_state(), tr.global_step)
+
+    def run(window: bool):
+        for t, c in zip(tr.state_tensors(), start[0]):
+            t.copy_(c)
+        tr.generator.set_state(start[1])
+        tr.global_step = start[2]
+        before = graphs._counts()
+        if window:
+            losses = tr.steps_scan(4)["loss_total"]
+        else:
+            losses = torch.stack([tr.step()["loss_total"] for _ in range(4)])
+        torch.cuda.synchronize()
+        launched = [b - a for a, b in zip(before, graphs._counts())]
+        params = [t.clone() for n in tr.GROUPS for t in tree_leaves(getattr(tr, f"{n}_params"))]
+        return losses.cpu(), params, int(tr._step_t), launched
+
+    eager = run(False)
+    for name, out in (("capture", run(True)), ("replays", run(True))):
+        np.testing.assert_allclose(out[0].numpy(), eager[0].numpy(), rtol=1e-3, err_msg=name)
+        assert out[2] == eager[2] and out[3] == eager[3], (name, out[2:], eager[2:])
+        for a, b in zip(out[1], eager[1]):
+            assert (a - b).norm().item() <= 2e-2 * max(b.norm().item(), 1e-30), name
+    return eager[3]
+
+
+@pytest.mark.cuda
+def test_tensorf_step_replays_as_a_cuda_graph():
+    """The small bench workload with a TensoRF k0: the early step's lookups
+    are the 1-channel SDF ones (3 each way per step) and its graph window
+    agrees with eager steps; a doubling through `tensorf_resize` makes the
+    captured step stale and the next window captures again."""
+    _need_card()
+    import dataclasses
+    cfg, data = _bench_workload(True, "bfloat16")
+    cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(cfg.object_model, grid_type="tensorf"))
+    tr = JointTrainer(cfg, data, device="cuda")
+    tr.global_step = 1
+    before = (grid_ops.fwd_launches, grid_ops.bwd_launches)
+    _window_against_eager(tr)
+    assert (grid_ops.fwd_launches - before[0]) % 3 == 0 and grid_ops.fwd_launches > before[0]
+    graph = tr._graphs.graph
+    tr.scale_volume_grid(tr.cfg.object_model.num_voxels * 8)
+    tr.refresh_maskcache()
+    losses = tr.steps_scan(4)["loss_total"]
+    assert tr._graphs.graph is not graph and torch.isfinite(losses).all()
+
+
+@pytest.mark.cuda
+def test_fresh_pixel_depth_consistency_replays_as_a_cuda_graph():
+    """The small scene workload at its mid step with the corres weight removed:
+    depth consistency draws fresh reference pixels on the device, and the
+    graph window agrees with eager steps."""
+    _need_card()
+    import dataclasses
+    from poseprobe_tpu_torch.train.trainer import SceneTrainer
+    cfg, data = _bench_workload(True, "bfloat16")
+    lw = tuple((k, None if k == "corres" else v) for k, v in cfg.scene_train.loss_weight)
+    cfg = dataclasses.replace(cfg, scene_train=dataclasses.replace(cfg.scene_train, loss_weight=lw))
+    tr = SceneTrainer(cfg, data, device="cuda")
+    tr.global_step = tr.fine_start + 1
+    assert "dc_pixels" in tr.sample_draws(tr.phase_flags(tr.global_step))
+    before = fused_mlp.fwd_launches
+    _window_against_eager(tr)
+    assert fused_mlp.fwd_launches > before
+
+
+@pytest.mark.cuda
+def test_superglue_on_the_card_matches_the_cpu(tmp_path, monkeypatch):
+    """SuperPoint's maps and SuperGlue's log assignment on the card against
+    the same modules on the CPU (seeded random weights; TF32 off), within
+    1e-4 of the maps' largest value and 1e-4 abs; keypoints from the CPU's
+    heat map ranked on the card equal the CPU's."""
+    _need_card()
+    from poseprobe_tpu_torch.pose_init import matching, superglue
+    from tools.superglue_weights import write
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    write(str(tmp_path))
+    monkeypatch.setenv(matching.SUPERGLUE_WEIGHTS_ENV, str(tmp_path))
+    (sp, sg), (sp_c, sg_c) = superglue.load_networks("cuda"), superglue.load_networks("cpu")
+    g = torch.rand((240, 320), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        (heat, desc), (heat_c, desc_c) = sp.maps(g.cuda()), sp_c.maps(g)
+        for a, b in ((heat, heat_c), (desc, desc_c)):
+            assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
+        k, s = superglue.nms_topk(heat_c.cuda())
+        k_c, s_c = superglue.nms_topk(heat_c)
+        assert torch.equal(k.cpu(), k_c) and torch.equal(s.cpu(), s_c)
+        d = superglue.sample_descriptors(desc, k)
+        z = sg.log_assignment(k, s, d, k.flip(0), s.flip(0), d.flip(0), (240, 320))
+        z_c = sg_c.log_assignment(k_c, s_c, d.cpu(), k_c.flip(0), s_c.flip(0), d.cpu().flip(0), (240, 320))
+    assert (z.cpu() - z_c).abs().max() <= 1e-4

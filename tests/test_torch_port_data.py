@@ -303,17 +303,22 @@ def test_matcher_backends(monkeypatch, tmp_path):
     assert not tmatching.superglue_available()
     pack = tmatching.match_pair(*args, backend="auto")
     assert np.array_equal(pack, jmatching.match_pair(*args, backend="auto")) and pack[:, 4].any()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # SuperGlue asked for without weights: both packages raise
+    with pytest.raises(RuntimeError, match=tmatching.SUPERGLUE_WEIGHTS_ENV):
         tmatching.match_pair(*args, backend="superglue")
+    with pytest.raises(RuntimeError, match=jmatching.SUPERGLUE_WEIGHTS_ENV):
+        jmatching.match_pair(*args, backend="superglue")
     # weights named but absent: the reference matches classically, and so does the port
     monkeypatch.setenv(tmatching.SUPERGLUE_WEIGHTS_ENV, str(tmp_path / "missing.npz"))
     assert np.array_equal(tmatching.match_pair(*args, backend="auto"), pack)
-    # weights present: the reference would run SuperGlue, which the port refuses to stand in for
-    (tmp_path / "w.npz").write_bytes(b"")
-    monkeypatch.setenv(tmatching.SUPERGLUE_WEIGHTS_ENV, str(tmp_path / "w.npz"))
+    # weights present: "auto" runs SuperGlue (on the device asked for), as the reference does
+    from poseprobe_tpu_torch.pose_init import superglue as tsuperglue
+    from tools.superglue_weights import write
+    write(str(tmp_path / "w"))
+    monkeypatch.setenv(tmatching.SUPERGLUE_WEIGHTS_ENV, str(tmp_path / "w"))
     assert tmatching.superglue_available() and jmatching.superglue_available()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmatching.match_pair(*args, backend="auto")
+    auto = tmatching.match_pair(*args, backend="auto", device="cpu")
+    assert np.array_equal(auto, tsuperglue.match_pair_superglue(*args, device="cpu"))
     assert np.array_equal(tmatching.match_pair(*args, backend="classical"), pack)
 
 

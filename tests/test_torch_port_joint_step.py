@@ -291,12 +291,19 @@ def test_pg_scale_resizes_grids_and_restarts_the_optimizer():
 
 @pytest.mark.parametrize("field,value", [("grid_type", "tensorf")])
 def test_unported_options_raise(field, value):
+    """The option that raised before it was ported (the name is kept from
+    then) now builds: the trainer's
+    k0 is the TensoRF planes and vectors, and the object optimizer keeps
+    moments for each of them."""
     import dataclasses
     from poseprobe_tpu_torch.train.trainer import _bench_workload
     cfg, data = _bench_workload(True, "float32")
     cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(cfg.object_model, **{field: value}))
-    with pytest.raises(NotImplementedError):
-        TJointTrainer(cfg, data, device="cpu")
+    tr = TJointTrainer(cfg, data, device="cpu")
+    k0 = tr.obj_params["k0_grid"]
+    assert set(k0) == {"xy_plane", "xz_plane", "yz_plane", "x_vec", "y_vec", "z_vec", "f_vec"}
+    assert {k: tuple(v.shape) for k, v in tr.opt_obj_state["mu"]["k0_grid"].items()} == \
+        {k: tuple(v.shape) for k, v in k0.items()}
 
 
 def test_surface_feature_term_builds_and_takes_its_own_cell():

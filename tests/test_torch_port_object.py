@@ -117,10 +117,19 @@ def test_cube_init_maskout_and_param_tree():
 
 @pytest.mark.parametrize("over", [dict(grid_type="tensorf")])
 def test_unported_object_options_raise(over):
+    """The option that raised before it was ported (the name is kept from
+    then) now renders: a TensoRF k0
+    gives the render of the dense k0 it expands to (a plane x vector product
+    interpolates as the product of the bilinear and linear lookups)."""
+    from poseprobe_tpu_torch.ops import tensorf
     _, tp, _, _ = _object_state()
+    cfg = tobj.ObjectConfig(**{**OC, **over})
+    k0 = tobj.init_k0_grid(torch.Generator().manual_seed(0), cfg, "cpu")
     o, d, v = _rays(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tobj.render(tp, tobj.ObjectConfig(**{**OC, **over}), T(o), T(d), T(v), 10)
+    out = tobj.render(dict(tp, k0_grid=k0), cfg, T(o), T(d), T(v), 10)
+    dense = tobj.render(dict(tp, k0_grid=tensorf.tensorf_to_dense(k0)), tobj.ObjectConfig(**OC), T(o), T(d), T(v), 10)
+    for k in ("rgb_marched", "depth", "cum_weights"):
+        np.testing.assert_allclose(out[k].numpy(), dense[k].numpy(), rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 def test_semantic_samplers_identical():
