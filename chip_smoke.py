@@ -97,6 +97,21 @@ per pair, the card's maps and log assignment against the CPU's, a trainer
 fitted on those packs); and `run --synthetic --grid_type tensorf
 --match_source superglue --matcher superglue` with `evaluate --eval_mesh` on
 its checkpoint.
+Last, the parallel package (`drive_parallel`, `poseprobe_tpu_torch/parallel/`):
+two spawned ranks (NCCL with one rank per card where there are two cards,
+else gloo with both on cuda:0; a file rendezvous, a deadline that ends every
+rank) run `build_trainer()` at full width on a ('data',) mesh -- the early
+step from step 1 and a mid step, held against the same steps on one rank
+(this process) in the loss and in the params and Adam moments, the ranks'
+params bit for bit equal, and `fit(4, superstep=2)` across a view activation
+(rank 0's state broadcast after it) -- then `train_step_tp` at 192^3 (1024
+rays x 96 samples) and `joint_step_tp` with the bf16 trunk on a (1, 2) mesh,
+held against the unsharded steps, with the trilinear kernels held at the
+halo-extended slab; each rank counts its trunk and trilinear launches. Then one
+NCCL rank: `fit(4, superstep=4)`, its step captured with the gradient
+all-reduce inside the graph, against two runs without a mesh. It prints the DP
+step ms on two ranks and one, the all-reduce's ms and bytes, the TP step's and
+the halo's ms.
 With `--lookup-points FILE` it also saves the captured lookup points there
 (`torch.save`), for `tools/lookup_times.py`.
 
@@ -109,6 +124,7 @@ around it; it has no CPU path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -473,25 +489,42 @@ def _tri_close(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
 CAPTURED: dict = {}                     # lookup points by capture label, for --lookup-points
 
 
+@contextlib.contextmanager
+def _capturing(fused_mlp, grid_ops, calls: list, lookups: list):
+    """Appends the trunk calls [(enc, w, b, L, skip)] and the grid lookups
+    [(grid shape, with_grad, points [N, 3], lo, hi)] made inside the block,
+    each with its own inputs, for `_hold_captured`."""
+    trunk_fwd = fused_mlp.trunk_fwd
+    kernels = grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad
+
+    def watch_trunk(enc, w, b, L, skip, store_acts=True):
+        calls.append((enc.detach().clone(), w.detach().clone(), b.detach().clone(), L, skip))
+        return trunk_fwd(enc, w, b, L, skip, store_acts)
+
+    def watch(fn, with_grad):
+        def call(grid, xyz, lo, hi):
+            bound = lambda v: torch.as_tensor(v, device=xyz.device).detach().float().clone()  # noqa: E731
+            lookups.append((tuple(grid.shape), with_grad, xyz.detach().reshape(-1, 3).clone(), bound(lo), bound(hi)))
+            return fn(grid, xyz, lo, hi)
+        return call
+
+    fused_mlp.trunk_fwd = watch_trunk
+    grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = watch(kernels[0], False), watch(kernels[1], True)
+    try:
+        yield
+    finally:
+        fused_mlp.trunk_fwd = trunk_fwd
+        grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = kernels
+
+
 def capture_lookup_points(grid_ops, tr, label: str) -> list:
     """The points of every grid lookup of the joint trainer's next step, in
     call order: [(grid shape, with_grad, points [N, 3], lo, hi)]; kept in
     CAPTURED[label]."""
+    from poseprobe_tpu_torch.ops import fused_mlp
     seen = []
-    kernels = grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad
-
-    def watch(fn, with_grad):
-        def call(grid, xyz, lo, hi):
-            seen.append((tuple(grid.shape), with_grad, xyz.detach().reshape(-1, 3).clone(),
-                         torch.as_tensor(lo, device=DEVICE).float(), torch.as_tensor(hi, device=DEVICE).float()))
-            return fn(grid, xyz, lo, hi)
-        return call
-
-    grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = watch(kernels[0], False), watch(kernels[1], True)
-    try:
+    with _capturing(fused_mlp, grid_ops, [], seen):
         tr.step()
-    finally:
-        grid_ops.trilinear_sample, grid_ops.trilinear_sample_with_grad = kernels
     torch.cuda.synchronize()
     print(f"lookups of step {tr.global_step - 1} ({label}) captured: "
           + ", ".join(f"grid {list(gs)}{' value+grad' if wg else ''}: {p.shape[0]} points" for gs, wg, p, _, _ in seen))
@@ -1740,23 +1773,6 @@ def _eager_steps(tr, n: int, counts, reset) -> tuple[float, dict, list]:
     return (time.perf_counter() - t0) / n * 1e3, counts(), metrics
 
 
-def _capture_trunk_calls(fused_mlp, tr) -> list:
-    """The trunk calls [(enc, w, b, L, skip)] of one eager step of `tr`."""
-    calls, trunk_fwd = [], fused_mlp.trunk_fwd
-
-    def watch(enc, w, b, L, skip, store_acts=True):
-        calls.append((enc.detach().clone(), w.detach().clone(), b.detach().clone(), L, skip))
-        return trunk_fwd(enc, w, b, L, skip, store_acts)
-
-    fused_mlp.trunk_fwd = watch
-    try:
-        tr.step()
-    finally:
-        fused_mlp.trunk_fwd = trunk_fwd
-    torch.cuda.synchronize()
-    return calls
-
-
 def _loss_against_plain(tr, loss_fn, grid_ops) -> tuple[float, float]:
     """One step's loss through the kernels, against the same step through the
     plain lookups (rel diff, tolerance 1e-5) and through the plain trunk (rel
@@ -1933,7 +1949,11 @@ def drive_fresh_dc(mods: dict, trainer_mod) -> tuple[dict, dict]:
     # whose depth the loss does not read (5)
     if per_step != {"trunk_fwd": 8, "trunk_bwd": 5, "trilinear_fwd": 0, "trilinear_bwd": 0}:
         raise AssertionError(f"the fresh-pixel step did not launch the trunk kernels of its renders: {per_step}")
-    errs = _hold_captured(fused_mlp, grid_ops, [], _capture_trunk_calls(fused_mlp, tr), "fresh_dc", lookup_bwd=False)
+    calls = []
+    with _capturing(fused_mlp, grid_ops, calls, []):
+        tr.step()
+    torch.cuda.synchronize()
+    errs = _hold_captured(fused_mlp, grid_ops, [], calls, "fresh_dc", lookup_bwd=False)
     _, rel = _loss_against_plain(
         tr, lambda f, d: tr.loss(tr.scene_params, tr.pose_params, tr.global_step, f, d)[0], grid_ops)
     print(f"fresh-pixel step loss through the trunk kernels against the plain trunk: rel diff {rel:.2e} "
@@ -2099,6 +2119,394 @@ def drive_last_paths(mods: dict, trainer_mod, work: str, root: str, preset: tupl
     return counts, errs
 
 
+# ------------------------------------------------------------------ parallel
+
+PARALLEL_RANKS = 2
+NCCL_WINDOWS = 2                       # the captured window, then one replay of it
+PARALLEL_DEADLINE_S = 420              # a hung collective fails the phase instead of stalling the run
+TP_STEP = dict(near=1.0, far=3.5, n_samples=96, xyz_min=(-0.5,) * 3, xyz_max=(0.5,) * 3, s_val=0.05)
+TP_GRID, TP_RAYS, TP_VIEWS = 192, 1024, 2   # benchmarks/grid_tp_step.py's defaults (96 samples above)
+TP_VALUE_ATOL = 2e-5                   # the sharded sampler's rebased z coordinate (tests/test_grid_tp.py)
+
+
+def _param_copies(tr) -> dict:
+    """The params and the Adam first moments (which carry the gradients: a
+    gradient off by a factor moves them by that factor, where Adam's step
+    hardly moves), copied to the host."""
+    from poseprobe_tpu_torch.core.tree import tree_leaves
+    out = {}
+    for n in tr.GROUPS:
+        state = getattr(tr, f"opt_{n}_state")
+        for what, tree in (("", getattr(tr, f"{n}_params")), (" mu", None if state is None else state["mu"])):
+            out.update({f"{n}{what}[{i}]": t.detach().cpu().clone() for i, t in enumerate(tree_leaves(tree))
+                        if tree is not None})
+    return out
+
+
+def _rel_l2(a: dict, b: dict) -> tuple[float, str]:
+    """The worst difference between two `_param_copies`, in the L2 norm: an
+    Adam first moment relative to its own norm (the moments carry the
+    gradients), a param relative to the norm of its group's params (a
+    zero-initialised bias takes its first Adam steps of +-lr each, whose sign
+    the kernels' atomics decide for a gradient element near zero, so its own
+    norm does not bound it)."""
+    sq: dict = {}
+    for k, t in b.items():
+        sq[k.split("[")[0]] = sq.get(k.split("[")[0], 0.0) + float(t.float().norm()) ** 2
+    return max((float((a[k] - b[k]).float().norm())
+                / max(float(b[k].float().norm()) if " mu[" in k else sq[k.split("[")[0]] ** 0.5, 1e-30), k)
+               for k in b)
+
+
+def _dp_sequence(tr, capture=contextlib.nullcontext, timed_steps: int = 5) -> dict:
+    """The data-parallel phase's steps, run alike on the ranks and on one
+    rank: an early step from step 1 and a mid step (fine sampling, depth
+    consistency) on the draws of a fresh trainer, each inside `capture()`,
+    the params after each, then eager early-phase steps timed."""
+    out = {}
+    for phase, step in (("early", 1), ("mid", tr.fine_start + 1)):
+        tr.global_step = step
+        with capture():
+            out[f"{phase}_loss"] = float(tr.step()["loss_total"])
+        out[f"{phase}_params"] = _param_copies(tr)
+    tr.global_step = 2
+    tr.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        tr.step()
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) / timed_steps * 1e3
+    return out
+
+
+def _tp_inputs(device, sm) -> tuple:
+    """benchmarks/grid_tp_step.py's inputs from a seed (a cube SDF and a
+    12-channel k0 at 192^3, 1024 rays from z = -2 into the box, targets), and
+    the joint step's (the rays as two views' camera rays, base poses, se3
+    deltas, the scene params of `sm`)."""
+    from poseprobe_tpu_torch.models import scene_nerf
+    g = torch.Generator().manual_seed(0)
+    xs = torch.linspace(-0.5, 0.5, TP_GRID)
+    X, Y, Z = torch.meshgrid(xs, xs, xs, indexing="ij")
+    sdf = (torch.maximum(torch.maximum(X.abs(), Y.abs()), Z.abs()) - 0.3)[None]
+    k0 = torch.randn((12, TP_GRID, TP_GRID, TP_GRID), generator=g) * 0.05
+    ang = torch.rand((TP_RAYS, 2), generator=g) * 0.5 - 0.25
+    rays_d = torch.stack([torch.tan(ang[:, 0]), torch.tan(ang[:, 1]), torch.ones(TP_RAYS)], -1)
+    rays_o = torch.tensor([0.0, 0.0, -2.0]).expand(TP_RAYS, 3).contiguous()
+    tgt, msk = torch.rand((TP_RAYS, 3), generator=g), (ang.abs() < 0.15).all(1).float()
+    base = torch.eye(3, 4).repeat(TP_VIEWS, 1, 1)
+    base[:, 2, 3], base[:, 0, 3] = 2.0, torch.linspace(-0.1, 0.1, TP_VIEWS)
+    joint = {"params": {"sdf": sdf, "k0": k0, "se3": torch.randn((TP_VIEWS, 6), generator=g) * 0.01,
+                        "scene": scene_nerf.init_scene_params(torch.Generator().manual_seed(3), sm, "cpu")},
+             "rays_cam": rays_d.reshape(TP_VIEWS, -1, 3), "base_w2c": base,
+             "targets": tgt.reshape(TP_VIEWS, -1, 3), "masks": msk.reshape(TP_VIEWS, -1)}
+    to = lambda t: t.to(device)  # noqa: E731
+    from poseprobe_tpu_torch.core.tree import tree_map
+    return [to(t) for t in (sdf, k0, rays_o, rays_d, tgt, msk)], tree_map(to, joint)
+
+
+def _tp_compare(label: str, loss, ref_loss, pairs: dict) -> dict:
+    """A sharded step's loss and updates against the unsharded step's: the
+    loss within GRAPH_LOSS_RTOL, each update {name: (this rank's, its part of
+    the reference's, the whole reference's)} within REL_TOL of the whole
+    reference update in the L2 norm (a slab behind the surface takes updates
+    near zero, which a norm of their own would not bound)."""
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    rel = max((float((a - b).norm()) / max(float(w.norm()), 1e-30), k) for k, (a, b, w) in pairs.items())
+    if not (loss_rel <= GRAPH_LOSS_RTOL and rel[0] <= REL_TOL):
+        raise AssertionError(f"{label}: loss rel {loss_rel:.2e}, worst rel L2 {rel}")
+    return {"loss_rel": loss_rel, "rel_l2": rel[0], "worst": rel[1]}
+
+
+def _timed(fn, n: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _parallel_rank(rank: int, world: int, work: str, backend: str) -> None:
+    """One rank of the parallel phase (a spawned process): the data-parallel
+    steps of `build_trainer()` and a `fit` window across a view activation on
+    a ('data',) mesh; `train_step_tp` and `joint_step_tp` on a (1, world)
+    mesh against the unsharded steps on this card; then the trunk and
+    trilinear kernels held against their plain versions at every call of the
+    early and mid DP steps and of the `joint_step_tp` call (this rank's share
+    of the rays, the halo-extended slabs). Writes its results to
+    ``work/rank<rank>.pt``."""
+    import torch.distributed as dist
+    from poseprobe_tpu_torch.core.tree import tree_leaves
+    from poseprobe_tpu_torch.ops import fused_mlp, grid as grid_ops
+    from poseprobe_tpu_torch.parallel import grid_tp, mesh as mesh_mod, multihost, object_tp
+    from poseprobe_tpu_torch.train import trainer as trainer_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.init_distributed(f"file://{work}/rendezvous", world, rank, backend=backend,
+                               timeout_s=PARALLEL_DEADLINE_S)
+    mesh = mesh_mod.make_mesh()
+    dev = mesh.device
+    counts, reset = _launch_counters(fused_mlp, grid_ops)
+    out = {"device": str(dev), "backend": mesh.backend}
+    reset()
+    tr = trainer_mod.build_trainer(small=SMALL, device=dev, mesh=mesh)
+    dp_calls, dp_lookups, tp_calls, tp_lookups = [], [], [], []
+    out["dp"] = _dp_sequence(tr, lambda: _capturing(fused_mlp, grid_ops, dp_calls, dp_lookups))
+    tr.global_step = tr.cfg.camera.incremental_step - 2          # a window, the activation of view 3, a window
+    n_active = tr.n_active
+    out["fit_hist"] = tr.fit(4, log_every=2, superstep=2)
+    out["fit_params"] = _param_copies(tr)
+    out["fit_n_active"] = (n_active, tr.n_active)
+    flat = torch.zeros(sum(t.numel() for n in tr._trained(tr.phase_flags(1)) for t in tree_leaves(
+        getattr(tr, f"{n}_params"))), device=dev)
+    sm = tr.cfg.scene_model
+    del tr
+
+    tp_mesh = grid_tp.make_grid_mesh(1, world)
+    (sdf, k0, ro, rd, tgt, msk), joint = _tp_inputs(dev, sm)
+    slabs = [grid_tp.shard_grid(g, tp_mesh) for g in (sdf, k0)]
+    new_sdf, new_k0, m = object_tp.train_step_tp(*slabs, ro, rd, tgt, msk, mesh=tp_mesh, **TP_STEP)
+    jp = dict(joint["params"], sdf=grid_tp.shard_grid(joint["params"]["sdf"], tp_mesh),
+              k0=grid_tp.shard_grid(joint["params"]["k0"], tp_mesh))
+    jargs = {k: v for k, v in joint.items() if k != "params"}
+    with _capturing(fused_mlp, grid_ops, tp_calls, tp_lookups):
+        jnew, jm = object_tp.joint_step_tp(jp, sm, **jargs, progress=1.0, mesh=tp_mesh, **TP_STEP)
+    torch.cuda.synchronize()
+    out["counts"] = counts()                                     # the main path's launches end here
+
+    s, G = tp_mesh.axis(grid_tp.GRID_AXIS).index, world
+    cut = lambda t: t[..., s * (TP_GRID // G):(s + 1) * (TP_GRID // G)]  # noqa: E731
+    ref_sdf, ref_k0, ref_m = object_tp.train_step_tp(sdf, k0, ro, rd, tgt, msk, mesh=None, **TP_STEP)
+    # the updates (SGD: lr x the gradient) of this rank's slabs against the unsharded step's
+    out["tp"] = _tp_compare(f"rank {rank} train_step_tp", m["loss"], ref_m["loss"],
+                            {"sdf": (new_sdf - slabs[0], cut(ref_sdf - sdf), ref_sdf - sdf),
+                             "k0": (new_k0 - slabs[1], cut(ref_k0 - k0), ref_k0 - k0)})
+    ref_new, ref_jm = object_tp.joint_step_tp(joint["params"], sm, **jargs, progress=1.0, mesh=None, **TP_STEP)
+    leaves = zip(*(tree_leaves(t) for t in (jp, jnew, joint["params"], ref_new)))
+    pairs = {f"param[{i}] {tuple(w.shape)}": (n - o, (r - w) if o.shape == w.shape else cut(r - w), r - w)
+             for i, (o, n, w, r) in enumerate(leaves)}
+    out["joint"] = _tp_compare(f"rank {rank} joint_step_tp", jm["loss"], ref_jm["loss"], pairs)
+
+    t = torch.linspace(TP_STEP["near"], TP_STEP["far"], TP_STEP["n_samples"], device=dev)
+    pts = (ro[:, None] + rd[:, None] * t[None, :, None]).reshape(-1, 3)
+    lo, hi = (torch.tensor(b, device=dev) for b in (TP_STEP["xyz_min"], TP_STEP["xyz_max"]))
+    sharded = grid_tp.sample_grid_tp(slabs[1], pts, lo, hi, tp_mesh)
+    out["value_err"] = float((sharded - grid_ops.trilinear_sample(k0, pts, lo, hi)).abs().max())
+    if not out["value_err"] <= TP_VALUE_ATOL:
+        raise AssertionError(f"rank {rank}: sharded lookup off by {out['value_err']:.3e}")
+
+    # times: the sharded step with its collectives, the unsharded step on this card with the
+    # other ranks waiting, the halo exchange, and the data-parallel gradient all-reduce
+    out["tp_ms"] = _timed(lambda: object_tp.train_step_tp(*slabs, ro, rd, tgt, msk, mesh=tp_mesh, **TP_STEP))
+    out["joint_ms"] = _timed(lambda: object_tp.joint_step_tp(jp, sm, **jargs, progress=1.0, mesh=tp_mesh,
+                                                             **TP_STEP))
+    out["halo_ms"] = _timed(lambda: grid_tp._halo_extend(slabs[1], tp_mesh), n=10)
+    out["halo_bytes"] = world * slabs[1][..., 0].numel() * 4
+    if rank == 0:
+        out["tp_alone_ms"] = _timed(lambda: object_tp.train_step_tp(sdf, k0, ro, rd, tgt, msk, mesh=None, **TP_STEP))
+    dist.barrier()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    mesh.all_reduce_(flat, mesh.axis(mesh_mod.DATA_AXIS))
+    start.record()
+    for _ in range(5):
+        mesh.all_reduce_(flat, mesh.axis(mesh_mod.DATA_AXIS))
+    end.record()
+    torch.cuda.synchronize()
+    out["all_reduce_ms"], out["all_reduce_bytes"] = start.elapsed_time(end) / 5, flat.numel() * 4
+
+    # the kernels against their plain versions at the main path's own calls on this rank
+    out["shapes"] = {"dp_trunk_points": sorted({c[0].shape[0] for c in dp_calls}),
+                     "tp_trunk_points": sorted({c[0].shape[0] for c in tp_calls}),
+                     "tp_grids": sorted({gs for gs, *_ in tp_lookups})}
+    dp_errs = _hold_captured(fused_mlp, grid_ops, dp_lookups, dp_calls, f"rank {rank} DP steps", lookup_bwd=True)
+    del dp_calls, dp_lookups
+    tp_errs = _hold_captured(fused_mlp, grid_ops, tp_lookups, tp_calls, f"rank {rank} joint_step_tp",
+                             lookup_bwd=True)
+    out["errs"] = {k: max(dp_errs[k], tp_errs[k]) for k in dp_errs}
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _nccl_rank(work: str) -> None:
+    """The captured step with its all-reduce inside the graph: two windows of
+    `fit(superstep=4)` of `build_trainer()` from step 0 on an NCCL group of
+    one rank (the capture, then a replay), against the same windows without
+    a mesh, run twice; the params after each window (a spawned process).
+    Writes ``work/nccl.pt``."""
+    import datetime
+    import torch.distributed as dist
+    from poseprobe_tpu_torch.ops import fused_mlp, grid as grid_ops
+    from poseprobe_tpu_torch.parallel import mesh as mesh_mod
+    from poseprobe_tpu_torch.train import trainer as trainer_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    # init_distributed takes a job of one rank for none; the group is made here
+    dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous_nccl", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=PARALLEL_DEADLINE_S))
+    mesh = mesh_mod.make_mesh()
+    counts, reset = _launch_counters(fused_mlp, grid_ops)
+    out = {}
+    for name in ("alone", "rerun", "mesh"):
+        t = trainer_mod.build_trainer(small=SMALL, device="cuda", mesh=mesh if name == "mesh" else None)
+        t.global_step = 0
+        if name == "mesh":
+            reset()
+            issued = mesh.all_reduces
+        torch.cuda.synchronize()
+        params = []
+        for _ in range(NCCL_WINDOWS):
+            hist = t.fit(SUPERSTEP, log_every=SUPERSTEP, superstep=SUPERSTEP)
+            params.append(_param_copies(t))
+        out[name] = {"hist": hist, "params": params}
+        if name == "mesh":
+            out["counts"] = counts()
+            out["issued"] = mesh.all_reduces - issued
+            out["captured"] = t._graphs.graph is not None
+        out[name]["replay_ms"] = _timed(lambda: t.steps_scan(SUPERSTEP), n=2) / SUPERSTEP
+        t.drop_graphs()
+        del t
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(work, "nccl.pt"))
+    dist.destroy_process_group()
+
+
+def _spawn(target, arglists: list, what: str) -> None:
+    """Run `target` in one spawned process per argument list; all must end
+    with code 0 before PARALLEL_DEADLINE_S, else every one left is ended and
+    the phase fails."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args) for args in arglists]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PARALLEL_DEADLINE_S
+    try:
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"{what}: exit codes {codes} (None or negative: ended at the "
+                             f"{PARALLEL_DEADLINE_S} s deadline or by a signal)")
+
+
+def drive_parallel(trainer_mod, smi: str) -> tuple[dict, dict]:
+    """The parallel package on the card. Two ranks (NCCL with one per card
+    where there are two cards, else gloo, both on cuda:0): the data-parallel
+    early and mid steps of `build_trainer()` at full width against the same
+    steps on one rank (this process), the two ranks' params bit for bit
+    equal, a `fit` window across a view activation; `train_step_tp` at 192^3
+    and `joint_step_tp` with the bf16 trunk on a (1, 2) mesh against the
+    unsharded steps. Then one NCCL rank: `fit(superstep=4)`, its step captured
+    with the gradient all-reduce inside the graph, against the same `fit`
+    without a mesh. Returns the ranks' launches (summed) and the kernel
+    checks' worst errors."""
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= PARALLEL_RANKS else "gloo"
+    print(f"parallel phase: {PARALLEL_RANKS} ranks, backend {backend} ({n_cards} card(s); "
+          f"{'one rank per card' if backend == 'nccl' else 'both ranks on cuda:0'})")
+    work = tempfile.mkdtemp(prefix="poseprobe_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ref_tr = trainer_mod.build_trainer(small=SMALL, device=DEVICE)
+        ref = _dp_sequence(ref_tr)
+        del ref_tr
+        torch.cuda.empty_cache()
+        _spawn(_parallel_rank, [(r, PARALLEL_RANKS, work, backend) for r in range(PARALLEL_RANKS)],
+               f"{PARALLEL_RANKS} {backend} ranks")
+        ranks_s = time.perf_counter() - t0
+        res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(PARALLEL_RANKS)]
+        t0 = time.perf_counter()
+        _spawn(_nccl_rank, [(work,)], "one NCCL rank")
+        nccl_s = time.perf_counter() - t0
+        nccl = torch.load(os.path.join(work, "nccl.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    for phase in ("early", "mid", "fit"):
+        key = "fit_params" if phase == "fit" else f"{phase}_params"
+        a, b = (r[key] if phase == "fit" else r["dp"][key] for r in res[:2])
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"parallel {phase}: the ranks' params differ")
+    for phase in ("early", "mid"):
+        loss_rel = abs(res[0]["dp"][f"{phase}_loss"] - ref[f"{phase}_loss"]) / abs(ref[f"{phase}_loss"])
+        rel = _rel_l2(res[0]["dp"][f"{phase}_params"], ref[f"{phase}_params"])
+        print(f"DP {phase} step on {PARALLEL_RANKS} ranks against 1: loss {res[0]['dp'][f'{phase}_loss']:.6f} "
+              f"against {ref[f'{phase}_loss']:.6f} (rel {loss_rel:.2e}, tolerance {GRAPH_LOSS_RTOL}); params rel L2 "
+              f"{rel[0]:.2e} (tolerance {REL_TOL}, worst {rel[1]}); the ranks' params bit for bit equal")
+        if not (loss_rel <= GRAPH_LOSS_RTOL and rel[0] <= REL_TOL):
+            raise AssertionError(f"parallel {phase}: the data-parallel step disagrees with one rank")
+    hist, (before, after) = res[0]["fit_hist"], res[0]["fit_n_active"]
+    graph = backend == "nccl"
+    if not (after == before + 1 and all(h["graph"] is graph and math.isfinite(h["loss_total"]) for h in hist)):
+        raise AssertionError(f"parallel fit: n_active {before} -> {after}, history {hist}")
+    print(f"DP fit(4, superstep=2) across the activation of view {after}: windows at steps "
+          f"{[h['step'] for h in hist]}, graph {graph} ({backend}: "
+          f"{'captured' if graph else 'gloo cannot be captured, the windows run eagerly'}), losses "
+          f"{[round(h['loss_total'], 6) for h in hist]}; the ranks' params bit for bit equal after it")
+    for r, x in enumerate(res):
+        print(f"rank {r} ({x['device']}, {x['backend']}): train_step_tp 192^3 against unsharded: loss rel "
+              f"{x['tp']['loss_rel']:.2e}, grids rel L2 {x['tp']['rel_l2']:.2e}; joint_step_tp: loss rel "
+              f"{x['joint']['loss_rel']:.2e}, worst rel L2 {x['joint']['rel_l2']:.2e} ({x['joint']['worst']}); "
+              f"sharded lookup max abs err {x['value_err']:.2e} (tolerance {TP_VALUE_ATOL})")
+    x = res[0]
+    print(f"[{smi}] DP eager step (early phase, build_trainer() full width): {x['dp']['step_ms']:.2f} ms on "
+          f"{PARALLEL_RANKS} ranks ({backend}), {ref['step_ms']:.2f} ms on 1; gradient all-reduce "
+          f"{x['all_reduce_ms']:.3f} ms (CUDA events on the rank's stream) for {x['all_reduce_bytes'] / 1e6:.1f} MB")
+    print(f"[{smi}] TP (1, {PARALLEL_RANKS}) train_step_tp at 192^3, 1024 rays x 96 samples: {x['tp_ms']:.2f} ms "
+          f"(unsharded on the card alone {x['tp_alone_ms']:.2f} ms); joint_step_tp {x['joint_ms']:.2f} ms; halo "
+          f"exchange of the 12-channel slab {x['halo_ms']:.3f} ms ({x['halo_bytes'] / 1e6:.2f} MB slot buffer)")
+
+    # the grids' first Adam steps are +-lr (0.1) wherever the atomics flip a near-zero gradient's
+    # sign, so two runs without a mesh give the spread the mesh run is held to (as the resume is),
+    # window by window
+    def diff(x, y, w):
+        a, b = nccl[x]["hist"][w]["loss_total"], nccl[y]["hist"][w]["loss_total"]
+        return abs(a - b) / abs(b), _rel_l2(nccl[x]["params"][w], nccl[y]["params"][w])
+    bad = []
+    for w in range(NCCL_WINDOWS):
+        (loss_rel, rel), (rerun_loss, rerun_rel) = diff("mesh", "alone", w), diff("rerun", "alone", w)
+        loss_tol, rel_tol = max(GRAPH_LOSS_RTOL, 3 * rerun_loss), max(REL_TOL, 3 * rerun_rel[0])
+        print(f"[{smi}] NCCL group of 1 rank, window {w + 1} of fit(superstep={SUPERSTEP}) from step 0 (step "
+              f"{nccl['mesh']['hist'][w]['step']}): against the run without a mesh: loss rel {loss_rel:.2e}, params "
+              f"rel L2 {rel[0]:.2e} ({rel[1]}); two runs without a mesh: {rerun_loss:.2e}, {rerun_rel[0]:.2e} "
+              f"({rerun_rel[1]}); tolerances {loss_tol:.2e}, {rel_tol:.2e}")
+        if not (loss_rel <= loss_tol and rel[0] <= rel_tol):
+            bad.append(w + 1)
+    print(f"[{smi}] NCCL window: captured {nccl['captured']}, graph {[h['graph'] for h in nccl['mesh']['hist']]}, "
+          f"all-reduces issued from Python {nccl['issued']} (the warm-up step's and the capture's; the replays run "
+          f"the captured one); replayed window {nccl['mesh']['replay_ms']:.2f} ms/step against "
+          f"{nccl['alone']['replay_ms']:.2f} and {nccl['rerun']['replay_ms']:.2f} without a mesh")
+    if not (nccl["captured"] and nccl["issued"] == 2 and all(h["graph"] for h in nccl["mesh"]["hist"])
+            and len(nccl["mesh"]["hist"]) == NCCL_WINDOWS and not bad):
+        raise AssertionError(f"the NCCL superstep windows disagree with the windows without a mesh (windows {bad})")
+
+    counts = {k: sum(r["counts"][k] for r in res) + nccl["counts"][k] for k in res[0]["counts"]}
+    if not all(counts.values()):
+        raise AssertionError(f"the parallel phase did not run every trunk and trilinear kernel: {counts}")
+    errs = {}
+    for r, x in enumerate(res):
+        print(f"rank {r} held at its own calls: DP trunk at {x['shapes']['dp_trunk_points']} points, joint_step_tp "
+              f"trunk at {x['shapes']['tp_trunk_points']} points, sharded lookups on grids {x['shapes']['tp_grids']}")
+        if not (x["shapes"]["dp_trunk_points"] and x["shapes"]["tp_trunk_points"] and x["shapes"]["tp_grids"]):
+            raise AssertionError(f"rank {r}: a kernel of the parallel path was not held at its own calls")
+        for k, v in x["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    print(f"parallel phase: {ranks_s:.1f} s for the reference and the {PARALLEL_RANKS} ranks, {nccl_s:.1f} s "
+          f"for the NCCL rank; launches {counts}")
+    return {"parallel": counts}, errs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--lookup-points", metavar="FILE",
@@ -2165,8 +2573,13 @@ def main(argv=None) -> int:
         last_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    parallel_counts, parallel_errs = drive_parallel(trainer_mod, smi)
+    by_phase.update(parallel_counts)
+    parallel_s = time.perf_counter() - t0
     for rec in records:
-        for tag, errs in (("preset", preset_errs), ("cli", cli_errs), ("last_paths", last_errs)):
+        for tag, errs in (("preset", preset_errs), ("cli", cli_errs), ("last_paths", last_errs),
+                          ("parallel", parallel_errs)):
             if rec["name"] in errs:
                 rec[f"{tag}_max_abs_err"] = errs[rec["name"]]
                 rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]])
@@ -2179,7 +2592,8 @@ def main(argv=None) -> int:
                     for label, sets in CAPTURED.items()}, args.lookup_points)
         print(f"lookup points saved to {args.lookup_points}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the preset phase {preset_s:.1f} s, the "
-          f"cli phase {cli_s:.1f} s and the last paths' phase {last_s:.1f} s of it")
+          f"cli phase {cli_s:.1f} s, the last paths' phase {last_s:.1f} s and the parallel phase "
+          f"{parallel_s:.1f} s of it")
     print(smi)                          # again beside the numbers: the head of a long log may be cut
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

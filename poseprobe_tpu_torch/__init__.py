@@ -32,8 +32,11 @@ The rest of the single-card paths: the TensoRF feature grid (`ops/tensorf.py`,
 ``grid_type="tensorf"``), depth consistency from fresh pixels (the step with
 the corres term off), the SuperPoint + SuperGlue matcher and its weight
 converter (`pose_init/superglue.py`, `pose_init/convert.py`), the mask
-cache's even windows and the 3-D smoothing kernel. Not ported: `parallel/`
-(`ROADMAP.md`). OpenCV is optional: without it PnP runs a numpy RANSAC, the BA
+cache's even windows and the 3-D smoothing kernel. The parallel package
+(`parallel/`, on `torch.distributed`, one process per rank): ray data
+parallelism for the trainers (``mesh=``), Z-sharded grids with a halo plane
+and the sharded object and joint steps, and the process-group set-up.
+OpenCV is optional: without it PnP runs a numpy RANSAC, the BA
 polish and the match refinement decline, and the classical matcher returns
 empty packs.
 

@@ -31,6 +31,7 @@ from ..core import align, lie, pose as pose_ops, rays as rays_mod
 from ..core.tree import tree_leaves
 from ..data.png import write_png
 from ..models import scene_nerf
+from ..parallel import mesh as mesh_mod
 from ..train.optim import _Adam
 from . import metrics as metrics_mod
 
@@ -168,8 +169,12 @@ def photometric_pose_score(scene_params, scene_cfg, pose_w2c, K, image, depth_ra
 
 
 def render_full(scene_params, scene_cfg, pose_w2c, K, H: int, W: int, depth_range,
-                chunk: int = 4096, use_fine: bool | None = None, progress: float = 1.0) -> dict:
+                chunk: int = 4096, use_fine: bool | None = None, progress: float = 1.0,
+                mesh=None) -> dict:
     """Chunked full-image render: {'rgb', 'depth', 'depth_var', 'opacity'}, each [H, W, C].
+    With a ('data',) `mesh` each rank renders its share of every chunk's rays
+    (`parallel/mesh.shard_rays`; a chunk that does not divide is rendered
+    whole) and every rank returns the whole image.
 
     `progress` must match the training progress of the state being rendered:
     BARF's coarse-to-fine PE masks zero the high-frequency bands during
@@ -189,11 +194,13 @@ def render_full(scene_params, scene_cfg, pose_w2c, K, H: int, W: int, depth_rang
     with torch.no_grad():
         center, ray = rays_mod.get_center_and_ray_at_pixels(pose_w2c[None], pixels, K[None])
         for c in range(0, H * W, chunk):
-            rets = scene_nerf.render_rays(scene_params, scene_cfg, center[:, c:c + chunk],
-                                          ray[:, c:c + chunk], depth_range, progress=progress,
-                                          noise=None, compute_fine=use_fine)
+            cs, rs = center[:, c:c + chunk], ray[:, c:c + chunk]
+            rets = scene_nerf.render_rays(scene_params, scene_cfg, mesh_mod.shard_rays(cs, mesh, axis=1),
+                                          mesh_mod.shard_rays(rs, mesh, axis=1), depth_range,
+                                          progress=progress, noise=None, compute_fine=use_fine)
+            rets = mesh_mod.unshard_rays({k: rets[k + suffix] for k in outs}, cs.shape[1], mesh, axis=1)
             for k in outs:
-                outs[k].append(rets[k + suffix])
+                outs[k].append(rets[k])
     return {k: torch.cat(v, dim=1).reshape(H, W, -1) for k, v in outs.items()}
 
 

@@ -5,12 +5,14 @@ take raw pointers, ints and the stream, launch on that stream and return
 `cudaGetLastError()`), so nvcc compiles it in seconds into
 `build/lib<name>.so` and `ctypes` loads it. The first `load` of any library
 compiles every source that is out of date, all at once (one nvcc process
-each). Nothing here runs at import: a machine without nvcc or a card can
+each), under a lock on `build/build.lock`, so that of several processes
+starting together one builds and the others load its libraries. Nothing here runs at import: a machine without nvcc or a card can
 import every module.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import subprocess
@@ -27,6 +29,15 @@ def build(names=SOURCES, force: bool = False) -> dict:
     each) into build/lib<name>.so, unless an up-to-date library is there (or
     `force`). Returns {name: seconds spent compiling it, 0.0 if up to date}."""
     _BUILD.mkdir(parents=True, exist_ok=True)
+    # one process builds while the others wait (ranks of a job start together on a clean
+    # tree); a waiter then finds the libraries up to date. The kernel drops the lock of a
+    # process that dies.
+    with open(_BUILD / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names, force)
+
+
+def _build_locked(names, force: bool) -> dict:
     nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     procs, started = {}, time.perf_counter()
     for name in names:

@@ -47,6 +47,15 @@ With the corres term off, depth consistency renders its reference depth at
 fresh pixels of a drawn view (`losses/scene.depth_consistency_loss`); with it
 on, it reuses the corres pair's render. The object branch's k0 is dense or
 TensoRF (`ops/tensorf.py`), rescaled by `scale_volume_grid` either way.
+With ``mesh=`` (a ('data',) mesh of ranks, `parallel/mesh.py`) every rank
+draws the whole batch, renders its share of the object rays and of the scene
+and correspondence rays (and of each `render_full_image` chunk), the per-ray
+outputs are gathered to every rank so each computes the same full loss, and
+`_step_body` averages the gradients over the ranks in one all-reduce before
+Adam; `fit` broadcasts rank 0's state after each step at which host events
+may fire (`replicate_state`). On an NCCL mesh a superstep window is captured
+with its all-reduce; on gloo it runs eagerly (``graph: False`` in the logged
+metrics).
 `host_extras` / `restore_host_extras` hold the host-side state that
 `train/state.py`'s checkpoints carry beside the tensors
 (the generator, the mask cache and its budgets, the object voxel count).
@@ -70,6 +79,7 @@ from ..losses import (common as loss_common, object as object_losses_mod,
                       projection as projection_losses, scene as scene_losses)
 from ..models import object_sdf, pose_refine, scene_nerf
 from ..ops import compositing, grid as grid_ops, maskcache, ray_sampling, tensorf
+from ..parallel import mesh as mesh_mod
 from ..pose_init import ba as ba_mod, pnp as pnp_mod
 from . import batching, graphs
 from .optim import ObjectOptimizer, PoseOptimizer, SceneOptimizer
@@ -112,9 +122,10 @@ class SceneTrainer:
     GROUPS = ("scene", "pose")
 
     def __init__(self, cfg: ExperimentConfig, data: SceneData, seed: int | None = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg, self.data = cfg, data
         self.device = torch.device(device)
+        self.mesh = mesh    # a ('data',) mesh of ranks for ray data parallelism (None: one rank)
         seed = cfg.seed if seed is None else seed
         init_gen = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -156,6 +167,8 @@ class SceneTrainer:
                 self._probe_params(seed), cfg.object_model, data, use_identical=cfg.pnp.use_identical))
         else:
             self.poses_pnp = pose_ops.compose_pair(pose_noise.to(self.device), self.poses_gt)
+        # the PnP chain runs on every rank (OpenCV's RANSAC may draw differently): rank 0's seeds
+        mesh_mod.replicated(self.poses_pnp, mesh)
 
         rot_window = int(sc.max_iter * sc.ratio_end_joint_nerf_pose_refinement)
         trans_window = (None if sc.ratio_end_pose_trans is None
@@ -298,12 +311,17 @@ class SceneTrainer:
             M = center_c.shape[1]
             center_all = torch.cat([center_all, center_c.reshape(1, 2 * M, 3)], dim=1)
             ray_all = torch.cat([ray_all, ray_c.reshape(1, 2 * M, 3)], dim=1)
-        noise = dict(draws["render"], jitter=draws["render"]["jitter"][:, :center_all.shape[1]])
-        rets_all = scene_nerf.render_rays(scene_pc, sm, center_all, ray_all, depth_range,
+        # with a mesh: this rank's share of the rays, then every rank's outputs on every rank
+        R_all = center_all.shape[1]
+        noise = dict(draws["render"], jitter=mesh_mod.shard_rays(draws["render"]["jitter"][:, :R_all],
+                                                                  self.mesh, axis=1))
+        rets_all = scene_nerf.render_rays(scene_pc, sm, mesh_mod.shard_rays(center_all, self.mesh, axis=1),
+                                          mesh_mod.shard_rays(ray_all, self.mesh, axis=1), depth_range,
                                           progress, noise=noise, compute_fine=flags["fine_on"])
+        rets_all = mesh_mod.unshard_rays({k: v for k, v in rets_all.items() if k not in ("origins", "viewdirs")},
+                                         R_all, self.mesh, axis=1)
 
-        rets = {k: v[:, :R_main].reshape((n_active, R_v) + v.shape[2:])
-                for k, v in rets_all.items() if k not in ("origins", "viewdirs")}
+        rets = {k: v[:, :R_main].reshape((n_active, R_v) + v.shape[2:]) for k, v in rets_all.items()}
         loss_dict = dict(scene_losses.photometric_and_regu_loss(rets, sbatch.target, sc))
         if use_corres:
             depth_pair = rets_all["depth"][0, R_main:, 0].reshape(2, M)
@@ -366,6 +384,8 @@ class SceneTrainer:
         flat = [x for group in leaves for x in group]
         grads = torch.autograd.grad(total, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        if self.mesh is not None:
+            grads = mesh_mod.mean_grads(grads, self.mesh)
         start = 0
         with torch.no_grad():
             for n, group in zip(names, leaves):
@@ -410,7 +430,7 @@ class SceneTrainer:
             raise ValueError(f"window [{step}, {step + k}) crosses a host event or a phase flip at "
                              f"step {self._next_boundary(step)}")
         flags = self.phase_flags(step)
-        if self.device.type != "cuda":
+        if not self.graph_windows:
             rows = [self.step() for _ in range(k)]
             return {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
         key = self._cell(flags)
@@ -429,6 +449,13 @@ class SceneTrainer:
             rows.append(graph.packed.clone())
         hist = torch.stack(rows)
         return {name: hist[:, j] for j, name in enumerate(graph.outputs)}
+
+    @property
+    def graph_windows(self) -> bool:
+        """Whether a superstep window replays a captured CUDA graph: on a card,
+        alone or over an NCCL mesh; a gloo mesh's collectives stage through the
+        host and cannot be captured, so there a window runs its steps eagerly."""
+        return self.device.type == "cuda" and (self.mesh is None or self.mesh.capturable)
 
     def _cell(self, flags: dict) -> tuple:
         """What a captured step is specific to: the phase flags, the active
@@ -451,6 +478,18 @@ class SceneTrainer:
             if state is not None:
                 out += [state["count"]] + tree_leaves(state["mu"]) + tree_leaves(state["nu"])
         return [t for t in out if t is not None]
+
+    def replicate_state(self) -> None:
+        """Rank 0's state on every rank of the mesh, bit for bit: the state
+        tensors (in place, so a captured step stays valid) and the host ints
+        the step reads. `fit` calls it after each step at which host events
+        may fire: they run on every rank, through host floats and OpenCV."""
+        names = [n for n in ("n_active", "_mask_k", "_k_phase") if hasattr(self, n)]
+        ints = torch.tensor([-1 if getattr(self, n) is None else getattr(self, n) for n in names],
+                            dtype=torch.int64, device=self.device)
+        mesh_mod.replicated(self.state_tensors() + [ints], self.mesh)
+        for n, v in zip(names, ints.tolist()):
+            setattr(self, n, None if v < 0 else v)
 
     def drop_graphs(self) -> None:
         """Drop the captured steps and free their memory pools."""
@@ -489,7 +528,11 @@ class SceneTrainer:
         end_step = self.global_step + num_steps
         while self.global_step < end_step:
             step = self.global_step
+            # the boundary test comes before the events, which may remove the boundary they fire at
+            event_step = step > 0 and self._next_boundary(step - 1) == step
             self._host_events(step)
+            if self.mesh is not None and event_step:
+                self.replicate_state()
             limit = min(end_step, self._next_boundary(step))
             if log_every:   # windows end exactly on log steps
                 limit = min(limit, ((step // log_every) + 1) * log_every)
@@ -503,6 +546,8 @@ class SceneTrainer:
                     raise FloatingPointError(f"non-finite loss at step {self.global_step}: {host}")
                 host["step"] = self.global_step
                 host["n_active"] = self.n_active
+                if self.mesh is not None:
+                    host["graph"] = superstep > 1 and self.graph_windows
                 self._metrics_hist.append(host)
                 if callback is not None:
                     callback(host)
@@ -517,7 +562,7 @@ class SceneTrainer:
         out = evaluator.render_full(self.scene_params, sm, pose_w2c, K, self.H, self.W,
                                     (self.data.near, self.data.far), chunk=chunk,
                                     use_fine=bool(fine and sm.fine_sampling),
-                                    progress=min(self.global_step / sm.max_iter, 1.0))
+                                    progress=min(self.global_step / sm.max_iter, 1.0), mesh=self.mesh)
         return {k: out[k] for k in ("rgb", "depth", "opacity", "depth_var")}
 
     def validate(self, n_views: int = 5) -> float:
@@ -553,7 +598,7 @@ class JointTrainer(SceneTrainer):
     GROUPS = ("obj", "scene", "pose")
 
     def __init__(self, cfg: ExperimentConfig, data: SceneData, seed: int | None = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         ot = cfg.object_train
         # progressive scaling: start at num_voxels / 2^len(pg_scale) and double
         # the voxel count at each checkpoint step
@@ -563,7 +608,7 @@ class JointTrainer(SceneTrainer):
             shrunk = int(cfg.object_model.num_voxels / (2 ** len(self._pg_scale)))
             cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(
                 cfg.object_model, num_voxels=shrunk))
-        super().__init__(cfg, data, seed=seed, device=device)
+        super().__init__(cfg, data, seed=seed, device=device, mesh=mesh)
         seed = cfg.seed if seed is None else seed
         dev = lambda a, dtype=torch.float32: torch.as_tensor(  # noqa: E731
             np.asarray(a), dtype=dtype, device=self.device)
@@ -684,11 +729,13 @@ class JointTrainer(SceneTrainer):
         batch = batching.sample_object_batch(draws["object"], self.images, self.masks, self.Ks,
                                              current_pose, self.sampler_pixels, self.sampler_counts,
                                              self.data.inverse_y)
+        shard = lambda x: mesh_mod.shard_rays(x, self.mesh)  # noqa: E731
         render_out = object_sdf.render(
-            obj_p, oc, batch.rays_o, batch.rays_d, batch.viewdirs, global_step=step_f,
-            jitter=draws["object_jitter"], use_deform=True, is_train=True, near=self.data.near,
+            obj_p, oc, shard(batch.rays_o), shard(batch.rays_d), shard(batch.viewdirs), global_step=step_f,
+            jitter=shard(draws["object_jitter"]), use_deform=True, is_train=True, near=self.data.near,
             far=self.data.far, bg=1.0 if self.data.white_bkgd else 0.0, mask_grid=self.mask_arr,
             mask_k=self._mask_k)
+        render_out = mesh_mod.unshard_rays(render_out, batch.rays_o.shape[0], self.mesh)
         k0_tv = object_losses_mod.k0_total_variation(obj_p)
         _, _, obj_loss, psnr = object_losses_mod.object_losses(
             render_out, batch.target, batch.mask, step_f, oc.N_iters, weight_main=ot.weight_main,
@@ -1265,8 +1312,9 @@ def build_scene_trainer(small: bool = False, device="cuda",
     return SceneTrainer(cfg, data, device=device)
 
 
-def build_trainer(small: bool = False, device="cuda", matmul_dtype: str = "bfloat16") -> JointTrainer:
+def build_trainer(small: bool = False, device="cuda", matmul_dtype: str = "bfloat16",
+                  mesh=None) -> JointTrainer:
     """bench.py's `build_trainer` workload: the joint trainer, starting in the
-    early phase (object + scene)."""
+    early phase (object + scene); with `mesh`, ray data-parallel over its ranks."""
     cfg, data = _bench_workload(small, matmul_dtype)
-    return JointTrainer(cfg, data, device=device)
+    return JointTrainer(cfg, data, device=device, mesh=mesh)

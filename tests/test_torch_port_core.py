@@ -452,5 +452,34 @@ def test_port_imports_no_jax():
                  "config.presets.toy_candy", "config.presets.toy_desk", "config.presets.toy_scene",
                  "train.state", "eval.mesh", "eval.video", "eval.turbo", "eval.dtu_protocol", "utils.vis",
                  "utils.logging", "utils.profiling", "run", "evaluate", "ops.tensorf", "pose_init.superglue",
-                 "pose_init.convert"):
+                 "pose_init.convert", "parallel.mesh", "parallel.multihost", "parallel.grid_tp",
+                 "parallel.object_tp", "parallel.collectives"):
         assert f"poseprobe_tpu_torch.{name}" in loaded, name
+
+
+def test_build_lock_lets_one_of_two_processes_compile(tmp_path):
+    """Two processes that build at once on a clean tree (the ranks of a job):
+    one compiles under the lock in build/, the other waits, then finds the
+    library up to date and compiles nothing. A fake nvcc counts its calls."""
+    import os
+    from pathlib import Path
+    csrc, build, bin_dir = tmp_path / "csrc", tmp_path / "build", tmp_path / "cuda" / "bin"
+    csrc.mkdir()
+    bin_dir.mkdir(parents=True)
+    (csrc / "k.cu").write_text("// a kernel\n")
+    calls = tmp_path / "calls.txt"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys, time\nopen({str(calls)!r}, 'a').write('call\\n')\n"
+                    "time.sleep(1.0)\nopen(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n")
+    nvcc.chmod(0o755)
+    code = ("from pathlib import Path\nfrom poseprobe_tpu_torch.ops import _build\n"
+            f"_build._CSRC, _build._BUILD = Path({str(csrc)!r}), Path({str(build)!r})\n"
+            "print(_build.build(('k',)))\n")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "cuda"), PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert calls.read_text().count("call") == 1
+    assert (build / "libk.so").read_text() == "lib"

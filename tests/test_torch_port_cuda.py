@@ -956,3 +956,48 @@ def test_superglue_on_the_card_matches_the_cpu(tmp_path, monkeypatch):
         z = sg.log_assignment(k, s, d, k.flip(0), s.flip(0), d.flip(0), (240, 320))
         z_c = sg_c.log_assignment(k_c, s_c, d.cpu(), k_c.flip(0), s_c.flip(0), d.cpu().flip(0), (240, 320))
     assert (z.cpu() - z_c).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_grid_tp_on_two_ranks_on_the_card(tmp_path):
+    """Two gloo ranks on cuda:0 (a (1, 2) mesh): `sample_grid_tp` through the
+    trilinear kernels, values and gradients for the slab and the points, and
+    `train_step_tp`, against the unsharded plain versions on the CPU (the
+    tolerances of tests/test_torch_port_grid_tp.py)."""
+    _need_card()
+    import torch_port_parallel_ranks as ranks
+    from poseprobe_tpu_torch.parallel import object_tp
+    rng = np.random.RandomState(0)
+    grid = rng.randn(5, 9, 7, 16).astype(np.float32)
+    lo, hi = np.array([-1.0, -0.5, -2.0], np.float32), np.array([1.0, 1.5, 2.0], np.float32)
+    pts = (rng.uniform(-1.6, 1.6, (97, 3)) * [1.0, 1.0, 2.6]).astype(np.float32)
+    iz = (pts[:, 2] + 2.0) / 4.0 * 15
+    pts[np.abs(iz - np.round(iz)) < 1e-2, 2] += 0.01      # off the cell seams: one-sided derivatives there
+    xs = np.linspace(-0.5, 0.5, 16, dtype=np.float32)
+    X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
+    sdf = (np.maximum.reduce([np.abs(X), np.abs(Y), np.abs(Z)]) - 0.3)[None]
+    k0 = rng.randn(6, 16, 16, 16).astype(np.float32) * 0.05
+    ang = rng.uniform(-0.25, 0.25, (48, 2)).astype(np.float32)
+    rays_o = np.tile(np.array([[0.0, 0.0, -2.0]], np.float32), (48, 1))
+    rays_d = np.stack([np.tan(ang[:, 0]), np.tan(ang[:, 1]), np.ones(48, np.float32)], -1)
+    tgt, msk = rng.rand(48, 3).astype(np.float32), (np.abs(ang) < 0.15).all(1).astype(np.float32)
+    step = dict(near=1.0, far=3.5, n_samples=32, xyz_min=(-0.5,) * 3, xyz_max=(0.5,) * 3, s_val=0.05)
+    cases = [("sample", dict(shape=(1, 2), grid=grid, pts=pts, lo=lo, hi=hi, data_sharded=False)),
+             ("train_step", dict(shape=(1, 2), sdf=sdf, k0=k0, rays_o=rays_o, rays_d=rays_d, tgt=tgt, msk=msk,
+                                 **step))]
+    outs = ranks.launch(tmp_path, 2, cases, timeout_s=300, device="cuda")
+
+    g, p = torch.from_numpy(grid).requires_grad_(True), torch.from_numpy(pts).requires_grad_(True)
+    ref = grid_ops.trilinear_sample(g, p, torch.from_numpy(lo), torch.from_numpy(hi))
+    g_ref, p_ref = torch.autograd.grad(torch.sin(ref).sum(), [g, p])
+    t = [torch.from_numpy(a) for a in (sdf, k0, rays_o, rays_d, tgt, msk)]
+    ref_sdf, ref_k0, ref_m = object_tp.train_step_tp(*t, mesh=None, **step)
+    for r, out in enumerate(outs):
+        got, tr = out[0], out[1]
+        assert got["launches"][0] > 0 and got["launches"][1] > 0
+        np.testing.assert_allclose(got["out"], ref.detach().numpy(), atol=2e-5)
+        np.testing.assert_allclose(got["g_grid"], g_ref[..., 8 * r:8 * (r + 1)].numpy(), atol=5e-5)
+        np.testing.assert_allclose(got["g_pts"], p_ref.numpy(), atol=5e-5)
+        assert abs(tr["metrics"]["loss"] - ref_m["loss"].item()) < 1e-5
+        np.testing.assert_allclose(tr["sdf"], ref_sdf[..., 8 * r:8 * (r + 1)].numpy(), rtol=2e-4, atol=2e-6)
+        np.testing.assert_allclose(tr["k0"], ref_k0[..., 8 * r:8 * (r + 1)].numpy(), rtol=2e-4, atol=2e-6)

@@ -187,43 +187,50 @@ def test_early_step_matches_joint_trainer(incremental, proj_use_deform):
             ref = float(proj_ref) if k == "proj_err" else float(jm[k])
             np.testing.assert_allclose(tm[k].item(), ref, rtol=1e-4, atol=1e-6, err_msg=k)
 
-        # Adam moments (the gradients), per module of the object optimizer
-        jobj = convert.adam_state_to_numpy(convert.object_adam_state_from_jax(_np(st.opt_obj), "cpu"))
-        tobj = convert.adam_state_to_numpy(tt.opt_obj_state)
-        assert jobj["count"] == tobj["count"] == s + 1
-        for moment in ("mu", "nu"):
-            assert set(jobj[moment]) == set(tobj[moment]) == set(LR) - {"s_val"}
-            for key in jobj[moment]:
-                _assert_moments(jax.tree.leaves(jobj[moment][key]), jax.tree.leaves(tobj[moment][key]),
-                                f"{moment}/{key}")
-        tscene = convert.adam_state_to_numpy(tt.opt_scene_state)
-        for moment in ("mu", "nu"):
-            _assert_moments(jax.tree.leaves(_np(getattr(st.opt_scene[1], moment))),
-                            jax.tree.leaves(tscene[moment]), f"scene {moment}")
-        for a, b in zip(jax.tree.leaves(_np(st.pose_params)),
-                        jax.tree.leaves(convert.tree_to_numpy(tt.pose_params))):
-            np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
+        _assert_state_matches(st, tt, old_obj, s + 1)
 
-        # params: equal where the gradient is well above float32 noise, and but for 1% elsewhere
-        jobj_p, tobj_p = _np(st.obj_params), convert.tree_to_numpy(tt.obj_params)
-        for key, lr in LR.items():
-            diff = np.concatenate([np.abs(b - a).ravel() for a, b in zip(
-                jax.tree.leaves(jobj_p[key]), jax.tree.leaves(tobj_p[key]))])
-            if key == "s_val":
-                assert diff.max() == 0.0
-                continue
-            mu = np.concatenate([np.abs(a).ravel() for a in jax.tree.leaves(jobj["mu"][key])])
-            clear = mu >= 1e-2 * mu.max()
-            assert clear.any() and diff[clear].max() <= 1e-3 * lr, (key, diff[clear].max() / lr)
-            assert np.mean(diff > 1e-2 * lr) <= 0.01, (key, np.mean(diff > 1e-2 * lr))
-        # reference behaviours kept: s_val is frozen; the deform net's
-        # output_range is a trained leaf of `warpnet`
-        assert np.array_equal(jobj_p["s_val"], old_obj["s_val"])
-        assert np.array_equal(tobj_p["s_val"], old_obj["s_val"])
-        moved = float(np.abs(jobj_p["warpnet"]["output_range"] - old_obj["warpnet"]["output_range"]))
-        tmoved = float(np.abs(tobj_p["warpnet"]["output_range"] - old_obj["warpnet"]["output_range"]))
-        np.testing.assert_allclose(tmoved, moved, rtol=1e-2, atol=1e-7)
-        assert ("output_range" in tobj["mu"]["warpnet"]) and ("output_range" in jobj["mu"]["warpnet"])
+
+def _assert_state_matches(st, tt, old_obj, count):
+    """The port trainer `tt` after a step against the JAX state `st` after the
+    same step from `old_obj`: Adam moments (the gradients), poses and params
+    at the tolerances of the module docstring."""
+    # Adam moments (the gradients), per module of the object optimizer
+    jobj = convert.adam_state_to_numpy(convert.object_adam_state_from_jax(_np(st.opt_obj), "cpu"))
+    tobj = convert.adam_state_to_numpy(tt.opt_obj_state)
+    assert jobj["count"] == tobj["count"] == count
+    for moment in ("mu", "nu"):
+        assert set(jobj[moment]) == set(tobj[moment]) == set(LR) - {"s_val"}
+        for key in jobj[moment]:
+            _assert_moments(jax.tree.leaves(jobj[moment][key]), jax.tree.leaves(tobj[moment][key]),
+                            f"{moment}/{key}")
+    tscene = convert.adam_state_to_numpy(tt.opt_scene_state)
+    for moment in ("mu", "nu"):
+        _assert_moments(jax.tree.leaves(_np(getattr(st.opt_scene[1], moment))),
+                        jax.tree.leaves(tscene[moment]), f"scene {moment}")
+    for a, b in zip(jax.tree.leaves(_np(st.pose_params)),
+                    jax.tree.leaves(convert.tree_to_numpy(tt.pose_params))):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
+
+    # params: equal where the gradient is well above float32 noise, and but for 1% elsewhere
+    jobj_p, tobj_p = _np(st.obj_params), convert.tree_to_numpy(tt.obj_params)
+    for key, lr in LR.items():
+        diff = np.concatenate([np.abs(b - a).ravel() for a, b in zip(
+            jax.tree.leaves(jobj_p[key]), jax.tree.leaves(tobj_p[key]))])
+        if key == "s_val":
+            assert diff.max() == 0.0
+            continue
+        mu = np.concatenate([np.abs(a).ravel() for a in jax.tree.leaves(jobj["mu"][key])])
+        clear = mu >= 1e-2 * mu.max()
+        assert clear.any() and diff[clear].max() <= 1e-3 * lr, (key, diff[clear].max() / lr)
+        assert np.mean(diff > 1e-2 * lr) <= 0.01, (key, np.mean(diff > 1e-2 * lr))
+    # reference behaviours kept: s_val is frozen; the deform net's
+    # output_range is a trained leaf of `warpnet`
+    assert np.array_equal(jobj_p["s_val"], old_obj["s_val"])
+    assert np.array_equal(tobj_p["s_val"], old_obj["s_val"])
+    moved = float(np.abs(jobj_p["warpnet"]["output_range"] - old_obj["warpnet"]["output_range"]))
+    tmoved = float(np.abs(tobj_p["warpnet"]["output_range"] - old_obj["warpnet"]["output_range"]))
+    np.testing.assert_allclose(tmoved, moved, rtol=1e-2, atol=1e-7)
+    assert ("output_range" in tobj["mu"]["warpnet"]) and ("output_range" in jobj["mu"]["warpnet"])
 
 
 @pytest.mark.parametrize("barrier", ["0", "1"])
