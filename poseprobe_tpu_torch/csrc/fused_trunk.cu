@@ -5,11 +5,17 @@
 // (poseprobe_tpu_torch/ops/fused_mlp.py) packs the weights, holds the plain
 // PyTorch twin these kernels are tested against, and explains the design.
 //
+// Every kernel is a template on the trunk width H (128 or 256: wgmma's
+// m64n128 / m64n256) and the encoding's padded width KIN (64 or 128: one or
+// two 64-column boxes wherever the encoding is read); the launch functions
+// take H and KIN and run the instantiation. H = 256 with KIN = 64 is the 8x256
+// main path. Wider trunks go to trunk_wide.cu.
+//
 // Packed layout (all row-major, bf16): layer l is a [K_l, NO_l] block of `w`,
-// K_l = 64 (l = 0), 256 + 64 (l = skip), 256 otherwise; NO_l = 256, or
-// 256 + 128 for the last layer whose columns are [feat(256) | density | 0...].
-// Biases are consecutive [NO_l] slices of `b`. Activations and the stored
-// hidden layers are [N, 256]; enc and denc are [N, 64].
+// K_l = KIN (l = 0), H + KIN (l = skip), H otherwise; NO_l = H, or H + 128 for
+// the last layer whose columns are [feat(H) | density | 0...]. Biases are
+// consecutive [NO_l] slices of `b`. Activations and the stored hidden layers
+// are [N, H]; enc and denc are [N, KIN].
 //
 // All three kernels issue warpgroup wgmma (bf16 in, f32 accumulate) on tiles
 // that TMA or bulk copies bring into shared memory through mbarrier rings,
@@ -32,19 +38,17 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int H = 256;         // trunk width
-constexpr int KIN = 64;        // padded encoding width
 constexpr int DENS_PAD = 128;  // extra columns of the last layer (density in the first)
 
-__host__ __device__ __forceinline__ int layer_in(int l, int skip) {
+__host__ __device__ __forceinline__ int layer_in(int l, int skip, int H, int KIN) {
   return l == 0 ? KIN : (l == skip ? H + KIN : H);
 }
-__host__ __device__ __forceinline__ int layer_out(int l, int L) {
+__host__ __device__ __forceinline__ int layer_out(int l, int L, int H) {
   return l == L - 1 ? H + DENS_PAD : H;
 }
-__host__ __device__ __forceinline__ long w_offset(int l, int L, int skip) {
+__host__ __device__ __forceinline__ long w_offset(int l, int L, int skip, int H, int KIN) {
   long o = 0;
-  for (int i = 0; i < l; ++i) o += (long)layer_in(i, skip) * layer_out(i, L);
+  for (int i = 0; i < l; ++i) o += (long)layer_in(i, skip, H, KIN) * layer_out(i, L, H);
   return o;
 }
 
@@ -118,6 +122,46 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t* 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// the 64 f32 accumulators of an m64n128 product, operands %0..%63, and their list in the asm string
+#define WG_ACC64 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),\
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),\
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),\
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),\
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),\
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),\
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WG_D64                                                                      \
+  "{"                                                                               \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"  \
+  "}"
+
+// d (+)= A (registers) x B (shared memory, MN-major), m64n128
+__device__ __forceinline__ void wgmma_m64n128_rs_t(float (&d)[64], const uint32_t* a, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+// d (+)= A x B, m64n128, both from shared memory; TA / TB: operand MN-major (transposed)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : WG_ACC64
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // mbarrier, bulk copies, named barriers, register reallocation
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
@@ -178,9 +222,9 @@ __device__ __forceinline__ void named_bar(int id, int count) {
 // warp 9 the per-layer mask tiles; warps 10-11 leave at once).
 //
 // Layer l (from L-1 down) computes gx = g_l W_l^T over its K_l inputs in
-// passes of 128 columns (64 for the encoding part of the skip layer and for
-// layer 0) with wgmma m64nNk16, A = g_l in registers (64 x 32-bit per thread
-// for the 256-wide reduction), B = weight tiles [N inputs x 64 outputs] from a
+// passes of 128 columns (KIN for the encoding part of the skip layer and for
+// layer 0) with wgmma m64nNk16, A = g_l in registers (H / 4 x 32-bit per
+// thread for the H-wide reduction), B = weight tiles [N inputs x 64 outputs] from a
 // RING-stage ring that the producer fills by TMA straight from the packed
 // weights (64 x 64 boxes of two tensor maps, 128-byte swizzle: a row of the
 // packed [K, NO] layer is K-major for this product). The epilogue adds the density column's term (last layer), masks with the stored
@@ -192,23 +236,28 @@ __device__ __forceinline__ void named_bar(int id, int count) {
 // each thread reloads its next A from the positions it wrote; one bulk store
 // per row sends the slot to gsave, and the slot goes back to the producer once
 // the stores have read it, during the next layer's first products.
-// Rows past n are zero in g from the start and stay zero.
+// Rows past n are zero in g from the start and stay zero. H = 256 with KIN =
+// 128 runs a 3-stage ring, the others 4: its encoding gradient (genc_s)
+// takes the 16 KB of the fourth stage within the 227 KB a block may have.
 constexpr int CH_T = 128;
 constexpr int CH_THREADS = 384;
-constexpr int RING = 4;
 constexpr int TILE_K = 64;                        // layer outputs per weight tile (128-byte rows)
 constexpr int TILE_BYTES = 128 * TILE_K * 2;      // largest tile: 128 inputs x 64 outputs
-constexpr int LDM = H + 8;                        // mask slot row stride (elements)
-constexpr int SLOT_ELEMS = 64 * LDM;
-constexpr size_t CHAIN_SMEM = 1024 + RING * TILE_BYTES + 4 * SLOT_ELEMS * sizeof(bf16) +
-                              16 * 256 * sizeof(uint32_t) + (H + KIN + 4 * H) * sizeof(float) +
-                              (2 * RING + 8) * sizeof(uint64_t);
+template <int H, int KIN>
+struct Chain {
+  static constexpr int RING = (H == 256 && KIN == 128) ? 3 : 4;
+  static constexpr int LDM = H + 8;               // mask slot row stride (elements)
+  static constexpr int SLOT_ELEMS = 64 * LDM;
+  static constexpr size_t SMEM = 1024 + RING * TILE_BYTES + 4 * SLOT_ELEMS * sizeof(bf16) +
+                                 KIN / 4 * 256 * sizeof(uint32_t) + (H + KIN + 4 * H) * sizeof(float) +
+                                 (2 * RING + 8) * sizeof(uint64_t);
+};
 
 // the packed weights as the forward and the backward chain read them, in 64 x 64
 // boxes with the 128-byte swizzle
 struct WeightMaps {
-  CUtensorMap hidden;  // layers 0..L-2 as one [rows, 256] matrix: W_l[k] is row w_offset(l) / 256 + k
-  CUtensorMap last;    // layer L-1, [K, 256 + DENS_PAD]
+  CUtensorMap hidden;  // layers 0..L-2 as one [rows, H] matrix: W_l[k] is row w_offset(l) / H + k
+  CUtensorMap last;    // layer L-1, [K, H + DENS_PAD]
 };
 
 __device__ __forceinline__ uint32_t mask_pack(float v0, float v1, uint32_t m) {
@@ -272,9 +321,9 @@ __device__ __forceinline__ void release_slot(uint64_t*& pending, const ChainCtx&
   pending = nullptr;
 }
 
-// acc = g (64 rows, 256-deep, registers) x the next 4 ring tiles (N columns)
-template <int N>
-__device__ __forceinline__ void chain_mma(float (&acc)[N / 2], const uint32_t (&A)[64], int& t,
+// acc = g (64 rows, H-deep, registers) x the next H / 64 ring tiles (N columns)
+template <int H, int RING, int N>
+__device__ __forceinline__ void chain_mma(float (&acc)[N / 2], const uint32_t (&A)[H / 4], int& t,
                                           const ChainCtx& cx, uint64_t*& pending) {
   fence_operand(acc);
 #pragma unroll
@@ -303,18 +352,20 @@ __device__ __forceinline__ void chain_mma(float (&acc)[N / 2], const uint32_t (&
   release_slot(pending, cx);  // the previous layer's stores ran during these products
 }
 
+template <int H, int KIN>
 __global__ void __launch_bounds__(CH_THREADS, 1)
     trunk_bwd_chain_kernel(const bf16* __restrict__ gfeat, const bf16* __restrict__ gdens,
                            const bf16* __restrict__ feat, const bf16* __restrict__ acts,
                            const bf16* __restrict__ w, const __grid_constant__ WeightMaps maps,
                            bf16* __restrict__ denc, bf16* __restrict__ gsave, float* __restrict__ db,
                            int n, int L, int skip) {
+  constexpr int RING = Chain<H, KIN>::RING, LDM = Chain<H, KIN>::LDM, SLOT_ELEMS = Chain<H, KIN>::SLOT_ELEMS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* ring = reinterpret_cast<bf16*>(base);
   bf16* slots = reinterpret_cast<bf16*>(base + RING * TILE_BYTES);  // [wg][2][64][LDM]
-  uint32_t* genc_s = reinterpret_cast<uint32_t*>(slots + 4 * SLOT_ELEMS);  // [16][256]
-  float* wd_s = reinterpret_cast<float*>(genc_s + 16 * 256);           // [H + KIN]
+  uint32_t* genc_s = reinterpret_cast<uint32_t*>(slots + 4 * SLOT_ELEMS);  // [KIN / 4][256]
+  float* wd_s = reinterpret_cast<float*>(genc_s + KIN / 4 * 256);      // [H + KIN]
   float* db_s = wd_s + H + KIN;                                          // [wg][2][H]
   uint64_t* full = reinterpret_cast<uint64_t*>(db_s + 4 * H);
   uint64_t* empty = full + RING;
@@ -346,9 +397,9 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
       // consumers take them; a 128-row tile is two 64-row boxes one under the other
       int t = 0;
       for (int l = L - 1; l >= 0; --l) {
-        const int K = layer_in(l, skip);
+        const int K = layer_in(l, skip, H, KIN);
         const CUtensorMap* map = l == L - 1 ? &maps.last : &maps.hidden;
-        const int row0 = l == L - 1 ? 0 : (int)(w_offset(l, L, skip) / H);
+        const int row0 = l == L - 1 ? 0 : (int)(w_offset(l, L, skip, H, KIN) / H);
         for (int c0 = 0; c0 < K;) {
           const int rows = K - c0 >= 128 ? 128 : 64;
           for (int kt = 0; kt < H / TILE_K; ++kt, ++t) {
@@ -394,8 +445,8 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
   const float gd_lo = v_lo ? __bfloat162float(gdens[wrow0 + r_lo]) : 0.f;
   const float gd_hi = v_hi ? __bfloat162float(gdens[wrow0 + r_hi]) : 0.f;
   {
-    const int K_last = layer_in(L - 1, skip);
-    const bf16* w_last = w + w_offset(L - 1, L, skip);
+    const int K_last = layer_in(L - 1, skip, H, KIN);
+    const bf16* w_last = w + w_offset(L - 1, L, skip, H, KIN);
     for (int k = tid; k < K_last; k += 256) wd_s[k] = __bfloat162float(w_last[(long)k * (H + DENS_PAD) + H]);
     for (int i = tid; i < 4 * H; i += 256) db_s[i] = 0.f;
   }
@@ -420,13 +471,13 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
     named_bar(1 + wg, 128);
     float* s = db_w + (layer & 1) * H;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < H / 128; ++i) {
       atomicAdd(db + (long)layer * H + wtid + 128 * i, s[wtid + 128 * i]);
       s[wtid + 128 * i] = 0.f;
     }
   };
 
-  uint32_t A[64];
+  uint32_t A[H / 4];
   // layer L-1: g = [feat > 0 ? gfeat : 0 | gdens] (bf16 exact), saved and summed
   {
     bf16* sg = slots + (wg * 2 + 0) * SLOT_ELEMS;
@@ -435,7 +486,7 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
     mbar_wait(mfull + wg * 2 + 1, 0);
     float* dbl = db_w + ((L - 1) & 1) * H;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < H / 128; ++p) {
       float cs[32];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -471,13 +522,13 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
   for (int l = L - 1; l >= 0; --l) {
     const bool dens = l == L - 1;
     if (l > 0) {
-      // passes over gx[:, 0:128] and gx[:, 128:256], masked by a_{l-1} into g_{l-1}
+      // passes over gx[:, 128 p:128 p + 128], masked by a_{l-1} into g_{l-1}
       bf16* slot = slots + (wg * 2 + (m & 1)) * SLOT_ELEMS;
       float* dbl = db_w + ((l - 1) & 1) * H;
       float acc[64];
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        chain_mma<128>(acc, A, t, cx, pending);
+      for (int p = 0; p < H / 128; ++p) {
+        chain_mma<H, RING, 128>(acc, A, t, cx, pending);
         if (p == 0) mbar_wait(mfull + wg * 2 + (m & 1), (m >> 1) & 1);
         float cs[32];
 #pragma unroll
@@ -507,12 +558,12 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
         }
         colsum32_add(dbl, 128 * p, cs, lane);
       }
-      if (layer_in(l, skip) > H) {
+      if (layer_in(l, skip, H, KIN) > H) {
         // the skip layer's encoding inputs: bf16 gx kept per thread for layer 0
-        float acc2[32];
-        chain_mma<64>(acc2, A, t, cx, pending);
+        float acc2[KIN / 2];
+        chain_mma<H, RING, KIN>(acc2, A, t, cx, pending);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < KIN / 8; ++j) {
           float v0 = acc2[4 * j], v1 = acc2[4 * j + 1], v2 = acc2[4 * j + 2], v3 = acc2[4 * j + 3];
           if (dens) {
             const int c = H + 8 * j + 2 * q;
@@ -529,7 +580,7 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
       // the next A fragments: g as this thread just wrote it, k16 slice s, half h
       // (columns 16 s + 8 h + 2 q), rows r_lo / r_hi
 #pragma unroll
-      for (int s = 0; s < 16; ++s)
+      for (int s = 0; s < H / 16; ++s)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int c = 16 * s + 8 * h + 2 * q;
@@ -541,10 +592,10 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
       flush_db(l - 1);
     } else {
       // layer 0: denc = bf16(gx) + bf16(the skip layer's encoding part), in bf16
-      float acc2[32];
-      chain_mma<64>(acc2, A, t, cx, pending);
+      float acc2[KIN / 2];
+      chain_mma<H, RING, KIN>(acc2, A, t, cx, pending);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < KIN / 8; ++j) {
         const int c = 8 * j + 2 * q;
         const float2 elo = unpack_bf16(genc_s[(2 * j) * 256 + tid]);
         const float2 ehi = unpack_bf16(genc_s[(2 * j + 1) * 256 + tid]);
@@ -564,26 +615,29 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
 
 // dW_l = inp_l^T g_l over the points, inp_l the layer input (enc, a stored
 // activation, or both for the skip layer) and g_l the chain kernel's gsave.
-// A block takes one tile of dW_l, 128 input features (64 for layer 0 and the
-// skip layer's encoding part) x all 256 outputs, over one slice of the points:
-// two consumer warpgroups each run wgmma m64n256k16 with both operands in
-// shared memory, MN-major (the point index is the reduction and neither
-// operand has it contiguous: the descriptors' transpose bits), f32
-// accumulators in registers (128 per thread). A producer warp feeds a
-// DW_STAGES-stage ring of 64-point chunks by TMA (inp [64 points x 64
-// features] per warpgroup, g [64 points x 256] as four 64-column boxes, all
-// with the 128-byte swizzle; points past n arrive as zeros). Tiles run
-// fastest in the grid, so the blocks of one point slice read g_l together
-// and L2 serves the second read. The last layer's tiles also take its density
-// column, dW[k, 256] = sum_p inp[p, k] g_dens[p], from the same A chunks.
-// Each block adds its partial tile with f32 atomics.
+// A block takes one tile of dW_l, 128 input features (64 for the encoding
+// part when KIN = 64) x all H outputs, over one slice of the points: two
+// consumer warpgroups each run wgmma m64nHk16 with both operands in shared
+// memory, MN-major (the point index is the reduction and neither operand has
+// it contiguous: the descriptors' transpose bits), f32 accumulators in
+// registers (H / 2 per thread). A producer warp feeds a DW_STAGES-stage ring
+// of 64-point chunks by TMA (inp [64 points x 64 features] per warpgroup, g
+// [64 points x H] as H / 64 64-column boxes, all with the 128-byte swizzle;
+// points past n arrive as zeros). Tiles run fastest in the grid, so the
+// blocks of one point slice read g_l together and L2 serves the second read.
+// The last layer's tiles also take its density column, dW[k, H] = sum_p
+// inp[p, k] g_dens[p], from the same A chunks. Each block adds its partial
+// tile with f32 atomics.
 constexpr int DW_PTS = 64;
 constexpr int DW_STAGES = 4;
 constexpr int DW_THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
-constexpr int DW_A_BYTES = DW_PTS * 64 * 2;
-constexpr int DW_B_BYTES = DW_PTS * H * 2;
-constexpr int DW_STAGE = 2 * DW_A_BYTES + DW_B_BYTES + 1024;  // + g_dens chunk, 1024-aligned stages
-constexpr size_t DW_SMEM = 1024 + DW_STAGES * DW_STAGE + 2 * DW_STAGES * sizeof(uint64_t);
+constexpr int DW_A_BYTES = DW_PTS * 64 * 2;  // one [64 points x 64] box
+template <int H>
+struct Dw {
+  static constexpr int B_BYTES = DW_PTS * H * 2;
+  static constexpr int STAGE = 2 * DW_A_BYTES + B_BYTES + 1024;  // + g_dens chunk, 1024-aligned stages
+  static constexpr size_t SMEM = 1024 + DW_STAGES * STAGE + 2 * DW_STAGES * sizeof(uint64_t);
+};
 
 // the 128 f32 accumulators of an m64n256 product, operands %0..%127
 #define WG_ACC128 \
@@ -667,35 +721,38 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, i
 }
 
 struct DwMaps {
-  CUtensorMap acts;  // [L-1][n][256] bf16, box 64 x 64 points, 128-byte swizzle
-  CUtensorMap enc;   // [1][n][64]
-  CUtensorMap g;     // [L][n][256] (gsave)
+  CUtensorMap acts;  // [L-1][n][H] bf16, box 64 x 64 points, 128-byte swizzle
+  CUtensorMap enc;   // [1][n][KIN]
+  CUtensorMap g;     // [L][n][H] (gsave)
   CUtensorMap gd;    // [n] g_dens, box 64 points, no swizzle
 };
 
 // (layer, first input feature, rows) of tile `tile` of the dW grid
 __host__ __device__ __forceinline__ int dw_tiles_of(int K) { return (K + 127) / 128; }
+template <int H, int KIN>
 __device__ __forceinline__ void dw_tile(int tile, int L, int skip, int& l, int& k0, int& rows) {
   for (l = 0; l < L; ++l) {
-    const int K = layer_in(l, skip), nt = dw_tiles_of(K);
+    const int K = layer_in(l, skip, H, KIN), nt = dw_tiles_of(K);
     if (tile < nt) break;
     tile -= nt;
   }
   k0 = tile * 128;
-  rows = min(128, layer_in(l, skip) - k0);
+  rows = min(128, layer_in(l, skip, H, KIN) - k0);
 }
 
+template <int H, int KIN>
 __global__ void __launch_bounds__(DW_THREADS, 1)
     trunk_bwd_dw_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, int n, int L, int skip,
                         int rows_per_split) {
+  constexpr int DW_B_BYTES = Dw<H>::B_BYTES, DW_STAGE = Dw<H>::STAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + DW_STAGES * DW_STAGE);
   uint64_t* empty = full + DW_STAGES;
 
   int l, k0, rows;
-  dw_tile(blockIdx.x, L, skip, l, k0, rows);
-  const int NO = layer_out(l, L);
+  dw_tile<H, KIN>(blockIdx.x, L, skip, l, k0, rows);
+  const int NO = layer_out(l, L, H);
   const bool dens = l == L - 1;
   const long p_begin = (long)blockIdx.y * rows_per_split;
   const long p_end = min((long)n, p_begin + rows_per_split);
@@ -730,7 +787,7 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
             tma_load(st + h * DW_A_BYTES, &maps.acts, k, p, l - 1, full + s);
         }
         for (int i = 0; i < H / 64; ++i)
-          tma_load(st + 2 * DW_A_BYTES + i * (DW_B_BYTES / 4), &maps.g, 64 * i, p, l, full + s);
+          tma_load(st + 2 * DW_A_BYTES + i * DW_A_BYTES, &maps.g, 64 * i, p, l, full + s);
         if (dens) tma_load_1d(st + 2 * DW_A_BYTES + DW_B_BYTES, &maps.gd, p, full + s);
       }
     }
@@ -741,7 +798,7 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
   // a 64-row tile's end multiplies whatever its A slot holds and drops the
   // result: no branch around the products, which ptxas would serialize.
   const int wg = warp >> 2, wq = warp & 3, wtid = tid & 127;
-  float acc[128];
+  float acc[H / 2];
   float sd = 0.f;  // density column: feature wtid % 64, points (wtid / 64) * 32.. of each chunk
   auto products = [&](int c) {
     const int s = c % DW_STAGES;
@@ -750,9 +807,15 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
     const uint32_t a = smem_u32(st + wg * DW_A_BYTES), b = smem_u32(st + 2 * DW_A_BYTES);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DW_PTS / 16; ++kk)
-      wgmma_m64n256_ss<1, 1>(acc, desc_mn_sw128(a + 2048 * kk, DW_A_BYTES),
-                         desc_mn_sw128(b + 2048 * kk, DW_B_BYTES / 4), (c | kk) != 0);
+    for (int kk = 0; kk < DW_PTS / 16; ++kk) {
+      // the g boxes lie DW_A_BYTES apart (one 64-column box of 64 points each)
+      if constexpr (H == 256)
+        wgmma_m64n256_ss<1, 1>(acc, desc_mn_sw128(a + 2048 * kk, DW_A_BYTES),
+                               desc_mn_sw128(b + 2048 * kk, DW_A_BYTES), (c | kk) != 0);
+      else
+        wgmma_m64n128_ss<1, 1>(acc, desc_mn_sw128(a + 2048 * kk, DW_A_BYTES),
+                               desc_mn_sw128(b + 2048 * kk, DW_A_BYTES), (c | kk) != 0);
+    }
     wgmma_commit();
   };
   auto density = [&](int c) {
@@ -780,10 +843,10 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
   mbar_arrive(empty + (nch - 1) % DW_STAGES);
   if (64 * wg >= rows) return;
 
-  float* dwl = dw + w_offset(l, L, skip) + (long)(k0 + 64 * wg) * NO;
+  float* dwl = dw + w_offset(l, L, skip, H, KIN) + (long)(k0 + 64 * wg) * NO;
   const int r_lo = wq * 16 + (lane >> 2), q = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < H / 8; ++j) {
     const int col = 8 * j + 2 * q;
     atomicAdd(dwl + (long)r_lo * NO + col, acc[4 * j]);
     atomicAdd(dwl + (long)r_lo * NO + col + 1, acc[4 * j + 1]);
@@ -798,38 +861,42 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
 // Forward: one block per FW_T = 128 points, two consumer warpgroups of 64
 // points each and one producer warp (warp 8; warps 9-11 leave at once).
 //
-// Layer l computes relu(a_{l-1} W_l + b_l) for its 256 feature columns with
-// wgmma m64n256k16 (f32 accumulators, 128 per thread), in k64 steps: B is a
-// [64 inputs x 256 outputs] stage of a FW_RING-stage ring that the producer
-// fills by TMA from the packed weights, four 64 x 64 boxes of the chain's two
-// tensor maps (a row of a packed layer is N-contiguous for a W: the
+// Layer l computes relu(a_{l-1} W_l + b_l) for its H feature columns with
+// wgmma m64nHk16 (f32 accumulators, H / 2 per thread), in k64 steps: B is a
+// [64 inputs x H outputs] stage of a FW_RING-stage ring that the producer
+// fills by TMA from the packed weights, H / 64 64 x 64 boxes of the chain's
+// two tensor maps (a row of a packed layer is N-contiguous for a W: the
 // descriptors' transpose bit, 8 KB between the 64-column boxes). The producer
 // walks the layers without a break, so every layer's first stages are in
 // flight while the previous one finishes. A is the activation in registers
-// (64 x 32 bits per thread): the epilogue adds the bias in f32, applies ReLU
+// (H / 4 x 32 bits per thread): the epilogue adds the bias in f32, applies ReLU
 // and packs to bf16 straight into the next layer's A. Layer 0 and the skip
-// layer's encoding rows take A from the encoding tile that TMA brought into
-// shared memory (rows past n as zeros). The same epilogue writes the bf16
+// layer's encoding rows take A from the encoding tile (KIN / 64 boxes) that
+// TMA brought into shared memory (rows past n as zeros). The same epilogue writes the bf16
 // tile into a swizzled staging tile, and one thread sends it to acts[l] (or
 // feat) by TMA stores, which clip rows past n; they read the staging tile
 // while the next layer's products run and are waited for before the next
-// epilogue writes it again. The density column is a 256-wide dot of the last
+// epilogue writes it again. The density column is an H-wide dot of the last
 // layer's A (and of the encoding, when the skip layer is the last) with
-// W_last[:, 256] in the epilogue: no product pass for one column.
+// W_last[:, H] in the epilogue: no product pass for one column.
 constexpr int FW_T = 128;
 constexpr int FW_THREADS = 384;
 constexpr int FW_RING = 4;
 constexpr int FW_BOX = 64 * 64 * 2;       // one 64 x 64 bf16 box
-constexpr int FW_STAGE = 4 * FW_BOX;       // 64 inputs x 256 outputs
-constexpr int FW_TILE = 4 * FW_BOX;        // a warpgroup's [64 points x 256] staging tile
-constexpr size_t FW_SMEM = 1024 + FW_RING * FW_STAGE + 2 * FW_TILE + 2 * FW_BOX + (H + KIN) * sizeof(float) +
-                           (2 * FW_RING + 1) * sizeof(uint64_t);
+template <int H, int KIN>
+struct Fwd {
+  static constexpr int STAGE = H / 64 * FW_BOX;  // 64 inputs x H outputs
+  static constexpr int TILE = H / 64 * FW_BOX;   // a warpgroup's [64 points x H] staging tile
+  static constexpr int ENC = KIN / 64 * FW_BOX;  // a warpgroup's [64 points x KIN] encoding tile
+  static constexpr size_t SMEM = 1024 + FW_RING * STAGE + 2 * TILE + 2 * ENC + (H + KIN) * sizeof(float) +
+                                 (2 * FW_RING + 1) * sizeof(uint64_t);
+};
 
 struct FwdMaps {
   WeightMaps w;
-  CUtensorMap enc;   // [n, 64], box 64 x 64, 128-byte swizzle (loads; rows past n read as zeros)
-  CUtensorMap feat;  // [n, 256], box 64 x 64 (stores; rows past n are clipped)
-  CUtensorMap acts;  // [L-1, n, 256], box 64 x 64 x 1; not encoded without stored activations
+  CUtensorMap enc;   // [n, KIN], box 64 x 64, 128-byte swizzle (loads; rows past n read as zeros)
+  CUtensorMap feat;  // [n, H], box 64 x 64 (stores; rows past n are clipped)
+  CUtensorMap acts;  // [L-1, n, H], box 64 x 64 x 1; not encoded without stored activations
 };
 
 // shared -> global through a tensor map, tracked by this thread's bulk groups
@@ -852,18 +919,24 @@ struct FwdRing {
   uint64_t* empty;
 };
 
-// acc (+)= A (registers, 64 rows x 256) x the next four ring stages
-__device__ __forceinline__ void fwd_mma_regs(float (&acc)[128], const uint32_t (&A)[64], int& t, const FwdRing& r) {
+// acc (+)= A (registers, 64 rows x H) x the next H / 64 ring stages
+template <int H>
+__device__ __forceinline__ void fwd_mma_regs(float (&acc)[H / 2], const uint32_t (&A)[H / 4], int& t,
+                                             const FwdRing& r) {
   fence_operand(acc);
 #pragma unroll
   for (int kt = 0; kt < H / 64; ++kt) {
     const int s = t % FW_RING;
     mbar_wait(r.full + s, (t / FW_RING) & 1);
-    const uint32_t b = r.ring + s * FW_STAGE;
+    const uint32_t b = r.ring + s * (H / 64 * FW_BOX);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n256_rs_t(acc, &A[16 * kt + 4 * kk], desc_mn_sw128(b + 2048 * kk, FW_BOX), (kt | kk) != 0);
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (H == 256)
+        wgmma_m64n256_rs_t(acc, &A[16 * kt + 4 * kk], desc_mn_sw128(b + 2048 * kk, FW_BOX), (kt | kk) != 0);
+      else
+        wgmma_m64n128_rs_t(acc, &A[16 * kt + 4 * kk], desc_mn_sw128(b + 2048 * kk, FW_BOX), (kt | kk) != 0);
+    }
     wgmma_commit();
     if (kt > 0) {
       wgmma_wait<1>();
@@ -876,19 +949,25 @@ __device__ __forceinline__ void fwd_mma_regs(float (&acc)[128], const uint32_t (
   fence_operand(acc);
 }
 
-// acc (+)= the encoding tile (shared, [64 x 64], K-major) x the next ring
-// stage; accumulate 0 starts the sum
-__device__ __forceinline__ void fwd_mma_enc(float (&acc)[128], uint32_t enc, int accumulate, int& t,
+// acc (+)= one 64-column box of the encoding tile (shared, [64 x 64],
+// K-major) x the next ring stage; accumulate 0 starts the sum
+template <int H>
+__device__ __forceinline__ void fwd_mma_enc(float (&acc)[H / 2], uint32_t enc, int accumulate, int& t,
                                             const FwdRing& r) {
   fence_operand(acc);
   const int s = t % FW_RING;
   mbar_wait(r.full + s, (t / FW_RING) & 1);
-  const uint32_t b = r.ring + s * FW_STAGE;
+  const uint32_t b = r.ring + s * (H / 64 * FW_BOX);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n256_ss<0, 1>(acc, desc_sw128(enc + 32 * kk), desc_mn_sw128(b + 2048 * kk, FW_BOX),
-                           accumulate | (kk != 0));
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (H == 256)
+      wgmma_m64n256_ss<0, 1>(acc, desc_sw128(enc + 32 * kk), desc_mn_sw128(b + 2048 * kk, FW_BOX),
+                             accumulate | (kk != 0));
+    else
+      wgmma_m64n128_ss<0, 1>(acc, desc_sw128(enc + 32 * kk), desc_mn_sw128(b + 2048 * kk, FW_BOX),
+                             accumulate | (kk != 0));
+  }
   wgmma_commit();
   wgmma_wait<0>();
   mbar_arrive(r.empty + s);
@@ -896,22 +975,24 @@ __device__ __forceinline__ void fwd_mma_enc(float (&acc)[128], uint32_t enc, int
   fence_operand(acc);
 }
 
-// byte offset of element (r, c) in a [64 x 256] staging tile of four 64 x 64
+// byte offset of element (r, c) in a [64 x H] staging tile of H / 64 64 x 64
 // boxes with the 128-byte swizzle, the layout in which TMA moves a 64 x 64
-// box (for c < 64 also the offset in the encoding box)
+// box (for c < KIN also the offset in the encoding tile)
 __device__ __forceinline__ uint32_t stage_offset(int r, int c) {
   return (c >> 6) * FW_BOX + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
 }
 
+template <int H, int KIN>
 __global__ void __launch_bounds__(FW_THREADS, 1)
     trunk_fwd_kernel(const __grid_constant__ FwdMaps maps, const bf16* __restrict__ w, const bf16* __restrict__ b,
                      float* __restrict__ dens, int n, int L, int skip, int store_acts) {
+  constexpr int FW_STAGE = Fwd<H, KIN>::STAGE, FW_TILE = Fwd<H, KIN>::TILE, FW_ENC = Fwd<H, KIN>::ENC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ring = base;
   unsigned char* stg = ring + FW_RING * FW_STAGE;  // [wg] staging tiles
   unsigned char* enc_s = stg + 2 * FW_TILE;        // [wg] encoding tiles
-  float* wd_s = reinterpret_cast<float*>(enc_s + 2 * FW_BOX);  // W_last[:, 256]
+  float* wd_s = reinterpret_cast<float*>(enc_s + 2 * FW_ENC);  // W_last[:, H]
   uint64_t* full = reinterpret_cast<uint64_t*>(wd_s + H + KIN);
   uint64_t* empty = full + FW_RING;
   uint64_t* efull = empty + FW_RING;
@@ -933,19 +1014,21 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
     // 128 x 40 + 256 x 232 = 384 x 168, the registers the block was launched with
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp == 8 && lane == 0) {
-      const int boxes = n - row0 > 64 ? 2 : 1;  // the second warpgroup's tile only if it has rows
-      mbar_expect_tx(efull, boxes * FW_BOX);
-      for (int h = 0; h < boxes; ++h) tma_load_2d(enc_s + h * FW_BOX, &maps.enc, 0, (int)row0 + 64 * h, efull);
-      // stage t: rows y .. y + 64 of a layer, its four 64-column boxes
+      const int tiles = n - row0 > 64 ? 2 : 1;  // the second warpgroup's tile only if it has rows
+      mbar_expect_tx(efull, tiles * FW_ENC);
+      for (int h = 0; h < tiles; ++h)
+        for (int kb = 0; kb < KIN / 64; ++kb)
+          tma_load_2d(enc_s + h * FW_ENC + kb * FW_BOX, &maps.enc, 64 * kb, (int)row0 + 64 * h, efull);
+      // stage t: rows y .. y + 64 of a layer, its H / 64 64-column boxes
       int t = 0, y0 = 0;
       for (int l = 0; l < L; ++l) {
-        const int K = layer_in(l, skip);
+        const int K = layer_in(l, skip, H, KIN);
         const bool last = l == L - 1;
         for (int k0 = 0; k0 < K; k0 += 64, ++t) {
           const int s = t % FW_RING;
           mbar_wait(empty + s, ((t / FW_RING) & 1) ^ 1);
           mbar_expect_tx(full + s, FW_STAGE);
-          for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < H / 64; ++i)
             tma_load_2d(ring + s * FW_STAGE + i * FW_BOX, last ? &maps.w.last : &maps.w.hidden, 64 * i,
                         (last ? 0 : y0) + k0, full + s);
         }
@@ -963,42 +1046,46 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   const long wrow0 = row0 + wg * 64;
   const int wg_rows = (int)max(0L, min(64L, (long)n - wrow0));
   {
-    const int K_last = layer_in(L - 1, skip);
-    const bf16* w_last = w + w_offset(L - 1, L, skip);
+    const int K_last = layer_in(L - 1, skip, H, KIN);
+    const bf16* w_last = w + w_offset(L - 1, L, skip, H, KIN);
     for (int k = tid; k < K_last; k += 256) wd_s[k] = __bfloat162float(w_last[(long)k * (H + DENS_PAD) + H]);
   }
   named_bar(3, 256);
 
   const FwdRing rg{smem_u32(ring), full, empty};
-  const uint32_t enc_u = smem_u32(enc_s + wg * FW_BOX);
+  const uint32_t enc_u = smem_u32(enc_s + wg * FW_ENC);
   unsigned char* tile = stg + wg * FW_TILE;
   mbar_wait(efull, 0);
 
-  uint32_t A[64];
-  float acc[128];
+  uint32_t A[H / 4];
+  float acc[H / 2];
   int t = 0;
   for (int l = 0; l < L; ++l) {
     if (l == 0) {
-      fwd_mma_enc(acc, enc_u, 0, t, rg);
+#pragma unroll
+      for (int kb = 0; kb < KIN / 64; ++kb) fwd_mma_enc<H>(acc, enc_u + kb * FW_BOX, kb != 0, t, rg);
     } else {
-      fwd_mma_regs(acc, A, t, rg);
-      if (l == skip) fwd_mma_enc(acc, enc_u, 1, t, rg);
+      fwd_mma_regs<H>(acc, A, t, rg);
+      if (l == skip) {
+#pragma unroll
+        for (int kb = 0; kb < KIN / 64; ++kb) fwd_mma_enc<H>(acc, enc_u + kb * FW_BOX, 1, t, rg);
+      }
     }
     const bool last = l == L - 1;
     if (last) {
-      // density: the last layer's input (A, and the encoding if it is the skip layer) . W_last[:, 256]
+      // density: the last layer's input (A, and the encoding if it is the skip layer) . W_last[:, H]
       float d_lo = 0.f, d_hi = 0.f;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < H / 8; ++j) {
         const int c = 8 * j + 2 * q;
         const float2 lo = unpack_bf16(A[2 * j]), hi = unpack_bf16(A[2 * j + 1]);
         d_lo += lo.x * wd_s[c] + lo.y * wd_s[c + 1];
         d_hi += hi.x * wd_s[c] + hi.y * wd_s[c + 1];
       }
       if (skip == L - 1) {
-        const unsigned char* e = enc_s + wg * FW_BOX;
+        const unsigned char* e = enc_s + wg * FW_ENC;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < KIN / 8; ++j) {
           const int c = 8 * j + 2 * q;
           const float2 lo = unpack_bf16(*reinterpret_cast<const uint32_t*>(e + stage_offset(r_lo, c)));
           const float2 hi = unpack_bf16(*reinterpret_cast<const uint32_t*>(e + stage_offset(r_hi, c)));
@@ -1024,7 +1111,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
     }
     const __nv_bfloat162* bl = reinterpret_cast<const __nv_bfloat162*>(b + (long)l * H);
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < H / 8; ++j) {
       const int c = 8 * j + 2 * q;
       const float2 bb = __bfloat1622float2(bl[c >> 1]);
       A[2 * j] = pack_bf16(fmaxf(acc[4 * j] + bb.x, 0.f), fmaxf(acc[4 * j + 1] + bb.y, 0.f));
@@ -1038,7 +1125,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_bar(1 + wg, 128);
       if (wtid == 0) {
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < H / 64; ++i) {
           if (last)
             tma_store_2d(&maps.feat, 64 * i, (int)wrow0, tile + i * FW_BOX);
           else
@@ -1079,62 +1166,112 @@ int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rank, st
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-int make_weight_maps(EncodeTiled encode, WeightMaps* maps, const void* w, int L, int skip) {
-  const long last = w_offset(L - 1, L, skip);
+int make_weight_maps(EncodeTiled encode, WeightMaps* maps, const void* w, int L, int skip, int H, int KIN) {
+  const long last = w_offset(L - 1, L, skip, H, KIN);
   const int err = make_map(encode, &maps->hidden, w, 2, {(cuuint64_t)H, (cuuint64_t)(last / H), 1}, {64, 64, 1}, true);
   if (err) return err;
   return make_map(encode, &maps->last, (const bf16*)w + last, 2,
-                  {(cuuint64_t)(H + DENS_PAD), (cuuint64_t)layer_in(L - 1, skip), 1}, {64, 64, 1}, true);
+                  {(cuuint64_t)(H + DENS_PAD), (cuuint64_t)layer_in(L - 1, skip, H, KIN), 1}, {64, 64, 1}, true);
+}
+
+template <int H, int KIN>
+int fwd_launch(EncodeTiled encode, const void* enc, const void* w, const void* b, void* feat, void* dens, void* acts,
+               int n, int L, int skip, cudaStream_t stream) {
+  FwdMaps maps = {};
+  const cuuint64_t N = (cuuint64_t)n;
+  int err = make_weight_maps(encode, &maps.w, w, L, skip, H, KIN);
+  if (!err) err = make_map(encode, &maps.enc, enc, 2, {(cuuint64_t)KIN, N, 1}, {64, 64, 1}, true);
+  if (!err) err = make_map(encode, &maps.feat, feat, 2, {(cuuint64_t)H, N, 1}, {64, 64, 1}, true);
+  if (!err && acts) err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)(L - 1)}, {64, 64, 1}, true);
+  if (err) return err;
+  constexpr size_t smem = Fwd<H, KIN>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel<H, KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + FW_T - 1) / FW_T;
+  trunk_fwd_kernel<H, KIN><<<blocks, FW_THREADS, smem, stream>>>(maps, (const bf16*)w, (const bf16*)b, (float*)dens, n,
+                                                                  L, skip, acts != nullptr);
+  return (int)cudaGetLastError();
+}
+
+template <int H, int KIN>
+int chain_launch(EncodeTiled encode, const void* gfeat, const void* gdens, const void* feat, const void* acts,
+                 const void* w, void* denc, void* gsave, void* db, int n, int L, int skip, cudaStream_t stream) {
+  WeightMaps maps;
+  const int err = make_weight_maps(encode, &maps, w, L, skip, H, KIN);
+  if (err) return err;
+  constexpr size_t smem = Chain<H, KIN>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_chain_kernel<H, KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + CH_T - 1) / CH_T;
+  trunk_bwd_chain_kernel<H, KIN><<<blocks, CH_THREADS, smem, stream>>>(
+      (const bf16*)gfeat, (const bf16*)gdens, (const bf16*)feat, (const bf16*)acts, (const bf16*)w, maps,
+      (bf16*)denc, (bf16*)gsave, (float*)db, n, L, skip);
+  return (int)cudaGetLastError();
+}
+
+template <int H, int KIN>
+int dw_launch(EncodeTiled encode, int sms, const void* enc, const void* acts, const void* gsave, const void* gdens,
+              void* dw, int n, int L, int skip, cudaStream_t stream) {
+  DwMaps maps;
+  const cuuint64_t N = (cuuint64_t)n;
+  int err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)(L - 1)}, {64, DW_PTS, 1}, true);
+  if (!err) err = make_map(encode, &maps.enc, enc, 3, {(cuuint64_t)KIN, N, 1}, {64, DW_PTS, 1}, true);
+  if (!err) err = make_map(encode, &maps.g, gsave, 3, {(cuuint64_t)H, N, (cuuint64_t)L}, {64, DW_PTS, 1}, true);
+  if (!err) err = make_map(encode, &maps.gd, gdens, 1, {N, 1, 1}, {DW_PTS, 1, 1}, false);
+  if (err) return err;
+  constexpr size_t smem = Dw<H>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_dw_kernel<H, KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // about two waves of one block per SM, every slice a whole number of chunks
+  int tiles = 0;
+  for (int l = 0; l < L; ++l) tiles += dw_tiles_of(layer_in(l, skip, H, KIN));
+  const int chunks = (n + DW_PTS - 1) / DW_PTS;
+  const int splits = std::max(1, std::min(2 * sms / tiles, chunks));
+  const int rows_per_split = (chunks + splits - 1) / splits * DW_PTS;
+  trunk_bwd_dw_kernel<H, KIN><<<dim3(tiles, splits), DW_THREADS, smem, stream>>>(maps, (float*)dw, n, L, skip,
+                                                                                  rows_per_split);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ------------------------------------------------------------------ C interface
 // Each function launches on `stream`, does not synchronise, and returns the
-// cudaError_t of the launch (0 on success).
+// cudaError_t of the launch (0 on success): cudaErrorInvalidValue for an H
+// other than 128 or 256 or a KIN other than 64 or 128.
+
+// the instantiation of `fn` for (H, KIN)
+#define TRUNK_DISPATCH(fn, H, KIN, ...)                                          \
+  ((H) == 256 && (KIN) == 64    ? fn<256, 64>(__VA_ARGS__)                        \
+   : (H) == 256 && (KIN) == 128 ? fn<256, 128>(__VA_ARGS__)                       \
+   : (H) == 128 && (KIN) == 64  ? fn<128, 64>(__VA_ARGS__)                        \
+   : (H) == 128 && (KIN) == 128 ? fn<128, 128>(__VA_ARGS__)                       \
+                                : (int)cudaErrorInvalidValue)
 
 extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 int trunk_fwd(const void* enc, const void* w, const void* b, void* feat, void* dens, void* acts,
-              int n, int L, int skip, void* stream) {
+              int n, int L, int skip, int H, int kin, void* stream) {
   static EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  FwdMaps maps = {};
-  const cuuint64_t N = (cuuint64_t)n;
-  int err = make_weight_maps(encode, &maps.w, w, L, skip);
-  if (!err) err = make_map(encode, &maps.enc, enc, 2, {(cuuint64_t)KIN, N, 1}, {64, 64, 1}, true);
-  if (!err) err = make_map(encode, &maps.feat, feat, 2, {(cuuint64_t)H, N, 1}, {64, 64, 1}, true);
-  if (!err && acts) err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)(L - 1)}, {64, 64, 1}, true);
-  if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FW_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (n + FW_T - 1) / FW_T;
-  trunk_fwd_kernel<<<blocks, FW_THREADS, FW_SMEM, (cudaStream_t)stream>>>(maps, (const bf16*)w, (const bf16*)b,
-                                                                          (float*)dens, n, L, skip, acts != nullptr);
-  return (int)cudaGetLastError();
+  return TRUNK_DISPATCH(fwd_launch, H, kin, encode, enc, w, b, feat, dens, acts, n, L, skip, (cudaStream_t)stream);
 }
 
 int trunk_bwd_chain(const void* gfeat, const void* gdens, const void* feat, const void* acts,
-                    const void* w, void* denc, void* gsave, void* db, int n, int L, int skip, void* stream) {
+                    const void* w, void* denc, void* gsave, void* db, int n, int L, int skip, int H, int kin,
+                    void* stream) {
   static EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  WeightMaps maps;
-  const int err = make_weight_maps(encode, &maps, w, L, skip);
-  if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)CHAIN_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (n + CH_T - 1) / CH_T;
-  trunk_bwd_chain_kernel<<<blocks, CH_THREADS, CHAIN_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)gfeat, (const bf16*)gdens, (const bf16*)feat, (const bf16*)acts, (const bf16*)w, maps,
-      (bf16*)denc, (bf16*)gsave, (float*)db, n, L, skip);
-  return (int)cudaGetLastError();
+  return TRUNK_DISPATCH(chain_launch, H, kin, encode, gfeat, gdens, feat, acts, w, denc, gsave, db, n, L, skip,
+                        (cudaStream_t)stream);
 }
 
 int trunk_bwd_dw(const void* enc, const void* acts, const void* gsave, const void* gdens, void* dw, int n,
-                 int L, int skip, void* stream) {
+                 int L, int skip, int H, int kin, void* stream) {
   static EncodeTiled encode = encode_tiled();
   static int sms = 0;
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -1144,25 +1281,8 @@ int trunk_bwd_dw(const void* enc, const void* acts, const void* gsave, const voi
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  DwMaps maps;
-  const cuuint64_t N = (cuuint64_t)n;
-  int err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)(L - 1)}, {64, DW_PTS, 1}, true);
-  if (!err) err = make_map(encode, &maps.enc, enc, 3, {(cuuint64_t)KIN, N, 1}, {64, DW_PTS, 1}, true);
-  if (!err) err = make_map(encode, &maps.g, gsave, 3, {(cuuint64_t)H, N, (cuuint64_t)L}, {64, DW_PTS, 1}, true);
-  if (!err) err = make_map(encode, &maps.gd, gdens, 1, {N, 1, 1}, {DW_PTS, 1, 1}, false);
-  if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)DW_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  // about two waves of one block per SM, every slice a whole number of chunks
-  int tiles = 0;
-  for (int l = 0; l < L; ++l) tiles += dw_tiles_of(layer_in(l, skip));
-  const int chunks = (n + DW_PTS - 1) / DW_PTS;
-  const int splits = std::max(1, std::min(2 * sms / tiles, chunks));
-  const int rows_per_split = (chunks + splits - 1) / splits * DW_PTS;
-  trunk_bwd_dw_kernel<<<dim3(tiles, splits), DW_THREADS, DW_SMEM, (cudaStream_t)stream>>>(
-      maps, (float*)dw, n, L, skip, rows_per_split);
-  return (int)cudaGetLastError();
+  return TRUNK_DISPATCH(dw_launch, H, kin, encode, sms, enc, acts, gsave, gdens, dw, n, L, skip,
+                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

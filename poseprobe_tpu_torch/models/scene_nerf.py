@@ -46,7 +46,8 @@ class SceneConfig:
     # "bfloat16": bf16 trunk and rgb head with f32 master weights (one cast of
     # the param tree per step); everything outside the MLP stays float32
     matmul_dtype: str = "float32"
-    # bf16 trunk on CUDA goes through the fused kernel when `supports(cfg)`
+    # bf16 trunk on CUDA goes through the fused kernels when `supports(cfg)`, as the
+    # reference's does: one width, a multiple of 128, one skip, input up to 128
     use_fused_trunk: bool = True
 
     @property

@@ -9,7 +9,10 @@ reference instead). A block stages R rays of every array into shared memory
 (bulk copies where the spans allow), a warp takes a ray and each lane a run
 of k samples; `launch_plan` below chooses R, k and the copy path of each
 array, and `transmittance_in_runs` is the kernel's order of multiplication
-in plain PyTorch.
+in plain PyTorch. A ray longer than the tile (S > TILE, any S as on the TPU)
+goes to the chunked kernels: a warp walks it in chunks of TILE samples,
+carrying T from one chunk to the next (the backward walks the chunks back,
+carrying its suffix sum).
 
 Function, per ray of S samples (`fused_alpha_composite_plain` below is the same
 in plain PyTorch, built from `compositing.alpha2weights`): NeuS alpha from
@@ -39,10 +42,8 @@ import torch
 from . import _build, compositing
 from ._build import check as _check, ptr as _ptr
 
-MAX_SAMPLES = 1024   # 32 lanes, each a run of at most 33 samples
-
 # the kernels' launch geometry (csrc/fused_composite.cu: TILE, RUN_REGS, SMEM_LIMIT)
-TILE = 1024               # samples a block stages at most: rays per block x S
+TILE = 1024               # samples a block stages at most: rays per block x S, or a chunk of a longer ray
 RUN_IN_REGISTERS = 5      # runs up to this long keep their per-sample values in registers
 SMEM_LIMIT = 48 * 1024    # dynamic shared memory a block takes without an attribute
 BULK_ALIGN = 16           # a bulk copy's addresses and size are multiples of this
@@ -52,9 +53,12 @@ FWD_ARRAYS = (("sdf", 4), ("cos_term", 4), ("mask", 1), ("rgb", 12), ("step", 4)
 BWD_ARRAYS = (("sdf", 4), ("cos_term", 4), ("mask", 1), ("rgb", 12), ("step", 4), ("ct_w", 4),
               ("d_sdf", 4), ("d_cos", 4), ("d_rgb", 12), ("d_step", 4))
 
-# launch counts of the kernels; the plain version does not count
+# launch counts of the kernels (the tiled ones, and the chunked ones for S > TILE); the plain
+# version does not count
 fwd_launches = 0
 bwd_launches = 0
+fwd_chunked_launches = 0
+bwd_chunked_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,14 +81,20 @@ def launch_plan(N: int, S: int, ptrs: dict, backward: bool) -> LaunchPlan:
     1) whose R x S samples fit the tile (R = 4 up to S = 256 gives 256 blocks
     at N = 1024, two per SM of 132). `ptrs` maps each name of FWD_ARRAYS or
     BWD_ARRAYS to its data_ptr (None for an absent cotangent); an array takes
-    the bulk path in a block whose span of it starts and ends on 16 bytes."""
-    R = next(r for r in (4, 2, 1) if r * S <= TILE)
-    k = run_length(S)
+    the bulk path in a block whose span of it starts and ends on 16 bytes.
+    Past the tile (S > TILE) the chunked kernels take one ray a block in
+    chunks of TILE samples, runs of run_length(TILE), and choose each chunk's
+    copy path themselves (no bulk bits here)."""
+    chunk = min(S, TILE)
+    R = next(r for r in (4, 2, 1) if r * chunk <= TILE)
+    k = run_length(chunk)
     arrays = BWD_ARRAYS if backward else FWD_ARRAYS
-    n = R * S
+    n = R * chunk
     regions = (7 if k <= RUN_IN_REGISTERS else 8) if backward else 6   # float regions of the tile
     smem = 4 * (-(-n // 4) * 4) * regions + -(-n // 16) * 16          # ... then the byte mask
     blocks = -(-N // R)
+    if S > TILE:
+        return LaunchPlan(R, k, blocks, smem, 0, 0)
     last = N - (blocks - 1) * R
 
     def bulk(first_ray: int, rays: int) -> int:
@@ -102,22 +112,33 @@ def transmittance_in_runs(om: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     kernels' order of multiplication: lane l's run of k samples multiplied in
     order, a 32-lane Hillis-Steele product scan over the run products (lane l
     times lane l - off, off = 1, 2, 4, 8, 16), T inside a run serially from
-    the exclusive scan value; alphainv is the scan's total."""
+    the exclusive scan value; alphainv is the scan's total. Past the tile the
+    ray goes in chunks of TILE samples, runs of run_length(TILE): a run starts
+    at carry x its exclusive scan value, and carry (1 at the ray's start; 1 x
+    a value is that value, so one chunk is the scan above) takes the chunk's
+    total at each chunk's end; alphainv is the last carry."""
     N, S = om.shape
-    k = run_length(S)
-    runs = torch.nn.functional.pad(om, (0, 32 * k - S), value=1.0).reshape(N, 32, k)
-    prod = torch.ones_like(runs[..., 0])
-    for i in range(k):
-        prod = prod * runs[..., i]
-    p = prod
-    for off in (1, 2, 4, 8, 16):
-        p = torch.cat([p[:, :off], p[:, off:] * p[:, :-off]], dim=1)
-    T = torch.cat([torch.ones_like(p[:, :1]), p[:, :-1]], dim=1)
-    Ts = []
-    for i in range(k):
-        Ts.append(T)
-        T = T * runs[..., i]
-    return torch.stack(Ts, dim=-1).reshape(N, 32 * k)[:, :S], p[:, 31]
+    chunk = min(S, TILE)
+    k = run_length(chunk)
+    carry = torch.ones_like(om[:, 0])
+    parts = []
+    for c0 in range(0, S, chunk):
+        n = min(chunk, S - c0)
+        runs = torch.nn.functional.pad(om[:, c0:c0 + n], (0, 32 * k - n), value=1.0).reshape(N, 32, k)
+        prod = torch.ones_like(runs[..., 0])
+        for i in range(k):
+            prod = prod * runs[..., i]
+        p = prod
+        for off in (1, 2, 4, 8, 16):
+            p = torch.cat([p[:, :off], p[:, off:] * p[:, :-off]], dim=1)
+        T = carry[:, None] * torch.cat([torch.ones_like(p[:, :1]), p[:, :-1]], dim=1)
+        Ts = []
+        for i in range(k):
+            Ts.append(T)
+            T = T * runs[..., i]
+        parts.append(torch.stack(Ts, dim=-1).reshape(N, 32 * k)[:, :n])
+        carry = carry * p[:, 31]
+    return torch.cat(parts, dim=1), carry
 
 
 def fused_alpha_composite_plain(sdf, cos_term, mask, rgb, step, inv_s, dist):
@@ -152,8 +173,8 @@ def _lib():
 def _check_inputs(sdf, cos_term, mask, rgb, step, scalars, **more) -> tuple:
     """(N, S) after checking every tensor given (a cotangent may be None)."""
     N, S = sdf.shape
-    if not 1 <= S <= MAX_SAMPLES:
-        raise ValueError(f"fused composite: S={S} outside [1, {MAX_SAMPLES}]")
+    if S < 1:
+        raise ValueError(f"fused composite: S={S} outside [1, inf)")
     shapes = dict(sdf=(N, S), cos_term=(N, S), mask=(N, S), rgb=(N, S, 3), step=(N, S), scalars=(2,),
                   ct_w=(N, S), ct_ainv=(N,), ct_rgbm=(N, 3), ct_nstep=(N,))
     for name, t in dict(sdf=sdf, cos_term=cos_term, mask=mask, rgb=rgb, step=step, scalars=scalars,
@@ -172,7 +193,7 @@ def composite_fwd(sdf, cos_term, mask, rgb, step, scalars):
     """sdf, cos_term, step [N, S] f32, mask [N, S] bool, rgb [N, S, 3] f32,
     scalars [2] f32 = (inv_s, dist) -> (weights, alphainv, rgb_marched, n_step).
     Kernel on CUDA tensors, plain version on CPU ones."""
-    global fwd_launches
+    global fwd_launches, fwd_chunked_launches
     if not sdf.is_cuda:
         return fused_alpha_composite_plain(sdf, cos_term, mask, rgb, step, scalars[0], scalars[1])
     N, S = _check_inputs(sdf, cos_term, mask, rgb, step, scalars)
@@ -188,7 +209,10 @@ def composite_fwd(sdf, cos_term, mask, rgb, step, scalars):
                                   N, S, plan.rays_per_block, plan.run, plan.bulk_full, plan.bulk_last,
                                   plan.smem_bytes, _ptr(w), _ptr(ainv), _ptr(rgbm), _ptr(nstep), stream),
            "composite_fwd")
-    fwd_launches += 1
+    if S > TILE:
+        fwd_chunked_launches += 1
+    else:
+        fwd_launches += 1
     return w, ainv, rgbm, nstep
 
 
@@ -199,7 +223,7 @@ def composite_bwd(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgb
     forward is kept. A cotangent may be None (zeros, and nothing is read for
     it); with `scalar_grads=False` d_scalars is None and not computed. Kernel
     on CUDA tensors, autograd of the plain version on CPU ones."""
-    global bwd_launches
+    global bwd_launches, bwd_chunked_launches
     if not sdf.is_cuda:
         grads = composite_bwd_plain(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgbm, ct_nstep)
         return (*grads[:4], grads[4] if scalar_grads else None)
@@ -219,7 +243,10 @@ def composite_bwd(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgb
                                   plan.rays_per_block, plan.run, plan.bulk_full, plan.bulk_last, plan.smem_bytes,
                                   _ptr(d_sdf), _ptr(d_cos), _ptr(d_rgb), _ptr(d_step), _ptr(partials), stream),
            "composite_bwd")
-    bwd_launches += 1
+    if S > TILE:
+        bwd_chunked_launches += 1
+    else:
+        bwd_launches += 1
     # the two scalar gradients: one sum over the per-ray partial sums
     return d_sdf, d_cos, d_rgb, d_step, partials.sum(dim=0) if scalar_grads else None
 

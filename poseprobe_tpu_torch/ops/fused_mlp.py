@@ -1,10 +1,18 @@
-"""Fused scene-NeRF trunk (L x 256 MLP with one skip): Hopper kernels and twin.
+"""Fused scene-NeRF trunk (L x H MLP with one skip): Hopper kernels and twin.
 
 Replaces the Pallas TPU kernels of `poseprobe_tpu/ops/pallas/fused_mlp.py`:
 `_trunk_fwd_call` (forward) and `_trunk_bwd_call` (backward), entered through
-`fused_trunk` with the custom VJP `_trunk_padded`. The CUDA C++ source is
-`poseprobe_tpu_torch/csrc/fused_trunk.cu` (sm_90a, built with nvcc at first
-use and bound with ctypes).
+`fused_trunk` with the custom VJP `_trunk_padded`. They take what the TPU
+kernels take (`supports`): any uniform width H that is a multiple of 128, one
+skip strictly inside, an encoded input of at most 128. The encoded input is
+padded per call to 64 columns when it has at most 64, else to 128 (the
+reference pads to 128 always; the pad is zeros either way). Two CUDA C++
+sources (sm_90a, built with nvcc at first use and bound with ctypes):
+* `csrc/fused_trunk.cu`, H = 128 and 256 with either pad: the designs below,
+  templates on H and the pad (H = 256 with pad 64 is the 8x256 main path);
+* `csrc/trunk_wide.cu`, every H from 384 up: a plain tiled `mma.sync` GEMM
+  per layer with the layer's epilogue fused in, activations staged through
+  device memory, so no width limit (see that file).
 
 Function (identical to the TPU kernels' numerics, checkpoint stride 1):
 * forward: bf16 operands, f32 accumulation, bias added in f32, ReLU output
@@ -25,7 +33,17 @@ What bounds it on an H100: the 491,264 MACs per point make the forward
 989 TFLOP/s bf16 peak, while the stored activations are 7 x N x 256 x 2 B
 ~ 1.4 GB each way, ~0.55 ms of the 3.35 TB/s HBM for the whole forward: the
 forward is bound by bytes, the backward (twice the products, the same
-activation bytes plus the per-layer g) nearly balanced.
+activation bytes plus the per-layer g) nearly balanced. At 8x128 with a
+99-wide input (pad 128) the forward moves 2,308 B a point for 0.14 M
+multiply-adds: bytes again (0.271 ms); at 8x512 the 1.90 M multiply-adds a
+point make both directions bound by operations (1.51 ms forward, 3.02
+backward).
+
+The designs below are written for H = 256; at H = 128 every product is
+m64n128 (half the accumulators and A fragments, one 128-column pass in the
+chain), and with the 128-wide pad layer 0 and the skip layer take two 64-column
+encoding boxes (the chain's encoding pass is m64n128, and H = 256 with pad 128
+runs a 3-stage weight ring to fit the doubled encoding gradient).
 
 Forward: a block owns 128 points, two consumer warpgroups of 64 points run
 `wgmma` m64n256k16 per layer with the activation as A in registers (the
@@ -74,11 +92,13 @@ import torch.nn.functional as F
 from . import _build
 from ._build import check as _check, ptr as _ptr
 
-H = 256          # trunk width the kernel is written for
-IN_PAD = 64      # encoded input padded to a multiple of 16 (63 -> 64)
+MAX_IN = 128     # widest encoded input the kernels take, as the reference's IN_PAD
 DENS_PAD = 128   # last layer: [feat(H) | density | zeros] = H + DENS_PAD columns
+WGMMA_WIDTHS = (128, 256)   # widths of csrc/fused_trunk.cu; wider ones go to csrc/trunk_wide.cu
 
-# launch counts of the kernels; the CPU twin does not count
+# launch counts of the kernels: every call (`fwd_launches`, `bwd_launches`) and,
+# in `launches` below, by the kernel instantiation it launched; the CPU twin
+# does not count
 fwd_launches = 0
 bwd_launches = 0
 
@@ -88,22 +108,45 @@ bwd_launches = 0
 
 
 def supports(cfg) -> bool:
-    """True when the scene config's trunk fits the kernel: L >= 2 layers all of
-    width 256, one skip strictly inside, encoded input at most 64 wide."""
+    """True when the scene config's trunk fits the kernels, as the reference's
+    `supports`: L >= 2 layers all of one width H, a multiple of 128, one skip
+    strictly inside, encoded input at most 128 wide."""
     feat = tuple(cfg.layers_feat)
-    return (len(feat) >= 2 and all(d == H for d in feat)
+    return (len(feat) >= 2 and feat[0] > 0 and feat[0] % 128 == 0 and all(d == feat[0] for d in feat)
             and len(cfg.skip) == 1 and 0 < cfg.skip[0] < len(feat)
-            and cfg.input_3d_dim <= IN_PAD)
+            and cfg.input_3d_dim <= MAX_IN)
 
 
-def layout(L: int, skip: int, width: int) -> list:
+def in_pad(D: int) -> int:
+    """The encoded input's padded width: 64 for D <= 64, else 128."""
+    if not 0 < D <= MAX_IN:
+        raise ValueError(f"trunk kernels take an encoded input of 1..{MAX_IN} columns, got {D}")
+    return 64 if D <= 64 else MAX_IN
+
+
+def kernel_name(kind: str, width: int, pad: int) -> str:
+    """The name of the kernel instantiation that runs a trunk of this width and
+    input pad, for `kind` "fwd" or "bwd": `trunk_fwd` / `trunk_bwd` for the
+    8x256 main path's (256, 64), `trunk_<kind>_h<H>_in<pad>` for the other
+    `csrc/fused_trunk.cu` ones, `trunk_<kind>_wide` for `csrc/trunk_wide.cu`."""
+    if width not in WGMMA_WIDTHS:
+        return f"trunk_{kind}_wide"
+    return f"trunk_{kind}" if (width, pad) == (256, 64) else f"trunk_{kind}_h{width}_in{pad}"
+
+
+KERNEL_NAMES = tuple(kernel_name(kind, width, pad) for kind in ("fwd", "bwd")
+                     for width, pad in ((256, 64), (256, 128), (128, 64), (128, 128), (384, 64)))
+launches = dict.fromkeys(KERNEL_NAMES, 0)   # launches by kernel instantiation
+
+
+def layout(L: int, skip: int, width: int, pad: int) -> list:
     """Per layer (K, NO, w_offset, b_offset) of the packed weight/bias buffers:
-    layer l is a row-major [K, NO] block; K = IN_PAD (l = 0), width + IN_PAD
-    (the skip layer), width otherwise; NO = width, or width + DENS_PAD for the
+    layer l is a row-major [K, NO] block; K = pad (l = 0), width + pad (the
+    skip layer), width otherwise; NO = width, or width + DENS_PAD for the
     last layer."""
     out, wo, bo = [], 0, 0
     for l in range(L):
-        K = IN_PAD if l == 0 else (width + IN_PAD if l == skip else width)
+        K = pad if l == 0 else (width + pad if l == skip else width)
         NO = width + DENS_PAD if l == L - 1 else width
         out.append((K, NO, wo, bo))
         wo += K * NO
@@ -113,18 +156,20 @@ def layout(L: int, skip: int, width: int) -> list:
 
 def pack_params(feat_layers: list, skip: int):
     """JAX-layout trunk layers ({'w': [in, out], 'b': [out]}) -> packed bf16
-    (w_flat, b_flat) in the kernel layout. Differentiable: the gradient of the
-    packed buffers flows back to each layer's w and b."""
+    (w_flat, b_flat) in the kernel layout, the input padded to
+    `in_pad(D)`. Differentiable: the gradient of the packed buffers flows back
+    to each layer's w and b."""
     L = len(feat_layers)
     width = feat_layers[0]["w"].shape[1]
+    pad = in_pad(feat_layers[0]["w"].shape[0])
     ws, bs = [], []
     for l, layer in enumerate(feat_layers):
         w = layer["w"].to(torch.bfloat16)
         b = layer["b"].to(torch.bfloat16)
         if l == 0:
-            w = F.pad(w, (0, 0, 0, IN_PAD - w.shape[0]))
+            w = F.pad(w, (0, 0, 0, pad - w.shape[0]))
         elif l == skip:
-            w = F.pad(w, (0, 0, 0, width + IN_PAD - w.shape[0]))
+            w = F.pad(w, (0, 0, 0, width + pad - w.shape[0]))
         if l == L - 1:
             # [density | feat] -> [feat | density | zeros]
             w = F.pad(torch.cat([w[:, 1:], w[:, :1]], dim=1), (0, DENS_PAD - 1))
@@ -147,7 +192,7 @@ def trunk_fwd_plain(enc, w, b, L: int, skip: int, store_acts: bool = True):
     x = enc.float()
     a = x
     acts = []
-    for l, (K, NO, wo, bo) in enumerate(layout(L, skip, width)):
+    for l, (K, NO, wo, bo) in enumerate(layout(L, skip, width, enc.shape[1])):
         Wl = w[wo:wo + K * NO].view(K, NO).float()
         inp = x if l == 0 else (torch.cat([a, x], dim=1) if l == skip else a)
         pre = inp @ Wl + b[bo:bo + NO].float()
@@ -168,7 +213,7 @@ def trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
     x = enc.float()
     g = torch.cat([torch.where(feat > 0, g_feat.float(), 0.0), g_dens.float()[:, None],
                    x.new_zeros(N, DENS_PAD - 1)], dim=1)
-    lay = layout(L, skip, width)
+    lay = layout(L, skip, width, enc.shape[1])
     dws, dbs = [None] * L, [None] * L
     genc = None
     for l in range(L - 1, -1, -1):
@@ -198,95 +243,127 @@ def trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    return _build.declare(_build.load("fused_trunk"), trunk_fwd="ppppppiiip",
-                          trunk_bwd_chain="ppppppppiiip", trunk_bwd_dw="pppppiiip")
+    """The two libraries: csrc/fused_trunk.cu's (widths 128 and 256) and
+    csrc/trunk_wide.cu's (wider)."""
+    return (_build.declare(_build.load("fused_trunk"), trunk_fwd="ppppppiiiiip",
+                           trunk_bwd_chain="ppppppppiiiiip", trunk_bwd_dw="pppppiiiiip"),
+            _build.declare(_build.load("trunk_wide"), trunk_wide_fwd="ppppppiiiiiip",
+                           trunk_wide_bwd_chain="ppppppppiiiiip", trunk_wide_bwd_dw="pppppiiiiip"))
 
 
-def _check_inputs(L: int, skip: int, w, b, **tensors) -> None:
+def _check_inputs(L: int, skip: int, enc, w, b, **tensors) -> tuple:
+    """(H, pad) of the packed trunk after checking what the kernels take:
+    H a positive multiple of 128 (from b), pad 64 or 128 (enc's columns), w
+    and b of the layout's sizes, every tensor contiguous, 16-byte aligned and
+    on w's device."""
     dev = w.device
     if not (2 <= L and 0 < skip < L):
         raise ValueError(f"trunk kernel needs L >= 2 and 0 < skip < L, got L={L} skip={skip}")
-    if _width(b, L) != H:
-        raise ValueError(f"trunk kernel is built for width {H}, got {_width(b, L)}")
-    lay = layout(L, skip, H)
-    if w.numel() != lay[-1][2] + lay[-1][0] * lay[-1][1] or b.numel() != L * H + DENS_PAD:
+    width, pad = _width(b, L), enc.shape[-1]
+    if not (width > 0 and width % 128 == 0 and b.numel() == L * width + DENS_PAD):
+        raise ValueError(f"trunk kernels take a width that is a multiple of 128, got {width}")
+    if pad not in (64, MAX_IN):
+        raise ValueError(f"trunk kernels take an encoding padded to 64 or {MAX_IN} columns, got {pad}")
+    lay = layout(L, skip, width, pad)
+    if w.numel() != lay[-1][2] + lay[-1][0] * lay[-1][1]:
         raise ValueError("packed trunk weights do not match the layout")
-    for name, t in dict(tensors, w=w, b=b).items():
+    for name, t in dict(tensors, enc=enc, w=w, b=b).items():
         # the kernels' tensor maps and 16-byte accesses need 16-byte aligned bases
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: expected a contiguous, 16-byte aligned tensor on {dev}")
+    return width, pad
+
+
+def _count(kind: str, width: int, pad: int) -> None:
+    launches[kernel_name(kind, width, pad)] += 1
 
 
 def trunk_fwd(enc, w, b, L: int, skip: int, store_acts: bool = True):
-    """enc [N, IN_PAD] bf16, packed w/b bf16 -> (feat [N, H] bf16, dens [N] f32,
-    acts [L-1, N, H] bf16 or None). Kernel on CUDA tensors, twin on CPU ones."""
+    """enc [N, pad] bf16 (pad 64 or 128), packed w/b bf16 -> (feat [N, H]
+    bf16, dens [N] f32, acts [L-1, N, H] bf16 or None). Kernel on CUDA
+    tensors, twin on CPU ones."""
     global fwd_launches
     if not enc.is_cuda:
         return trunk_fwd_plain(enc, w, b, L, skip, store_acts)
-    _check_inputs(L, skip, w, b, enc=enc)
+    H, pad = _check_inputs(L, skip, enc, w, b)
     N = enc.shape[0]
-    if enc.shape != (N, IN_PAD) or {enc.dtype, w.dtype, b.dtype} != {torch.bfloat16}:
-        raise ValueError("trunk_fwd expects enc [N, 64], w and b in bfloat16")
+    if enc.dim() != 2 or {enc.dtype, w.dtype, b.dtype} != {torch.bfloat16}:
+        raise ValueError("trunk_fwd expects enc [N, 64 or 128], w and b in bfloat16")
     feat = torch.empty((N, H), dtype=torch.bfloat16, device=enc.device)
     dens = torch.empty(N, dtype=torch.float32, device=enc.device)
     acts = (torch.empty((L - 1, N, H), dtype=torch.bfloat16, device=enc.device)
             if store_acts else None)
     if N == 0:
         return feat, dens, acts
-    lib = _lib()
+    lib = _lib()[H not in WGMMA_WIDTHS]
     stream = torch.cuda.current_stream(enc.device).cuda_stream
-    _check(lib, lib.trunk_fwd(_ptr(enc), _ptr(w), _ptr(b), _ptr(feat), _ptr(dens), _ptr(acts),
-                              N, L, skip, stream), "trunk_fwd")
+    if H in WGMMA_WIDTHS:
+        _check(lib, lib.trunk_fwd(_ptr(enc), _ptr(w), _ptr(b), _ptr(feat), _ptr(dens), _ptr(acts),
+                                  N, L, skip, H, pad, stream), "trunk_fwd")
+    else:
+        # the layers' activations go through device memory: acts, or two slots of scratch
+        slots = acts if store_acts else torch.empty((min(2, L - 1), N, H), dtype=torch.bfloat16,
+                                                    device=enc.device)
+        _check(lib, lib.trunk_wide_fwd(_ptr(enc), _ptr(w), _ptr(b), _ptr(feat), _ptr(dens), _ptr(slots),
+                                       N, L, skip, H, pad, slots.shape[0], stream), "trunk_wide_fwd")
     fwd_launches += 1
+    _count("fwd", H, pad)
     return feat, dens, acts
 
 
 def trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
     """Backward of `trunk_fwd`: g_feat [N, H] bf16, g_dens [N] bf16 ->
-    (denc [N, IN_PAD] bf16, dw f32 packed, db f32 packed). Kernels on CUDA
+    (denc [N, pad] bf16, dw f32 packed, db f32 packed). Kernels on CUDA
     tensors, twin on CPU ones."""
     global bwd_launches
     if not enc.is_cuda:
         return trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L, skip)
-    _check_inputs(L, skip, w, b, enc=enc, g_feat=g_feat, g_dens=g_dens, feat=feat, acts=acts)
+    H, pad = _check_inputs(L, skip, enc, w, b, g_feat=g_feat, g_dens=g_dens, feat=feat, acts=acts)
     N = enc.shape[0]
-    if (g_feat.shape != (N, H) or g_dens.shape != (N,) or feat.shape != (N, H)
+    if (enc.dim() != 2 or g_feat.shape != (N, H) or g_dens.shape != (N,) or feat.shape != (N, H)
             or acts.shape != (L - 1, N, H)
             or {t.dtype for t in (enc, g_feat, g_dens, feat, acts, w)} != {torch.bfloat16}):
         raise ValueError("trunk_bwd: unexpected shapes or dtypes")
-    out = _bwd_outputs(N, w, b, L)
+    out = _bwd_outputs(N, w, b, L, pad)
     if N == 0:
         return out[:3]
     _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L, skip)
     bwd_launches += 1
+    _count("bwd", H, pad)
     return out[:3]
 
 
-def _bwd_outputs(N: int, w, b, L: int):
+def _bwd_outputs(N: int, w, b, L: int, pad: int):
     """The backward's buffers: (denc, dw, db) and the scratch `gsave`, each
-    layer's g [L, N, H] bf16 that the chain kernel writes for the dW kernel."""
-    dev = w.device
-    return (torch.empty((N, IN_PAD), dtype=torch.bfloat16, device=dev),
+    layer's g that the chain kernel writes for the dW kernel: [L, N, H] bf16;
+    for the wide kernels layers 0..L-2 as [L-1, N, H] then the last layer's g
+    with its density column, [N, H + DENS_PAD] (flat)."""
+    dev, H = w.device, _width(b, L)
+    scratch = L * N * H + (0 if H in WGMMA_WIDTHS else N * DENS_PAD)
+    return (torch.empty((N, pad), dtype=torch.bfloat16, device=dev),
             torch.zeros(w.numel(), dtype=torch.float32, device=dev),
             torch.zeros(b.numel(), dtype=torch.float32, device=dev),
-            torch.empty((L, N, H), dtype=torch.bfloat16, device=dev))
+            torch.empty(scratch, dtype=torch.bfloat16, device=dev))
 
 
 def _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L: int, skip: int,
-               kernels=("chain", "dw")) -> None:
+                kernels=("chain", "dw")) -> None:
     """Launches the backward's kernels named in `kernels` on the buffers `out`
     of `_bwd_outputs`, inputs already checked by `trunk_bwd`; dw and db are
     added to, so they start at zero. Counts nothing: `trunk_bwd` does."""
     denc, dw, db, gsave = out
-    N, lib = enc.shape[0], _lib()
+    (N, pad), H = enc.shape, feat.shape[1]
+    wide = H not in WGMMA_WIDTHS
+    lib = _lib()[wide]
     stream = torch.cuda.current_stream(enc.device).cuda_stream
     if "chain" in kernels:
-        _check(lib, lib.trunk_bwd_chain(_ptr(g_feat), _ptr(g_dens), _ptr(feat), _ptr(acts), _ptr(w),
-                                        _ptr(denc), _ptr(gsave), _ptr(db), N, L, skip, stream),
-               "trunk_bwd_chain")
+        fn = lib.trunk_wide_bwd_chain if wide else lib.trunk_bwd_chain
+        _check(lib, fn(_ptr(g_feat), _ptr(g_dens), _ptr(feat), _ptr(acts), _ptr(w), _ptr(denc), _ptr(gsave),
+                       _ptr(db), N, L, skip, H, pad, stream), "trunk_wide_bwd_chain" if wide else "trunk_bwd_chain")
     if "dw" in kernels:
-        _check(lib, lib.trunk_bwd_dw(_ptr(enc), _ptr(acts), _ptr(gsave), _ptr(g_dens), _ptr(dw), N, L,
-                                     skip, stream), "trunk_bwd_dw")
+        fn = lib.trunk_wide_bwd_dw if wide else lib.trunk_bwd_dw
+        _check(lib, fn(_ptr(enc), _ptr(acts), _ptr(gsave), _ptr(g_dens), _ptr(dw), N, L, skip, H, pad, stream),
+               "trunk_wide_bwd_dw" if wide else "trunk_bwd_dw")
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +393,7 @@ class _FusedTrunk(torch.autograd.Function):
 
 
 def fused_trunk(enc: torch.Tensor, feat_layers: list, skip: int):
-    """Run the trunk on [..., D] encoded points (D <= 64).
+    """Run the trunk on [..., D] encoded points (D <= 128).
 
     feat_layers: JAX-layout layers [{'w': [in, out], 'b': [out]}], layer
     `skip` taking concat([feat, enc]) and the last emitting [density | feat].
@@ -324,7 +401,7 @@ def fused_trunk(enc: torch.Tensor, feat_layers: list, skip: int):
     """
     lead, D = enc.shape[:-1], enc.shape[-1]
     L = len(feat_layers)
-    x = F.pad(enc.reshape(-1, D).to(torch.bfloat16), (0, IN_PAD - D)).contiguous()
+    x = F.pad(enc.reshape(-1, D).to(torch.bfloat16), (0, in_pad(D) - D)).contiguous()
     w, b = pack_params(feat_layers, skip)
     feat, dens = _FusedTrunk.apply(x, w, b, L, skip)
     return dens.reshape(lead), feat.reshape(lead + (feat.shape[-1],))

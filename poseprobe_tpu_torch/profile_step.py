@@ -72,8 +72,8 @@ def _traced(tr, name: str, mode: str, steps: int, k: int, step_ms: float, out: P
     grid_names = ("trilinear_", "scatter_rows", "rows_to_channels", "channels_to_rows", "tiled_transpose",
                   "materialize_kernel")
     grid_us = sum(e.self_device_time_total for e in events if any(n in e.key for n in grid_names))
-    composite_us = sum(e.self_device_time_total for e in events
-                       if "composite_fwd_kernel" in e.key or "composite_bwd_kernel" in e.key)
+    composite_us = sum(e.self_device_time_total for e in events        # the chunked kernels too
+                       if "composite_fwd" in e.key or "composite_bwd" in e.key)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     host_ops = sorted((e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")),

@@ -16,7 +16,7 @@ A graph is replayed only while every persistent tensor it captured is still
 the trainer's (`StepGraph.holds`); a host event that rebinds one drops it.
 The kernels' launch counters are Python counters, which a replay does not
 run: a graph records the launches its capture made and adds them at each
-replay.
+replay (the trunk's by kernel instantiation too).
 """
 from __future__ import annotations
 
@@ -30,16 +30,20 @@ from ..ops import fused_composite, fused_mlp, grid, layout
 _COUNTERS = ((fused_mlp, "fwd_launches"), (fused_mlp, "bwd_launches"), (grid, "fwd_launches"),
              (grid, "bwd_launches"), (layout, "transpose2d_launches"),
              (layout, "transpose_slice_launches"), (layout, "materialize_launches"),
-             (fused_composite, "fwd_launches"), (fused_composite, "bwd_launches"))
+             (fused_composite, "fwd_launches"), (fused_composite, "bwd_launches"),
+             (fused_composite, "fwd_chunked_launches"), (fused_composite, "bwd_chunked_launches"))
 
 
 def _counts() -> list:
-    return [getattr(mod, name) for mod, name in _COUNTERS]
+    """Every launch counter: the wrappers' integers, then the trunk's by kernel instantiation."""
+    return [getattr(mod, name) for mod, name in _COUNTERS] + [fused_mlp.launches[k] for k in fused_mlp.KERNEL_NAMES]
 
 
 def _add_counts(values) -> None:
     for (mod, name), n in zip(_COUNTERS, values):
         setattr(mod, name, getattr(mod, name) + n)
+    for k, n in zip(fused_mlp.KERNEL_NAMES, values[len(_COUNTERS):]):
+        fused_mlp.launches[k] += n
 
 
 @contextlib.contextmanager

@@ -66,6 +66,14 @@ def _case(kind: str, N: int, S: int, seed: int):
         mask = rng.uniform(size=(N, S)) > 0.15
         mask[: N // 8] = False                       # wholly masked rays
         mask[N // 8: N // 4, S // 2:] = False        # rays that leave the box early
+    elif kind == "long":
+        # rays past the tile that reach the surface between samples ~900 and
+        # ~1900: the transmittance crosses the chunks' boundary at 1024
+        cos = f32(-rng.uniform(size=(N, S)))
+        sdf = f32(rng.uniform(450, 950, (N, 1)) * DIST + np.cumsum(cos * DIST, axis=1)
+                  + rng.uniform(-0.1, 0.1, (N, S)) * DIST)
+        mask = rng.uniform(size=(N, S)) > 0.15
+        mask[: N // 8] = False                       # a wholly masked ray
     elif kind == "edges":
         # alpha = 1 (deep inside: both cdfs underflow), alpha clamped to 0
         # (cos > 0), alpha ~ 1e-5 (far outside), one quarter of the rays each,
@@ -95,7 +103,15 @@ def _away_from_gate(sdf, cos, mask, inv_s, dist, rel=1e-5):
     return ~(np.abs(Tr / 1e-3 - 1.0) < rel).any(axis=1)
 
 
-CASES = [("random", 64, 40), ("march", 96, 76), ("march", 40, 113), ("edges", 64, 24), ("march", 33, 7)]
+CASES = [("random", 64, 40), ("march", 96, 76), ("march", 40, 113), ("edges", 64, 24), ("march", 33, 7),
+         ("long", 12, 1500), ("long", 8, 2100)]   # the last two past the tile: the chunked kernels' rays
+
+
+def _product_tol(S: int, tol: float) -> float:
+    """`tol` for a ray within the tile; past it S x 2^-24, the bound on the
+    relative rounding of a product of S float32 factors: the two sides take
+    the transmittance's product over 1500-2100 samples in other orders."""
+    return tol if S <= TFC.TILE else S * 2.0 ** -24
 
 
 @pytest.mark.parametrize("inv_s", [20.0, 2000.0])
@@ -109,7 +125,8 @@ def test_plain_matches_jnp_reference(kind, N, S, inv_s):
     assert keep.sum() >= N - 3
     for o, r, name in zip(out, ref, ("weights", "alphainv", "rgb_marched", "n_step")):
         assert np.isfinite(o.numpy()).all(), name
-        np.testing.assert_allclose(o.numpy()[keep], np.asarray(r)[keep], rtol=0, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(o.numpy()[keep], np.asarray(r)[keep], rtol=0, atol=_product_tol(S, 1e-6),
+                                   err_msg=name)
     if kind == "edges":
         # the hard cases are really there: a leaving ray's quotient is negative
         # (alpha = 0 exactly, all the light passes) and, under the sharp
@@ -257,6 +274,9 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="outside"):
         TFC._check_inputs(*(t[:, :0].contiguous() for t in (sdf, cos, mask, rgb, step)), scalars)
     assert TFC._check_inputs(sdf, cos, mask, rgb, step, scalars) == (8, 5)
+    # any S from 1 up: past the tile the chunked kernels take the ray
+    long = (torch.tensor(a) for a in _case("march", 3, 1500, seed=0))
+    assert TFC._check_inputs(*long, scalars) == (3, 1500)
 
 
 # ---------------------------------------------------------------- the kernels' plan and scan order
@@ -309,13 +329,59 @@ def test_launch_plan_for_every_sample_count():
     """For every S the kernels take: the block's tile fits, the odd runs of the
     32 lanes cover the ray, and runs past RUN_IN_REGISTERS add the backward's
     T region."""
-    for S in range(1, TFC.MAX_SAMPLES + 1):
+    for S in range(1, TFC.TILE + 1):
         for backward in (False, True):
             plan = _plan(1024, S, backward)
             R, k = plan.rays_per_block, plan.run
             assert R * S <= TFC.TILE and plan.smem_bytes <= TFC.SMEM_LIMIT, S
             assert k % 2 == 1 and 32 * k >= S and -(-S // k) <= 32 and k <= 33, S
             assert (k <= TFC.RUN_IN_REGISTERS) == (S <= 160), S
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("N,S", [(1024, 1024), (1024, 1025), (37, 4096)])
+def test_launch_plan_at_and_past_the_tile(N, S, backward):
+    """S = 1024 fills the tile with one ray: one warp a block, runs of 33,
+    bulk copies as the spans allow. Past it the chunked kernels take one ray
+    a block over chunks of TILE samples with the same runs and tile, and
+    choose each chunk's copies themselves: no bulk bits."""
+    plan = _plan(N, S, backward)
+    n = TFC.TILE
+    regions = 8 if backward else 6
+    assert (plan.rays_per_block, plan.run, plan.blocks) == (1, 33, N)
+    assert plan.smem_bytes == 4 * n * regions + n <= TFC.SMEM_LIMIT
+    arrays = TFC.BWD_ARRAYS if backward else TFC.FWD_ARRAYS
+    if S <= TFC.TILE:
+        assert plan.bulk_full == plan.bulk_last == _bits(backward, *(name for name, _ in arrays))
+    else:
+        assert plan.bulk_full == plan.bulk_last == 0
+
+
+@pytest.mark.parametrize("S", [1024, 1025, 4096])
+def test_transmittance_in_runs_carries_T_across_chunks(S):
+    """The chunked order of multiplication, bit for bit: chunk c of TILE
+    samples is scanned as a ray of its own (runs of 33), each run starts at
+    carry x (that scan's value at the run's start), T inside a run is the
+    serial product, and the carry takes each chunk's total in order;
+    alphainv is the last carry."""
+    rng = np.random.default_rng(S)
+    om = torch.tensor(np.clip(1.0 - rng.uniform(0, 0.02, (5, S)), 1e-10, 1.0).astype(np.float32))
+    T, alphainv = TFC.transmittance_in_runs(om)
+    assert TFC.run_length(min(S, TFC.TILE)) == 33 and T.shape == (5, S)
+    carry = torch.ones(5)
+    for c0 in range(0, S, TFC.TILE):
+        part = om[:, c0:c0 + TFC.TILE]
+        T_alone, total = TFC.transmittance_in_runs(part)
+        for start in range(0, part.shape[1], 33):
+            assert torch.equal(T[:, c0 + start], carry * T_alone[:, start])
+            for i in range(start, min(start + 33, part.shape[1]) - 1):
+                assert torch.equal(T[:, c0 + i + 1], T[:, c0 + i] * part[:, i])
+        carry = carry * total
+    assert torch.equal(alphainv, carry)
+    if S <= TFC.TILE:
+        assert S == TFC.TILE                      # one chunk: carry 1, the one-chunk scan itself
+    T_cum = torch.cumprod(torch.cat([torch.ones_like(om[:, :1]), om[:, :-1]], dim=1), dim=1)
+    np.testing.assert_allclose(T.numpy(), T_cum.numpy(), rtol=1e-5)
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -354,14 +420,15 @@ def test_transmittance_in_runs_matches_cumprod_and_jax(kind, N, S, inv_s):
     om = torch.clamp(1.0 - alpha, 1e-10, 1.0)
     T, alphainv = TFC.transmittance_in_runs(om)
     T_cum = torch.cumprod(torch.cat([torch.ones_like(om[:, :1]), om[:, :-1]], dim=1), dim=1)
-    np.testing.assert_allclose(T.numpy(), T_cum.numpy(), rtol=1e-5, atol=1e-30)
-    np.testing.assert_allclose(alphainv.numpy(), (T_cum[:, -1] * om[:, -1]).numpy(), rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(T.numpy(), T_cum.numpy(), rtol=_product_tol(S, 1e-5), atol=1e-30)
+    np.testing.assert_allclose(alphainv.numpy(), (T_cum[:, -1] * om[:, -1]).numpy(), rtol=_product_tol(S, 1e-5),
+                               atol=1e-30)
     keep = _away_from_gate(sdf, cos, mask, inv_s, DIST, rel=1e-4)
     assert keep.sum() >= N - 3
     weights = torch.where(T > 1e-3, T * alpha, 0.0)
     ref = FC._jnp_reference(*(jnp.asarray(a) for a in (sdf, cos, mask, rgb, step)), inv_s, DIST)
-    np.testing.assert_allclose(weights.numpy()[keep], np.asarray(ref[0])[keep], rtol=0, atol=1e-6)
-    np.testing.assert_allclose(alphainv.numpy()[keep], np.asarray(ref[1])[keep], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(weights.numpy()[keep], np.asarray(ref[0])[keep], rtol=0, atol=_product_tol(S, 1e-6))
+    np.testing.assert_allclose(alphainv.numpy()[keep], np.asarray(ref[1])[keep], rtol=0, atol=_product_tol(S, 1e-6))
 
 
 def test_transmittance_in_runs_is_the_scan_it_names():

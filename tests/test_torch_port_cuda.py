@@ -46,14 +46,18 @@ def _close(out, ref):
     assert (out - ref).abs().max() <= REL_TOL * ref.abs().max()
 
 
-def _inputs(n, seed=0, n_layers=L, skip=SKIP):
-    cfg = scene_nerf.SceneConfig(layers_feat=(256,) * n_layers, skip=(skip,))
+def _inputs(n, seed=0, n_layers=L, skip=SKIP, width=256, L_3D=10):
+    cfg = scene_nerf.SceneConfig(layers_feat=(width,) * n_layers, skip=(skip,), L_3D=L_3D)
     layers = scene_nerf.init_nerf_mlp(torch.Generator().manual_seed(seed), cfg)["feat"]
     layers = [{k: v.cuda() for k, v in la.items()} for la in layers]
     g = torch.Generator(device="cuda").manual_seed(seed)
     points = torch.rand((n, 3), generator=g, device="cuda") * 6.0 - 3.0
     enc = pe.posenc_scene(points, cfg.L_3D, 1.0, cfg.barf_c2f)
     return layers, enc, g
+
+
+def _padded(enc):
+    return torch.nn.functional.pad(enc.to(torch.bfloat16), (0, fused_mlp.in_pad(enc.shape[1]) - enc.shape[1])).contiguous()
 
 
 @pytest.mark.cuda
@@ -66,7 +70,7 @@ def test_trunk_kernels_match_twin(n, n_layers, skip):
     _need_card()
     layers, enc, g = _inputs(n, n_layers=n_layers, skip=skip)
     w, b = fused_mlp.pack_params(layers, skip)
-    x = torch.nn.functional.pad(enc.to(torch.bfloat16), (0, fused_mlp.IN_PAD - enc.shape[1])).contiguous()
+    x = _padded(enc)
     before = fused_mlp.fwd_launches, fused_mlp.bwd_launches
     out = fused_mlp.trunk_fwd(x, w, b, n_layers, skip)
     ref = fused_mlp.trunk_fwd_plain(x, w, b, n_layers, skip)
@@ -92,7 +96,7 @@ def test_trunk_fwd_without_stored_acts_matches_stored_call(n):
     _need_card()
     layers, enc, _ = _inputs(n)
     w, b = fused_mlp.pack_params(layers, SKIP)
-    x = torch.nn.functional.pad(enc.to(torch.bfloat16), (0, fused_mlp.IN_PAD - enc.shape[1])).contiguous()
+    x = _padded(enc)
     before = fused_mlp.fwd_launches
     feat, dens, acts = fused_mlp.trunk_fwd(x, w, b, L, SKIP)
     feat2, dens2, acts2 = fused_mlp.trunk_fwd(x, w, b, L, SKIP, store_acts=False)
@@ -112,18 +116,58 @@ def test_trunk_bwd_density_column_and_last_db_match_twin(n, n_layers, skip):
     _need_card()
     layers, enc, g = _inputs(n, n_layers=n_layers, skip=skip)
     w, b = fused_mlp.pack_params(layers, skip)
-    x = torch.nn.functional.pad(enc.to(torch.bfloat16), (0, fused_mlp.IN_PAD - enc.shape[1])).contiguous()
+    x = _padded(enc)
     feat, _, acts = fused_mlp.trunk_fwd_plain(x, w, b, n_layers, skip)
     g_feat = (torch.randn((n, 256), generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
     g_dens = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
     _, dw, db = fused_mlp.trunk_bwd(x, g_feat, g_dens, feat, acts, w, b, n_layers, skip)
     _, dw_ref, db_ref = fused_mlp.trunk_bwd_plain(x, g_feat, g_dens, feat, acts, w, b, n_layers, skip)
     torch.cuda.synchronize()
-    K, NO, wo, bo = fused_mlp.layout(n_layers, skip, 256)[-1]
+    K, NO, wo, bo = fused_mlp.layout(n_layers, skip, 256, 64)[-1]
     col, col_ref = dw[wo:wo + K * NO].view(K, NO)[:, 256], dw_ref[wo:wo + K * NO].view(K, NO)[:, 256]
     for o, r in ((col, col_ref), (db[bo:], db_ref[bo:])):
         torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
     assert not dw[wo:wo + K * NO].view(K, NO)[:, 257:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,L_3D,n_layers,skip,n", [
+    (128, 16, 8, 4, 100_003), (128, 10, 8, 4, 65), (128, 16, 3, 2, 5_000),   # m64n128, pads 128 / 64
+    (256, 16, 8, 4, 100_003), (256, 20, 2, 1, 129),                          # the 8x256 kernels, pad 128
+    (384, 10, 3, 1, 5_000), (512, 10, 8, 4, 100_003), (512, 20, 2, 1, 65),   # csrc/trunk_wide.cu
+])
+def test_trunk_kernels_at_every_width_match_twin(width, L_3D, n_layers, skip, n):
+    """Each kernel instantiation (`fused_mlp.kernel_name`) against the twin:
+    forward (also without stored activations, bit for bit), backward (the
+    last layer's db and density column of dW element by element, as in
+    `test_trunk_bwd_density_column_and_last_db_match_twin`), and one launch
+    of each counted under its name."""
+    _need_card()
+    layers, enc, g = _inputs(n, n_layers=n_layers, skip=skip, width=width, L_3D=L_3D)
+    w, b = fused_mlp.pack_params(layers, skip)
+    x = _padded(enc)
+    pad = x.shape[1]
+    names = [fused_mlp.kernel_name(k, width, pad) for k in ("fwd", "bwd")]
+    before = [fused_mlp.launches[k] for k in names]
+    out = fused_mlp.trunk_fwd(x, w, b, n_layers, skip)
+    ref = fused_mlp.trunk_fwd_plain(x, w, b, n_layers, skip)
+    for o, r in zip(out, ref):
+        _close(o, r)
+    feat2, dens2, acts2 = fused_mlp.trunk_fwd(x, w, b, n_layers, skip, store_acts=False)
+    assert acts2 is None and torch.equal(feat2, out[0]) and torch.equal(dens2, out[1])
+    g_feat = (torch.randn((n, width), generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    g_dens = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    feat, _, acts = ref
+    out = fused_mlp.trunk_bwd(x, g_feat, g_dens, feat, acts, w, b, n_layers, skip)
+    ref = fused_mlp.trunk_bwd_plain(x, g_feat, g_dens, feat, acts, w, b, n_layers, skip)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        _close(o, r)
+    K, NO, wo, bo = fused_mlp.layout(n_layers, skip, width, pad)[-1]
+    col, col_ref = (d[wo:wo + K * NO].view(K, NO)[:, width] for d in (out[1], ref[1]))
+    for o, r in ((col, col_ref), (out[2][bo:], ref[2][bo:])):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+    assert [fused_mlp.launches[k] for k in names] == [before[0] + 2, before[1] + 1]
 
 
 @pytest.mark.cuda
@@ -558,7 +602,9 @@ def _composite_case(N, S, inv_s, dist, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     rand = lambda *shape: torch.rand(shape, generator=g, device="cuda")  # noqa: E731
     cos = -rand(N, S) * (rand(N, 1) > 0.1)
-    sdf = rand(N, 1) * 0.6 - 0.1 + torch.cumsum(cos * dist, dim=1) + (rand(N, S) - 0.5) * 0.2 * dist
+    # rays longer than the tile start far enough out to meet the surface anywhere along them
+    start = rand(N, 1) * (0.6 if S <= fused_composite.TILE else 0.5 * dist * S) - 0.1
+    sdf = start + torch.cumsum(cos * dist, dim=1) + (rand(N, S) - 0.5) * 0.2 * dist
     mask = rand(N, S) > 0.15
     mask[: N // 16] = False
     mask[N // 16: N // 8, S // 2:] = False
@@ -597,11 +643,16 @@ def _bulk_bits(names, arrays):
     (1023, 76, 0),            # N not a multiple of the 4 rays of a block: a ragged last block
     (1021, 113, 0),           # the same, its spans off the 16-byte grid
     (1024, 76, 1),            # every input one element past a 16-byte boundary
+    (64, 1024, 0),            # one ray fills the tile
+    (64, 1025, 0), (16, 2048, 0), (8, 4096, 0),   # past the tile: the chunked kernels
+    (33, 1027, 0),            # rays off the 16-byte grid: each chunk's copies chosen apart
+    (7, 1500, 1),             # ... and every input one element past a 16-byte boundary
 ])
 def test_composite_kernels_match_plain_version(N, S, offset, inv_s):
     _need_card()
     args, cts = _composite_case(N, S, inv_s, 0.0125, seed=N + S)
-    if offset:
+    chunked = S > fused_composite.TILE
+    if offset and not chunked:
         args = tuple(_offset_view(t, offset) for t in args[:5]) + args[5:]
         cts = tuple(_offset_view(t, offset) for t in cts)
         # the plan moves no input of the block's span by a bulk copy, every output by one
@@ -610,17 +661,22 @@ def test_composite_kernels_match_plain_version(N, S, offset, inv_s):
             n: 0 for n in ("d_sdf", "d_cos", "d_rgb", "d_step")}, backward=True)
         assert plan.bulk_full == plan.bulk_last == _bulk_bits(("d_sdf", "d_cos", "d_rgb", "d_step"),
                                                               fused_composite.BWD_ARRAYS)
-    before = (fused_composite.fwd_launches, fused_composite.bwd_launches)
+    counters = ("fwd_chunked_launches", "bwd_chunked_launches") if chunked else ("fwd_launches", "bwd_launches")
+    before = [getattr(fused_composite, c) for c in counters]
     outs = fused_composite.composite_fwd(*args)
     grads = fused_composite.composite_bwd(*args, *cts)
     torch.cuda.synchronize()
-    assert (fused_composite.fwd_launches, fused_composite.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert [getattr(fused_composite, c) for c in counters] == [before[0] + 1, before[1] + 1]
     refs = fused_composite.fused_alpha_composite_plain(*args[:5], args[5][0], args[5][1])
     grefs = fused_composite.composite_bwd_plain(*args, *cts)
     keep = _away_from_gate(args)
     assert int((~keep).sum()) <= 3
     for o, r in zip(outs, refs):
-        assert torch.isfinite(o).all() and (o[keep] - r[keep]).abs().max() <= 1e-5
+        # past the tile the kernel's transmittance (runs, scans, chunk carries) and the plain cumprod round
+        # a product of up to S float32 factors in other orders: S x 2^-24 (the bound on that rounding,
+        # relative) of the output's largest value (n_step reaches S * dist, 51 at S = 4096)
+        tol = max(1e-5, S * 2.0 ** -24 * float(r[keep].abs().max())) if chunked else 1e-5
+        assert torch.isfinite(o).all() and (o[keep] - r[keep]).abs().max() <= tol
     for o, r in zip(grads[:4], grefs[:4]):
         assert torch.isfinite(o).all()
         assert (o[keep] - r[keep]).abs().max() <= 1e-4 * r[keep].abs().max() + 1e-6
@@ -649,7 +705,7 @@ def test_composite_bwd_without_cotangents_or_scalar_grads():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,S", [(1024, 76), (37, 1000)])
+@pytest.mark.parametrize("N,S", [(1024, 76), (37, 1000), (64, 2048)])
 def test_composite_kernels_replay_in_a_cuda_graph(N, S):
     """Forward and backward captured in one CUDA graph: a replay on new
     inputs copied into the captured ones equals the eager calls bit for bit."""
@@ -749,23 +805,33 @@ def test_composite_wrapper_raises_on_what_the_kernel_does_not_take():
         fused_composite.composite_fwd(sdf, cos, mask, rgb, step, scalars.cpu())
     with pytest.raises(ValueError, match="ct_w"):
         fused_composite.composite_bwd(*args, cts[0][:, :4].contiguous(), *cts[1:])
-    big = torch.zeros((1, fused_composite.MAX_SAMPLES + 1), device="cuda")
+    none = torch.zeros((1, 0), device="cuda")
     with pytest.raises(ValueError, match="outside"):
-        fused_composite.composite_fwd(big, big, big > 0, big[..., None].expand(-1, -1, 3).contiguous(), big, scalars)
+        fused_composite.composite_fwd(none, none, none > 0, none[..., None].expand(-1, -1, 3).contiguous(), none,
+                                      scalars)
+    big = torch.zeros((1, fused_composite.TILE + 1), device="cuda")   # past the tile: taken, by the chunked kernel
+    out = fused_composite.composite_fwd(big, big, big > 0, big[..., None].expand(-1, -1, 3).contiguous(), big, scalars)
+    assert out[0].shape == big.shape
     empty = fused_composite.composite_fwd(*(t[:0].contiguous() for t in args[:5]), scalars)
     assert [tuple(t.shape) for t in empty] == [(0, 5), (0,), (0, 3), (0,)]
 
 
 @pytest.mark.cuda
-def test_early_step_with_the_fused_composite_runs_through_its_kernels():
+@pytest.mark.parametrize("stepsize", [None, 0.02])
+def test_early_step_with_the_fused_composite_runs_through_its_kernels(stepsize):
     """With `use_pallas_composite=True` every early step launches the
     composite forward and backward once, and its loss equals the unfused
-    step's on the same draws (1e-5 relative)."""
+    step's on the same draws (1e-5 relative). At stepsize 0.02 the chord-bound
+    K passes the tile (1308 of 2166 samples at 24^3): the chunked kernels."""
     _need_card()
     import dataclasses
     cfg, data = _bench_workload(True, "bfloat16")
+    if stepsize is not None:
+        cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(cfg.object_model, stepsize=stepsize))
     fused_cfg = dataclasses.replace(cfg, object_model=dataclasses.replace(cfg.object_model, use_pallas_composite=True))
     tr = JointTrainer(fused_cfg, data, device="cuda")
+    chunked = tr._mask_k > fused_composite.TILE
+    assert chunked == (stepsize is not None)
     tr.global_step = 1
     flags = tr.phase_flags(1)
     draws = tr.sample_draws(flags)
@@ -773,11 +839,12 @@ def test_early_step_with_the_fused_composite_runs_through_its_kernels():
         tr.cfg = cfg
         plain, _ = tr.joint_loss(tr.obj_params, tr.scene_params, tr.pose_params, 1, flags, draws)
         tr.cfg = fused_cfg
-    before = (fused_composite.fwd_launches, fused_composite.bwd_launches)
+    counters = ("fwd_chunked_launches", "bwd_chunked_launches") if chunked else ("fwd_launches", "bwd_launches")
+    before = [getattr(fused_composite, c) for c in counters]
     m = tr.step(draws)
     assert all(np.isfinite(v.item()) for v in m.values()), m
     assert abs(m["loss_total"].item() - plain.item()) <= 1e-5 * abs(plain.item())
-    assert (fused_composite.fwd_launches - before[0], fused_composite.bwd_launches - before[1]) == (1, 1)
+    assert [getattr(fused_composite, c) - n for c, n in zip(counters, before)] == [1, 1]
 
 
 # ---------------------------------------------------------------- checkpoints and evaluation

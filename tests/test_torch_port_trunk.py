@@ -103,7 +103,7 @@ def test_packed_gradient_reaches_every_layer():
     rng = np.random.default_rng(3)
     layers = _to_torch(_layers(rng), requires_grad=True)
     w, b = t_fused.pack_params(layers, SKIP)
-    lay = t_fused.layout(L, SKIP, H)
+    lay = t_fused.layout(L, SKIP, H, 64)
     assert w.numel() == lay[-1][2] + lay[-1][0] * lay[-1][1] and b.numel() == L * H + t_fused.DENS_PAD
     (w.float().sum() + b.float().sum()).backward()
     for layer in layers:
@@ -114,7 +114,7 @@ def test_packed_gradient_reaches_every_layer():
     ({}, True),
     ({"layers_feat": (48,) * 4, "skip": (2,)}, False),
     ({"skip": (1, 4)}, False),
-    ({"L_3D": 11}, False),
+    ({"L_3D": 11}, True),            # encoded input 69: padded to 128, as the reference takes it
 ])
 def test_supports(cfg_kw, expected):
     assert t_fused.supports(t_scene.SceneConfig(**cfg_kw)) is expected
@@ -155,66 +155,71 @@ def test_nerf_forward_f32_matches_jax():
 # the packed layout as the backward chain kernel's tensor maps read it
 
 
-@pytest.mark.parametrize("L_,skip", [(8, 4), (8, 7), (3, 1), (2, 1)])
-def test_packed_weights_read_as_the_chain_kernels_two_maps(L_, skip):
-    """The chain kernel reads the weights through two 2-D tensor maps over the
-    packed buffer: layers 0..L-2 as one [rows, 256] matrix in which row
-    w_offset(l) / 256 + k is W_l[k], and the last layer as [K, 256 + 128]
-    from its offset. Both bases are 16-byte aligned, every row stride a
-    multiple of 16 bytes, and each 64-row box of a layer stays inside it."""
-    gen = torch.Generator().manual_seed(0)
+def _pack_case(L_, skip, H_, pad, seed):
+    """Layers of a trunk of width H_ whose encoding (63 or 99 wide) pads to `pad`."""
+    gen = torch.Generator().manual_seed(seed)
+    D_ = 63 if pad == 64 else 99
     layers = []
     for l in range(L_):
-        k_in = 63 if l == 0 else (256 + 63 if l == skip else 256)
-        k_out = 257 if l == L_ - 1 else 256
+        k_in = D_ if l == 0 else (H_ + D_ if l == skip else H_)
+        k_out = H_ + 1 if l == L_ - 1 else H_
         layers.append({"w": torch.randn((k_in, k_out), generator=gen), "b": torch.randn(k_out, generator=gen)})
+    return layers, gen
+
+
+@pytest.mark.parametrize("H_,pad", [(256, 64), (256, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("L_,skip", [(8, 4), (8, 7), (3, 1), (2, 1)])
+def test_packed_weights_read_as_the_chain_kernels_two_maps(L_, skip, H_, pad):
+    """The chain kernel reads the weights through two 2-D tensor maps over the
+    packed buffer: layers 0..L-2 as one [rows, H] matrix in which row
+    w_offset(l) / H + k is W_l[k], and the last layer as [K, H + 128] from
+    its offset. Both bases are 16-byte aligned, every row stride a multiple
+    of 16 bytes, and each 64-row box of a layer stays inside it."""
+    layers, _ = _pack_case(L_, skip, H_, pad, 0)
     w, _ = t_fused.pack_params(layers, skip)
-    lay = t_fused.layout(L_, skip, 256)
+    lay = t_fused.layout(L_, skip, H_, pad)
     last = lay[-1][2]
-    hidden = w[:last].view(-1, 256)
+    hidden = w[:last].view(-1, H_)
     for l, (K, NO, wo, _) in enumerate(lay):
         assert wo * 2 % 16 == 0 and NO * 2 % 16 == 0 and K % 64 == 0
         Wl = w[wo:wo + K * NO].view(K, NO)
         ref = torch.nn.functional.pad(layers[l]["w"].to(torch.bfloat16), (0, 0, 0, K - layers[l]["w"].shape[0]))
         if l < L_ - 1:
-            assert NO == 256 and wo % 256 == 0
-            assert torch.equal(hidden[wo // 256:wo // 256 + K], Wl)
+            assert NO == H_ and wo % H_ == 0
+            assert torch.equal(hidden[wo // H_:wo // H_ + K], Wl)
             assert torch.equal(Wl, ref)
         else:
-            assert NO == 256 + t_fused.DENS_PAD and wo + K * NO == w.numel()
-            assert torch.equal(Wl[:, :256], ref[:, 1:]) and torch.equal(Wl[:, 256], ref[:, 0])
+            assert NO == H_ + t_fused.DENS_PAD and wo + K * NO == w.numel()
+            assert torch.equal(Wl[:, :H_], ref[:, 1:]) and torch.equal(Wl[:, H_], ref[:, 0])
 
 
+@pytest.mark.parametrize("H_,pad", [(256, 64), (256, 128), (128, 64), (128, 128)])
 @pytest.mark.parametrize("L_,skip,n", [(8, 4, 130), (8, 7, 200), (3, 1, 64), (2, 1, 65)])
-def test_forward_reads_and_writes_inside_its_maps(L_, skip, n):
-    """The forward kernel's tensor maps. Its weight stage t of layer l is four
-    64 x 64 boxes at row w_offset(l) / 256 + k0 of the hidden map (the last
-    layer: row k0 of the last map, columns 0..255, never the density column),
-    and each stays inside layer l. The point maps are 2-D [n, 64] (enc) and
-    [n, 256] (feat) and 3-D [L-1, n, 256] (acts, so a box of layer l clips at
-    row n and not in layer l+1), every row stride a multiple of 16 bytes."""
-    gen = torch.Generator().manual_seed(L_ * 10 + skip)
-    layers = []
-    for l in range(L_):
-        k_in = 63 if l == 0 else (256 + 63 if l == skip else 256)
-        k_out = 257 if l == L_ - 1 else 256
-        layers.append({"w": torch.randn((k_in, k_out), generator=gen), "b": torch.randn(k_out, generator=gen)})
+def test_forward_reads_and_writes_inside_its_maps(L_, skip, n, H_, pad):
+    """The forward kernel's tensor maps. Its weight stage t of layer l is
+    H / 64 boxes of 64 x 64 at row w_offset(l) / H + k0 of the hidden map
+    (the last layer: row k0 of the last map, columns 0..H-1, never the
+    density column), and each stays inside layer l. The point maps are 2-D
+    [n, pad] (enc, pad / 64 boxes a row) and [n, H] (feat) and 3-D
+    [L-1, n, H] (acts, so a box of layer l clips at row n and not in layer
+    l+1), every row stride a multiple of 16 bytes."""
+    layers, gen = _pack_case(L_, skip, H_, pad, L_ * 10 + skip)
     w, b = t_fused.pack_params(layers, skip)
-    lay = t_fused.layout(L_, skip, 256)
-    hidden_rows, last_rows = lay[-1][2] // 256, lay[-1][0]
+    lay = t_fused.layout(L_, skip, H_, pad)
+    hidden_rows, last_rows = lay[-1][2] // H_, lay[-1][0]
     y0 = 0
     for l, (K, NO, wo, _) in enumerate(lay):
         if l < L_ - 1:
-            assert y0 == wo // 256
+            assert y0 == wo // H_
         for k0 in range(0, K, 64):
             y = k0 if l == L_ - 1 else y0 + k0
             assert y + 64 <= (last_rows if l == L_ - 1 else min(y0 + K, hidden_rows))
         y0 += K
 
-    enc = torch.randn((n, t_fused.IN_PAD), generator=gen).to(torch.bfloat16)
+    enc = torch.randn((n, pad), generator=gen).to(torch.bfloat16)
+    assert t_fused.in_pad(layers[0]["w"].shape[0]) == pad and enc.stride() == (pad, 1) and pad % 64 == 0
     feat, dens, acts = t_fused.trunk_fwd(enc, w, b, L_, skip)
-    assert t_fused.IN_PAD == 64 and enc.stride() == (64, 1)
-    assert feat.shape == (n, 256) and feat.stride() == (256, 1) and dens.shape == (n,)
-    assert acts.shape == (L_ - 1, n, 256) and acts.stride() == (n * 256, 256, 1)
+    assert feat.shape == (n, H_) and feat.stride() == (H_, 1) and dens.shape == (n,)
+    assert acts.shape == (L_ - 1, n, H_) and acts.stride() == (n * H_, H_, 1)
     feat2, dens2, acts2 = t_fused.trunk_fwd(enc, w, b, L_, skip, store_acts=False)
     assert acts2 is None and torch.equal(feat2, feat) and torch.equal(dens2, dens)

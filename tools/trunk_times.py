@@ -1,0 +1,83 @@
+"""Device times of a tree's trunk kernels on the 8x256 main path.
+
+    python3 tools/trunk_times.py [--tree DIR]
+
+Times the trunk forward (with and without stored activations) and backward
+of the `poseprobe_tpu_torch` package found in DIR (default: this checkout)
+at the mid step's fine render, 393,216 points of the 8x256 trunk with a
+63-wide encoding (padded to 64), through the tree's wrappers `trunk_fwd` /
+`trunk_bwd`, with `chip_smoke.py`'s `_device_profile` (device times by
+torch.profiler; that file is always this checkout's), L2 warm, in turns
+(forward, backward, backward, forward). `kernel_ms` sums the device events
+whose name holds `trunk_`, `wrapper_ms` every device event of the call (the
+backward's zero-fill of dW and db included). Two trees are compared on the
+same card by running this once per tree, in turns (A, B, B, A).
+
+Prints one line per call and, last, one JSON object of all the times.
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+POINTS = (1024 + 2 * 256) * 256        # chip_smoke.FINE_POINTS
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", default=str(HERE), help="checkout whose poseprobe_tpu_torch is timed")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("trunk_times: no CUDA device", file=sys.stderr)
+        return 1
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    from poseprobe_tpu_torch.models import scene_nerf
+    from poseprobe_tpu_torch.ops import fused_mlp, pe
+    if not Path(fused_mlp.__file__).resolve().is_relative_to(tree):
+        raise AssertionError(f"imported {fused_mlp.__file__}, not the package of {tree}")
+    cs = _chip_smoke()
+    cfg = scene_nerf.SceneConfig()
+    L, skip = len(cfg.layers_feat), cfg.skip[0]
+    mlp = scene_nerf.init_nerf_mlp(torch.Generator().manual_seed(0), cfg)
+    w, b = fused_mlp.pack_params([{k: v.cuda() for k, v in la.items()} for la in mlp["feat"]], skip)
+    g = torch.Generator(device="cuda").manual_seed(POINTS)
+    points = torch.rand((POINTS, 3), generator=g, device="cuda") * 6.0 - 3.0
+    enc = pe.posenc_scene(points, cfg.L_3D, 1.0, cfg.barf_c2f).to(torch.bfloat16)
+    enc = torch.nn.functional.pad(enc, (0, 64 - enc.shape[1])).contiguous()
+    feat, _, acts = fused_mlp.trunk_fwd(enc, w, b, L, skip)
+    g_feat = (torch.randn(feat.shape, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    g_dens = (torch.randn(POINTS, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    fns = {"fwd": lambda: fused_mlp.trunk_fwd(enc, w, b, L, skip),
+           "fwd_no_acts": lambda: fused_mlp.trunk_fwd(enc, w, b, L, skip, store_acts=False),
+           "bwd": lambda: fused_mlp.trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L, skip)}
+    runs = {d: [] for d in fns}
+    for d in ("fwd", "fwd_no_acts", "bwd", "bwd", "fwd_no_acts", "fwd"):
+        ms, events, by_name = cs._device_profile(fns[d], iters=10)
+        kernel = sum(v for k, v in by_name.items() if "trunk_" in k)
+        runs[d].append({"kernel_ms": kernel, "wrapper_ms": ms, "wrapper_events": events})
+    results = {d: {m: sum(r[m] for r in rs) / len(rs) for m in rs[0]} | {"turns": rs} for d, rs in runs.items()}
+    for d, v in results.items():
+        print(f"trunk {d} at {POINTS} points: kernel {v['kernel_ms']:.4f} ms (turns "
+              f"{[round(r['kernel_ms'], 4) for r in v['turns']]}), wrapper {v['wrapper_ms']:.4f} in "
+              f"{v['wrapper_events']:g} events")
+    print(json.dumps({"tree": str(tree), "times": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
