@@ -296,6 +296,7 @@ def _trunk_records(fused_mlp, cfg, enc, w, b, L: int, skip: int, g_feat, g_dens,
     bwd_bytes = (enc.numel() * 2 + g_feat.numel() * 2 + n * 2 + feat.numel() * 2 + acts.numel() * 2
                  + w.numel() * 2 + n * pad * 2 + (w.numel() + b.numel()) * 4)
     source = "fused_trunk.cu" if H in fused_mlp.WGMMA_WIDTHS else "trunk_wide.cu"
+    yardstick = {} if H in fused_mlp.WGMMA_WIDTHS else _cublas_layers_ms(fused_mlp, enc, w, b, L, skip, acts)
     records = {}
     for kind, flops, nbytes, err, line in (("fwd", 2 * macs, fwd_bytes, f_abs, 127),
                                            ("bwd", 4 * macs, bwd_bytes, b_abs, 284)):
@@ -308,7 +309,39 @@ def _trunk_records(fused_mlp, cfg, enc, w, b, L: int, skip: int, g_feat, g_dens,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         print(f"{name} N={n} (H={H}, input pad {pad}): kernel {ms[kind]:.3f} ms, twin {ms[kind + '_plain']:.3f} ms, "
               f"bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
+        if yardstick:
+            records[kind]["cublas_layers_ms"] = yardstick[kind]
+            print(f"{name} N={n}: cublas_layers_ms {yardstick[kind]:.3f} (the layers' products through "
+                  f"torch.addmm / torch.mm in bf16, summed; a yardstick, not a call computing the trunk)")
     return records
+
+
+def _cublas_layers_ms(fused_mlp, enc, w, b, L: int, skip: int, acts) -> dict:
+    """{"fwd", "bwd"}: the ms of the trunk's per-layer products through
+    PyTorch's library calls in bf16, summed over the layers: the forward's
+    `torch.addmm(b_l, inp_l, W_l)`, the backward's `torch.mm(g_l, W_l^T)` and
+    `torch.mm(inp_l^T, g_l)` (inp_l the layer's input, the skip layer's
+    concatenated beforehand; g_l a [n, NO_l] operand). No epilogue, mask,
+    column sum or density dot: a yardstick for the wide kernels, which no
+    single library call computes, so the records' `library_ms` stays null."""
+    n, H, pad = enc.shape[0], acts.shape[2], enc.shape[1]
+    lay = fused_mlp.layout(L, skip, H, pad)
+    inps = [enc if l == 0 else (torch.cat([acts[l - 1], enc], 1) if l == skip else acts[l - 1]) for l in range(L)]
+    Ws = [w[wo:wo + K * NO].view(K, NO) for K, NO, wo, _ in lay]
+    bs = [b[bo:bo + NO] for _, NO, _, bo in lay]
+    g = (torch.randn((n, H + fused_mlp.DENS_PAD), generator=torch.Generator(device=DEVICE).manual_seed(n),
+                     device=DEVICE) * 1e-3).to(torch.bfloat16)
+
+    def fwd():
+        for x, W, bb in zip(inps, Ws, bs):
+            torch.addmm(bb, x, W)
+
+    def bwd():
+        for x, W in zip(inps, Ws):
+            gl = g[:, :W.shape[1]]
+            torch.mm(gl, W.t())
+            torch.mm(x.t(), gl)
+    return {"fwd": _time_ms(fwd), "bwd": _time_ms(bwd)}
 
 
 def _trunk_fwd_no_acts(fused_mlp, enc, w, b, L: int, skip: int, flops: float) -> dict:

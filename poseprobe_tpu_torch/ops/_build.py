@@ -4,8 +4,8 @@ Every `csrc/<name>.cu` has a plain C interface (`extern "C"` functions that
 take raw pointers, ints and the stream, launch on that stream and return
 `cudaGetLastError()`), so nvcc compiles it in seconds into
 `build/lib<name>.so` and `ctypes` loads it. The first `load` of any library
-compiles every source that is out of date, all at once (one nvcc process
-each), under a lock on `build/build.lock`, so that of several processes
+compiles every source that is out of date (older than its library, it or a
+`csrc/` header it includes), all at once (one nvcc process each), under a lock on `build/build.lock`, so that of several processes
 starting together one builds and the others load its libraries. Nothing here runs at import: a machine without nvcc or a card can
 import every module.
 """
@@ -15,6 +15,7 @@ import ctypes
 import fcntl
 import functools
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -37,12 +38,19 @@ def build(names=SOURCES, force: bool = False) -> dict:
         return _build_locked(names, force)
 
 
+def inputs(name: str) -> list:
+    """csrc/<name>.cu and the csrc/ headers it includes (`#include "..."`):
+    the files whose changes its library follows."""
+    src = _CSRC / f"{name}.cu"
+    return [src] + [_CSRC / h for h in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)]
+
+
 def _build_locked(names, force: bool) -> dict:
     nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     procs, started = {}, time.perf_counter()
     for name in names:
         src, lib = _CSRC / f"{name}.cu", _BUILD / f"lib{name}.so"
-        if not force and lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        if not force and lib.exists() and lib.stat().st_mtime >= max(f.stat().st_mtime for f in inputs(name)):
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [str(nvcc), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

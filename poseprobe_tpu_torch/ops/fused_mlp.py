@@ -10,9 +10,12 @@ reference pads to 128 always; the pad is zeros either way). Two CUDA C++
 sources (sm_90a, built with nvcc at first use and bound with ctypes):
 * `csrc/fused_trunk.cu`, H = 128 and 256 with either pad: the designs below,
   templates on H and the pad (H = 256 with pad 64 is the 8x256 main path);
-* `csrc/trunk_wide.cu`, every H from 384 up: a plain tiled `mma.sync` GEMM
-  per layer with the layer's epilogue fused in, activations staged through
-  device memory, so no width limit (see that file).
+* `csrc/trunk_wide.cu`, every H from 384 up: one `wgmma` GEMM launch per
+  layer with the layer's epilogue fused in, both operands in shared memory fed
+  by TMA, persistent clusters of two blocks sharing each weight stage by TMA
+  multicast; activations and g go through device memory, so no width limit
+  (its design below; the launch plan is `wide_plan`).
+Both include `csrc/hopper.cuh`, the PTX wrappers and packed layout they share.
 
 Function (identical to the TPU kernels' numerics, checkpoint stride 1):
 * forward: bf16 operands, f32 accumulation, bias added in f32, ReLU output
@@ -37,7 +40,31 @@ activation bytes plus the per-layer g) nearly balanced. At 8x128 with a
 99-wide input (pad 128) the forward moves 2,308 B a point for 0.14 M
 multiply-adds: bytes again (0.271 ms); at 8x512 the 1.90 M multiply-adds a
 point make both directions bound by operations (1.51 ms forward, 3.02
-backward).
+backward). The wide family's per-layer launches move every activation and g
+through device memory: ~6.1 GB a forward and ~16 GB a backward at 8x512 and
+393,216 points, floors of 1.8 and 4.9 ms beside those bounds.
+
+Wide trunks (H >= 384; `csrc/trunk_wide.cu`): a 128-point activation is 128 KB
+at H = 512 and 256 KB at 1024, too much for shared memory beside a weight
+ring, so each layer is its own launch. The forward and each layer of the
+chain are one GEMM, points x columns, in tiles of 128 points (two consumer
+warpgroups of 64) by 256 columns (a 128 tail where H is an odd multiple of
+128; 64 for the last layer's density column and 64 or 128 for the encoding
+inputs), `wgmma` m64nNk16 with A (the activation, or g) and B (the packed
+weights, N-major for the forward through the descriptor's transpose bit,
+K-major for g W^T) both in shared memory, on a 3-stage ring that a producer
+warp fills by TMA; the epilogue is the layer's as above (bias + ReLU + bf16 and
+the density; the ReLU' mask from the stored activation, db, g into `gsave`,
+denc), its bf16 tile sent out by TMA stores from a staging tile (into which
+the chain's producer first brings the mask tile). Persistent clusters of two
+blocks take neighbouring 128-point tiles of one column tile, each block
+loading half of every weight stage and multicasting it to both. The chain starts with a seed kernel that writes the
+last layer's g with its density column and that layer's db. dW is
+fused_trunk.cu's design over 256-column tiles: one launch of (layer, 128 input
+features, column tile, point slice) blocks, both operands MN-major in shared
+memory, two neighbouring feature tiles per cluster sharing each chunk of g by
+multicast; each slice of the points writes its own copy of dW (no atomics)
+and a last small kernel adds the copies into dw.
 
 The designs below are written for H = 256; at H = 128 every product is
 m64n128 (half the accumulators and A fragments, one 128-column pass in the
@@ -179,6 +206,60 @@ def pack_params(feat_layers: list, skip: int):
     return torch.cat(ws), torch.cat(bs)
 
 
+WIDE_TILE = 256      # output columns of a wide GEMM tile (a 128 tail; 64 / 128 extra tiles)
+WIDE_CLUSTER = 2     # blocks of a cluster: neighbouring point tiles share each weight stage
+DW_POINTS = 64       # points of a dW chunk
+DW_FEATURES = 128    # input features of a dW tile: two warpgroups of 64
+DW_CLUSTER = 2       # dW tiles of a cluster: neighbouring feature tiles share each chunk of g
+
+
+def wide_col_tiles(cm: int, xw: int) -> list:
+    """The column tiles (first column, width) of a wide GEMM: [0, cm) in
+    WIDE_TILE-wide tiles with a 128-wide tail, then one tile of xw columns at
+    cm (none when xw is 0), as `col_tile` in csrc/trunk_wide.cu."""
+    tiles = [(c0, min(WIDE_TILE, cm - c0)) for c0 in range(0, cm, WIDE_TILE)]
+    return tiles + ([(cm, xw)] if xw else [])
+
+
+def wide_plan(n: int, L: int, skip: int, width: int, pad: int, sms: int) -> dict:
+    """The numbers the wide kernels' wrapper computes and passes for n points
+    on a card with `sms` multiprocessors: `clusters`, the most clusters of two
+    blocks a persistent GEMM launch takes (one block per multiprocessor);
+    `dw_pairs`, the dW grid's clusters along x (every layer's 128-feature
+    tiles taken two at a time, times its column tiles: 256 wide, a 128 tail,
+    and for the last layer the 128 columns from H); `dw_splits` slices of
+    `dw_rows_per_split` points along y, each a whole number of 64-point chunks
+    and none empty: the fewest slices (up to 32) whose clusters fill at least
+    97% of the waves they take, else the fullest (at 8x512, 393,216 points on
+    an H100: 17 slices, against 7 at 90%, took dW from 3.07 to 2.73 ms);
+    `slots`, the activation buffers of a forward without stored activations
+    (the backward's scratch is `_bwd_outputs`'s, and dW's [dw_splits,
+    w.numel()] f32 slices)."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    clusters = max(1, sms // WIDE_CLUSTER)
+    pairs = sum(cdiv(cdiv(K, DW_FEATURES), DW_CLUSTER) * len(wide_col_tiles(width, DENS_PAD if l == L - 1 else 0))
+                for l, (K, *_) in enumerate(layout(L, skip, width, pad)))
+    chunks = max(1, cdiv(n, DW_POINTS))
+    best, best_fill = 1, 0.0
+    for s in range(1, min(32, chunks) + 1):
+        fill = s * pairs / (cdiv(s * pairs, clusters) * clusters)
+        if fill >= 0.97:
+            best = s
+            break
+        if fill > best_fill + 1e-9:
+            best, best_fill = s, fill
+    per = cdiv(chunks, best)
+    return {"clusters": clusters, "dw_pairs": pairs, "dw_splits": cdiv(chunks, per),
+            "dw_rows_per_split": per * DW_POINTS, "slots": min(2, L - 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _width(b: torch.Tensor, L: int) -> int:
     return (b.numel() - DENS_PAD) // L
 
@@ -247,8 +328,8 @@ def _lib():
     csrc/trunk_wide.cu's (wider)."""
     return (_build.declare(_build.load("fused_trunk"), trunk_fwd="ppppppiiiiip",
                            trunk_bwd_chain="ppppppppiiiiip", trunk_bwd_dw="pppppiiiiip"),
-            _build.declare(_build.load("trunk_wide"), trunk_wide_fwd="ppppppiiiiiip",
-                           trunk_wide_bwd_chain="ppppppppiiiiip", trunk_wide_bwd_dw="pppppiiiiip"))
+            _build.declare(_build.load("trunk_wide"), trunk_wide_fwd="ppppppiiiiiiip",
+                           trunk_wide_bwd_chain="ppppppppiiiiiip", trunk_wide_bwd_dw="pppppiiiiiiiip"))
 
 
 def _check_inputs(L: int, skip: int, enc, w, b, **tensors) -> tuple:
@@ -302,10 +383,12 @@ def trunk_fwd(enc, w, b, L: int, skip: int, store_acts: bool = True):
                                   N, L, skip, H, pad, stream), "trunk_fwd")
     else:
         # the layers' activations go through device memory: acts, or two slots of scratch
-        slots = acts if store_acts else torch.empty((min(2, L - 1), N, H), dtype=torch.bfloat16,
+        plan = wide_plan(N, L, skip, H, pad, _sms(enc.device))
+        slots = acts if store_acts else torch.empty((plan["slots"], N, H), dtype=torch.bfloat16,
                                                     device=enc.device)
         _check(lib, lib.trunk_wide_fwd(_ptr(enc), _ptr(w), _ptr(b), _ptr(feat), _ptr(dens), _ptr(slots),
-                                       N, L, skip, H, pad, slots.shape[0], stream), "trunk_wide_fwd")
+                                       N, L, skip, H, pad, slots.shape[0], plan["clusters"], stream),
+               "trunk_wide_fwd")
     fwd_launches += 1
     _count("fwd", H, pad)
     return feat, dens, acts
@@ -356,14 +439,24 @@ def _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L: int, skip: int,
     wide = H not in WGMMA_WIDTHS
     lib = _lib()[wide]
     stream = torch.cuda.current_stream(enc.device).cuda_stream
+    ptrs = (_ptr(g_feat), _ptr(g_dens), _ptr(feat), _ptr(acts), _ptr(w), _ptr(denc), _ptr(gsave), _ptr(db))
+    if not wide:
+        if "chain" in kernels:
+            _check(lib, lib.trunk_bwd_chain(*ptrs, N, L, skip, H, pad, stream), "trunk_bwd_chain")
+        if "dw" in kernels:
+            _check(lib, lib.trunk_bwd_dw(_ptr(enc), _ptr(acts), _ptr(gsave), _ptr(g_dens), _ptr(dw), N, L, skip,
+                                         H, pad, stream), "trunk_bwd_dw")
+        return
+    plan = wide_plan(N, L, skip, H, pad, _sms(enc.device))
     if "chain" in kernels:
-        fn = lib.trunk_wide_bwd_chain if wide else lib.trunk_bwd_chain
-        _check(lib, fn(_ptr(g_feat), _ptr(g_dens), _ptr(feat), _ptr(acts), _ptr(w), _ptr(denc), _ptr(gsave),
-                       _ptr(db), N, L, skip, H, pad, stream), "trunk_wide_bwd_chain" if wide else "trunk_bwd_chain")
+        _check(lib, lib.trunk_wide_bwd_chain(*ptrs, N, L, skip, H, pad, plan["clusters"], stream),
+               "trunk_wide_bwd_chain")
     if "dw" in kernels:
-        fn = lib.trunk_wide_bwd_dw if wide else lib.trunk_bwd_dw
-        _check(lib, fn(_ptr(enc), _ptr(acts), _ptr(gsave), _ptr(g_dens), _ptr(dw), N, L, skip, H, pad, stream),
-               "trunk_wide_bwd_dw" if wide else "trunk_bwd_dw")
+        # each slice of the points writes its copy of dW, and the copies are added into dw
+        part = torch.empty((plan["dw_splits"], w.numel()), dtype=torch.float32, device=w.device)
+        _check(lib, lib.trunk_wide_bwd_dw(_ptr(enc), _ptr(acts), _ptr(gsave), _ptr(part), _ptr(dw), N, L, skip, H,
+                                          pad, plan["dw_pairs"], plan["dw_splits"], plan["dw_rows_per_split"], stream),
+               "trunk_wide_bwd_dw")
 
 
 # ---------------------------------------------------------------------------

@@ -457,6 +457,45 @@ def test_port_imports_no_jax():
         assert f"poseprobe_tpu_torch.{name}" in loaded, name
 
 
+def test_build_follows_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or a csrc/ header the source
+    includes (`#include "..."`) is newer than it, and only then; a source
+    that does not include the header is left alone. A fake nvcc counts its
+    calls."""
+    import os
+    from poseprobe_tpu_torch.ops import _build
+    csrc, build, bin_dir = tmp_path / "csrc", tmp_path / "build", tmp_path / "cuda" / "bin"
+    csrc.mkdir()
+    bin_dir.mkdir(parents=True)
+    (csrc / "shared.cuh").write_text("// helpers\n")
+    (csrc / "a.cu").write_text('#include <stdint.h>\n#include "shared.cuh"\n// a kernel\n')
+    (csrc / "b.cu").write_text("// a kernel without the header\n")
+    calls = tmp_path / "calls.txt"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\nopen({str(calls)!r}, 'a').write(sys.argv[-1] + '\\n')\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "_BUILD", build)
+    assert [f.name for f in _build.inputs("a")] == ["a.cu", "shared.cuh"]
+
+    def built():
+        _build.build(("a", "b"))
+        names = [os.path.basename(line) for line in calls.read_text().split()] if calls.exists() else []
+        calls.write_text("")
+        return sorted(names)
+
+    assert built() == ["a.cu", "b.cu"]
+    assert built() == []
+    earlier = (csrc / "shared.cuh").stat().st_mtime - 10   # the header edited after the build
+    os.utime(build / "liba.so", (earlier, earlier))
+    os.utime(build / "libb.so", (earlier, earlier))
+    os.utime(csrc / "b.cu", (earlier - 10, earlier - 10))
+    assert built() == ["a.cu"]
+    assert built() == []
+
+
 def test_build_lock_lets_one_of_two_processes_compile(tmp_path):
     """Two processes that build at once on a clean tree (the ranks of a job):
     one compiles under the lock in build/, the other waits, then finds the

@@ -1,17 +1,18 @@
-"""Compare the machine code of the 8x256 trunk kernels of two trees.
+"""Compare the machine code of the trunk kernels of fused_trunk.cu in two trees.
 
     python3 tools/sass_compare.py --tree DIR
 
 Builds `csrc/fused_trunk.cu` of this checkout and of the checkout in DIR
 (each with its own `ops/_build.py`, into its own `build/`), disassembles both
 libraries with `cuobjdump -sass`, and compares, for the forward, the backward
-chain and the dW kernel, the instructions of this checkout's instantiation
-for width 256 and input pad 64 with DIR's kernel of the same name (DIR's
-only one, or its instantiation for the same template arguments). Addresses,
-encodings and symbol names are left out of the comparison. Prints one line
-per kernel (its instruction count and whether the two are identical) and,
-last, one JSON object. Needs nvcc and cuobjdump (CUDA toolkit under
-/usr/local/cuda, or CUDA_HOME).
+chain and the dW kernel, the instructions of each of this checkout's
+instantiations (width 256 or 128, input pad 64 or 128; 256 and 64 is the
+8x256 main path) with DIR's kernel of the same name and template arguments
+(for a DIR whose kernel is not a template, its only one, against <256, 64>).
+Addresses, encodings and symbol names are left out of the comparison. Prints
+one line per kernel and instantiation (its instruction count and whether the
+two are identical) and, last, one JSON object. Needs nvcc and cuobjdump (CUDA
+toolkit under /usr/local/cuda, or CUDA_HOME).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 KERNELS = ("trunk_fwd_kernel", "trunk_bwd_chain_kernel", "trunk_bwd_dw_kernel")
-INSTANCE = "ILi256ELi64E"               # the mangled template arguments <256, 64>
+INSTANCES = {(256, 64): "ILi256ELi64E", (256, 128): "ILi256ELi128E",   # mangled template arguments
+             (128, 64): "ILi128ELi64E", (128, 128): "ILi128ELi128E"}
 
 
 def _library(tree: Path) -> Path:
@@ -50,13 +52,17 @@ def _functions(lib: Path) -> dict:
     return out
 
 
-def _pick(funcs: dict, kernel: str) -> list:
+def _pick(funcs: dict, kernel: str, instance: str, only_ok: bool):
+    """The instructions of `kernel`<instance> in `funcs`; with `only_ok`, a
+    tree's only kernel of that name when it has no instantiations; None when
+    absent."""
     names = [k for k in funcs if kernel in k]
-    if len(names) > 1:
-        names = [k for k in names if INSTANCE in k]
-    if len(names) != 1:
-        raise AssertionError(f"{kernel}: expected one kernel, found {names}")
-    return funcs[names[0]]
+    picked = [k for k in names if instance in k]
+    if not picked and only_ok and len(names) == 1:
+        picked = names
+    if len(picked) > 1:
+        raise AssertionError(f"{kernel}{instance}: expected one kernel, found {picked}")
+    return funcs[picked[0]] if picked else None
 
 
 def main(argv=None) -> int:
@@ -66,10 +72,14 @@ def main(argv=None) -> int:
     ours, theirs = _functions(_library(HERE)), _functions(_library(Path(args.tree).resolve()))
     result = {}
     for kernel in KERNELS:
-        a, b = _pick(ours, kernel), _pick(theirs, kernel)
-        result[kernel] = {"instructions": len(a), "other_instructions": len(b), "identical": a == b}
-        print(f"{kernel}<256, 64>: {len(a)} instructions, {args.tree}: {len(b)}; "
-              f"{'identical' if a == b else 'different'}")
+        for (H, kin), instance in INSTANCES.items():
+            a = _pick(ours, kernel, instance, False)
+            b = _pick(theirs, kernel, instance, (H, kin) == (256, 64))
+            if a is None or b is None:
+                continue
+            name = f"{kernel}<{H}, {kin}>"
+            result[name] = {"instructions": len(a), "other_instructions": len(b), "identical": a == b}
+            print(f"{name}: {len(a)} instructions, {args.tree}: {len(b)}; {'identical' if a == b else 'different'}")
     print(json.dumps(result))
     return 0
 

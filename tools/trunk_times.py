@@ -1,6 +1,6 @@
-"""Device times of a tree's trunk kernels on the 8x256 main path.
+"""Device times of a tree's trunk kernels at the mid step's fine render.
 
-    python3 tools/trunk_times.py [--tree DIR]
+    python3 tools/trunk_times.py [--tree DIR] [--width 512]
 
 Times the trunk forward (with and without stored activations) and backward
 of the `poseprobe_tpu_torch` package found in DIR (default: this checkout)
@@ -10,8 +10,12 @@ at the mid step's fine render, 393,216 points of the 8x256 trunk with a
 torch.profiler; that file is always this checkout's), L2 warm, in turns
 (forward, backward, backward, forward). `kernel_ms` sums the device events
 whose name holds `trunk_`, `wrapper_ms` every device event of the call (the
-backward's zero-fill of dW and db included). Two trees are compared on the
-same card by running this once per tree, in turns (A, B, B, A).
+backward's zero-fill of dW and db included). With `--width 512` the trunk is
+the wide cell's, 8x512 at L_3D 10 (the same 63-wide encoding; the kernels of
+`csrc/trunk_wide.cu`), and the backward's chain and dW are also timed apart
+(`bwd_chain`, `bwd_dw`: the tree's `_bwd_launch` on buffers made once; the
+chain's time includes its seed kernel). Two trees are compared on the same
+card by running this once per tree, in turns (A, B, B, A).
 
 Prints one line per call and, last, one JSON object of all the times.
 Needs a CUDA card.
@@ -19,6 +23,7 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import sys
@@ -40,6 +45,8 @@ def _chip_smoke():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(HERE), help="checkout whose poseprobe_tpu_torch is timed")
+    parser.add_argument("--width", type=int, default=256, choices=(256, 512),
+                        help="the trunk's width: 256 (the main path) or 512 (the wide cell, L_3D 10)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("trunk_times: no CUDA device", file=sys.stderr)
@@ -51,7 +58,7 @@ def main(argv=None) -> int:
     if not Path(fused_mlp.__file__).resolve().is_relative_to(tree):
         raise AssertionError(f"imported {fused_mlp.__file__}, not the package of {tree}")
     cs = _chip_smoke()
-    cfg = scene_nerf.SceneConfig()
+    cfg = scene_nerf.SceneConfig(layers_feat=(args.width,) * 8, L_3D=10)
     L, skip = len(cfg.layers_feat), cfg.skip[0]
     mlp = scene_nerf.init_nerf_mlp(torch.Generator().manual_seed(0), cfg)
     w, b = fused_mlp.pack_params([{k: v.cuda() for k, v in la.items()} for la in mlp["feat"]], skip)
@@ -65,17 +72,24 @@ def main(argv=None) -> int:
     fns = {"fwd": lambda: fused_mlp.trunk_fwd(enc, w, b, L, skip),
            "fwd_no_acts": lambda: fused_mlp.trunk_fwd(enc, w, b, L, skip, store_acts=False),
            "bwd": lambda: fused_mlp.trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L, skip)}
+    order = ["fwd", "fwd_no_acts", "bwd", "bwd", "fwd_no_acts", "fwd"]
+    if args.width != 256:
+        out = fused_mlp._bwd_outputs(POINTS, w, b, L, enc.shape[1])
+        for part in ("chain", "dw"):
+            fns[f"bwd_{part}"] = functools.partial(fused_mlp._bwd_launch, enc, g_feat, g_dens, feat, acts, w, out, L,
+                                                   skip, (part,))
+        order[3:3] = ["bwd_chain", "bwd_dw", "bwd_dw", "bwd_chain"]
     runs = {d: [] for d in fns}
-    for d in ("fwd", "fwd_no_acts", "bwd", "bwd", "fwd_no_acts", "fwd"):
+    for d in order:
         ms, events, by_name = cs._device_profile(fns[d], iters=10)
         kernel = sum(v for k, v in by_name.items() if "trunk_" in k)
         runs[d].append({"kernel_ms": kernel, "wrapper_ms": ms, "wrapper_events": events})
     results = {d: {m: sum(r[m] for r in rs) / len(rs) for m in rs[0]} | {"turns": rs} for d, rs in runs.items()}
     for d, v in results.items():
-        print(f"trunk {d} at {POINTS} points: kernel {v['kernel_ms']:.4f} ms (turns "
+        print(f"trunk {d} at {POINTS} points, {args.width}x{L}: kernel {v['kernel_ms']:.4f} ms (turns "
               f"{[round(r['kernel_ms'], 4) for r in v['turns']]}), wrapper {v['wrapper_ms']:.4f} in "
               f"{v['wrapper_events']:g} events")
-    print(json.dumps({"tree": str(tree), "times": results}))
+    print(json.dumps({"tree": str(tree), "width": args.width, "times": results}))
     return 0
 
 
