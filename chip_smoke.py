@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--lookup-points FILE]
 
-Builds the port's CUDA kernels from `poseprobe_tpu_torch/csrc/` (five
+Builds the port's CUDA kernels from `poseprobe_tpu_torch/csrc/` (six
 sources, one nvcc each, in parallel) and holds each kernel against its plain
 PyTorch version on the card:
 * the fused-trunk kernels at the mid-phase fine render's 393,216 points and
@@ -296,7 +296,8 @@ def _trunk_records(fused_mlp, cfg, enc, w, b, L: int, skip: int, g_feat, g_dens,
     bwd_bytes = (enc.numel() * 2 + g_feat.numel() * 2 + n * 2 + feat.numel() * 2 + acts.numel() * 2
                  + w.numel() * 2 + n * pad * 2 + (w.numel() + b.numel()) * 4)
     source = "fused_trunk.cu" if H in fused_mlp.WGMMA_WIDTHS else "trunk_wide.cu"
-    yardstick = {} if H in fused_mlp.WGMMA_WIDTHS else _cublas_layers_ms(fused_mlp, enc, w, b, L, skip, acts)
+    # the 8x256 path has no yardstick; the narrow and wide cells print the library's products
+    yardstick = {} if H == 256 else _cublas_layers_ms(fused_mlp, enc, w, b, L, skip, acts)
     records = {}
     for kind, flops, nbytes, err, line in (("fwd", 2 * macs, fwd_bytes, f_abs, 127),
                                            ("bwd", 4 * macs, bwd_bytes, b_abs, 284)):
@@ -307,6 +308,10 @@ def _trunk_records(fused_mlp, cfg, enc, w, b, L: int, skip: int, g_feat, g_dens,
             "replaces": f"poseprobe_tpu/ops/pallas/fused_mlp.py:{line}", "launches": 0,
             "max_abs_err": err, "ms": ms[kind], "plain_ms": ms[kind + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        if kind == "bwd" and H == fused_mlp.NARROW_WIDTH:
+            # the chain is csrc/trunk_narrow.cu's, dW fused_trunk.cu's
+            records[kind].update(source="poseprobe_tpu_torch/csrc/trunk_narrow.cu",
+                                 dw_source=f"poseprobe_tpu_torch/csrc/{source}")
         print(f"{name} N={n} (H={H}, input pad {pad}): kernel {ms[kind]:.3f} ms, twin {ms[kind + '_plain']:.3f} ms, "
               f"bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
         if yardstick:
@@ -385,6 +390,9 @@ def _trunk_bwd_parts(fused_mlp, enc, g_feat, g_dens, feat, acts, w, b, L: int, s
     floor_bytes = (2 * nb(acts) + 2 * nb(gsave) + nb(g_feat) + nb(feat) + nb(g_dens) + 2 * nb(enc) + nb(w)
                    + nb(dw) + nb(db))
     print(f"trunk_bwd N={n} by kernel: chain {parts['chain_ms']:.3f} ms, dW {parts['dw_ms']:.3f} ms")
+    if feat.shape[1] == fused_mlp.NARROW_WIDTH:
+        plan = fused_mlp.narrow_plan(n, L, enc.shape[1], fused_mlp._sms(enc.device))
+        print(f"trunk_bwd N={n}: the chain's plan {plan}")
     print(f"trunk_bwd N={n}: floor of the two-kernel design {floor_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms "
           f"({floor_bytes / 1e9:.3f} GB at {PEAK_HBM_BYTES / 1e12:.2f} TB/s)")
     return parts

@@ -9,7 +9,8 @@
 // m64n128 / m64n256) and the encoding's padded width KIN (64 or 128: one or
 // two 64-column boxes wherever the encoding is read); the launch functions
 // take H and KIN and run the instantiation. H = 256 with KIN = 64 is the 8x256
-// main path. Wider trunks go to trunk_wide.cu.
+// main path. The backward chain runs here at H = 256 only: at H = 128 it is
+// trunk_narrow.cu's. Wider trunks go to trunk_wide.cu.
 //
 // Packed layout (all row-major, bf16): layer l is a [K_l, NO_l] block of `w`,
 // K_l = KIN (l = 0), H + KIN (l = skip), H otherwise; NO_l = H, or H + 128 for
@@ -34,9 +35,10 @@ namespace {
 
 // ------------------------------------------------------------ backward chain
 
-// Backward chain: one block per CH_T = 128 points, two consumer warpgroups of
-// 64 points each and one producer warpgroup (warp 8 streams weight tiles,
-// warp 9 the per-layer mask tiles; warps 10-11 leave at once).
+// Backward chain at H = 256 (trunk_narrow.cu has H = 128's): one block per
+// CH_T = 128 points, two consumer warpgroups of 64 points each and one
+// producer warpgroup (warp 8 streams weight tiles, warp 9 the per-layer mask
+// tiles; warps 10-11 leave at once).
 //
 // Layer l (from L-1 down) computes gx = g_l W_l^T over its K_l inputs in
 // passes of 128 columns (KIN for the encoding part of the skip layer and for
@@ -53,16 +55,16 @@ namespace {
 // each thread reloads its next A from the positions it wrote; one bulk store
 // per row sends the slot to gsave, and the slot goes back to the producer once
 // the stores have read it, during the next layer's first products.
-// Rows past n are zero in g from the start and stay zero. H = 256 with KIN =
-// 128 runs a 3-stage ring, the others 4: its encoding gradient (genc_s)
-// takes the 16 KB of the fourth stage within the 227 KB a block may have.
+// Rows past n are zero in g from the start and stay zero. KIN = 128 runs a
+// 3-stage ring, KIN = 64 4: the wider encoding gradient (genc_s) takes the
+// 16 KB of the fourth stage within the 227 KB a block may have.
 constexpr int CH_T = 128;
 constexpr int CH_THREADS = 384;
 constexpr int TILE_K = 64;                        // layer outputs per weight tile (128-byte rows)
 constexpr int TILE_BYTES = 128 * TILE_K * 2;      // largest tile: 128 inputs x 64 outputs
 template <int H, int KIN>
 struct Chain {
-  static constexpr int RING = (H == 256 && KIN == 128) ? 3 : 4;
+  static constexpr int RING = KIN == 128 ? 3 : 4;
   static constexpr int LDM = H + 8;               // mask slot row stride (elements)
   static constexpr int SLOT_ELEMS = 64 * LDM;
   static constexpr size_t SMEM = 1024 + RING * TILE_BYTES + 4 * SLOT_ELEMS * sizeof(bf16) +
@@ -877,9 +879,13 @@ int dw_launch(EncodeTiled encode, int sms, const void* enc, const void* acts, co
 // ------------------------------------------------------------------ C interface
 // Each function launches on `stream`, does not synchronise, and returns the
 // cudaError_t of the launch (0 on success): cudaErrorInvalidValue for an H
-// other than 128 or 256 or a KIN other than 64 or 128.
+// other than 128 or 256 (the chain: 256) or a KIN other than 64 or 128.
 
-// the instantiation of `fn` for (H, KIN)
+// the instantiation of `fn` for (H, KIN); the backward chain's for H = 256 only
+#define CHAIN_DISPATCH(fn, H, KIN, ...)                                          \
+  ((H) == 256 && (KIN) == 64    ? fn<256, 64>(__VA_ARGS__)                        \
+   : (H) == 256 && (KIN) == 128 ? fn<256, 128>(__VA_ARGS__)                       \
+                                : (int)cudaErrorInvalidValue)
 #define TRUNK_DISPATCH(fn, H, KIN, ...)                                          \
   ((H) == 256 && (KIN) == 64    ? fn<256, 64>(__VA_ARGS__)                        \
    : (H) == 256 && (KIN) == 128 ? fn<256, 128>(__VA_ARGS__)                       \
@@ -903,7 +909,7 @@ int trunk_bwd_chain(const void* gfeat, const void* gdens, const void* feat, cons
                     void* stream) {
   static EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  return TRUNK_DISPATCH(chain_launch, H, kin, encode, gfeat, gdens, feat, acts, w, denc, gsave, db, n, L, skip,
+  return CHAIN_DISPATCH(chain_launch, H, kin, encode, gfeat, gdens, feat, acts, w, denc, gsave, db, n, L, skip,
                         (cudaStream_t)stream);
 }
 

@@ -214,12 +214,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float v0, float v1) {
 __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
-// Adds the column sums of a pass to s: v[2j + e] is this thread's partial (its
+// The warp's column sums of a pass: v[2j + e] is this thread's partial (its
 // two rows) of column c0 + 8j + 2q + e. A reduce-scatter over the warp's 8
 // row groups: each exchange halves what a lane holds (16 + 8 + 4 shuffles,
 // against 3 per column for a full butterfly), and each lane ends with the
-// sums of 4 distinct columns, added with 4 shared atomics.
-__device__ __forceinline__ void colsum32_add(float* s, int c0, float (&v)[32], int lane) {
+// sums of 4 distinct columns in v[0..3]: v[t] is column c0 + 8 (i >> 1) + 2q +
+// (i & 1), i = t + 16 (lane bit 2) + 8 (lane bit 3) + 4 (lane bit 4).
+__device__ __forceinline__ void colsum32_scatter(float (&v)[32], int lane) {
   const bool b2 = lane & 4, b3 = lane & 8, b4 = lane & 16;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -236,6 +237,11 @@ __device__ __forceinline__ void colsum32_add(float* s, int c0, float (&v)[32], i
     const float keep = b4 ? v[i + 4] : v[i];
     v[i] = keep + __shfl_xor_sync(0xffffffffu, b4 ? v[i] : v[i + 4], 16);
   }
+}
+// colsum32_scatter, the 4 sums of each lane added to s with shared atomics
+__device__ __forceinline__ void colsum32_add(float* s, int c0, float (&v)[32], int lane) {
+  colsum32_scatter(v, lane);
+  const bool b2 = lane & 4, b3 = lane & 8, b4 = lane & 16;
   const int base = (b2 ? 16 : 0) + (b3 ? 8 : 0) + (b4 ? 4 : 0);  // v[t] is column index base + t
 #pragma unroll
   for (int t = 0; t < 4; ++t) {

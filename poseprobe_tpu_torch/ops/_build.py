@@ -22,7 +22,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("fused_composite", "fused_trunk", "layout", "trilinear", "trunk_wide")
+SOURCES = ("fused_composite", "fused_trunk", "layout", "trilinear", "trunk_narrow", "trunk_wide")
 
 
 def build(names=SOURCES, force: bool = False) -> dict:

@@ -6,16 +6,19 @@ Replaces the Pallas TPU kernels of `poseprobe_tpu/ops/pallas/fused_mlp.py`:
 kernels take (`supports`): any uniform width H that is a multiple of 128, one
 skip strictly inside, an encoded input of at most 128. The encoded input is
 padded per call to 64 columns when it has at most 64, else to 128 (the
-reference pads to 128 always; the pad is zeros either way). Two CUDA C++
+reference pads to 128 always; the pad is zeros either way). Three CUDA C++
 sources (sm_90a, built with nvcc at first use and bound with ctypes):
 * `csrc/fused_trunk.cu`, H = 128 and 256 with either pad: the designs below,
-  templates on H and the pad (H = 256 with pad 64 is the 8x256 main path);
+  templates on H and the pad (H = 256 with pad 64 is the 8x256 main path),
+  but for the backward chain at H = 128;
+* `csrc/trunk_narrow.cu`, the backward chain at H = 128 (its design below;
+  the launch plan is `narrow_plan`);
 * `csrc/trunk_wide.cu`, every H from 384 up: one `wgmma` GEMM launch per
   layer with the layer's epilogue fused in, both operands in shared memory fed
   by TMA, persistent clusters of two blocks sharing each weight stage by TMA
   multicast; activations and g go through device memory, so no width limit
   (its design below; the launch plan is `wide_plan`).
-Both include `csrc/hopper.cuh`, the PTX wrappers and packed layout they share.
+All include `csrc/hopper.cuh`, the PTX wrappers and packed layout they share.
 
 Function (identical to the TPU kernels' numerics, checkpoint stride 1):
 * forward: bf16 operands, f32 accumulation, bias added in f32, ReLU output
@@ -66,11 +69,12 @@ memory, two neighbouring feature tiles per cluster sharing each chunk of g by
 multicast; each slice of the points writes its own copy of dW (no atomics)
 and a last small kernel adds the copies into dw.
 
-The designs below are written for H = 256; at H = 128 every product is
-m64n128 (half the accumulators and A fragments, one 128-column pass in the
-chain), and with the 128-wide pad layer 0 and the skip layer take two 64-column
-encoding boxes (the chain's encoding pass is m64n128, and H = 256 with pad 128
-runs a 3-stage weight ring to fit the doubled encoding gradient).
+The forward and dW designs below are written for H = 256; at H = 128 every
+product is m64n128 (half the accumulators and A fragments), and with the
+128-wide pad layer 0 and the skip layer take two 64-column encoding boxes
+(the H = 256 chain's encoding pass is m64n128, and with pad 128 it runs a
+3-stage weight ring to fit the doubled encoding gradient). The chain at
+H = 128 has a design of its own, after the backward's.
 
 Forward: a block owns 128 points, two consumer warpgroups of 64 points run
 `wgmma` m64n256k16 per layer with the activation as A in registers (the
@@ -88,10 +92,10 @@ call at 393,216 points).
 
 Backward: blocks carry no sum across each other the way the TPU's sequential
 grid does (dW is 2 MB of f32 per 128-point block), so it is two kernels.
-* The chain kernel walks the layers backwards for 128 points per block: two
-  consumer warpgroups of 64 points run `wgmma` m64nNk16 with g in registers
-  (the masked f32 accumulator of one layer, packed to bf16, is the next
-  layer's A fragment) and weight tiles from a 4-stage ring that a producer
+* The chain kernel (H = 256) walks the layers backwards for 128 points per
+  block: two consumer warpgroups of 64 points run `wgmma` m64nNk16 with g in
+  registers (the masked f32 accumulator of one layer, packed to bf16, is the
+  next layer's A fragment) and weight tiles from a 4-stage ring that a producer
   warp fills by TMA straight from the packed weights (a row of a packed
   [K, NO] layer is K-major for gx = g W^T; two tensor maps with the 128-byte
   swizzle, encoded per call in C). Another producer warp bulk-copies the
@@ -108,6 +112,24 @@ floor beside the 0.78 ms operations bound. db and dW are summed with f32
 atomics in a run-dependent order: results agree with the twin to f32
 rounding before the final bf16 rounding, so a dW or db element may differ by
 one bf16 ulp between runs.
+
+The chain at H = 128 (`csrc/trunk_narrow.cu`): a layer is a quarter of the
+products of H = 256's for half the bytes, so there the chain is bound by
+device memory (the mask read and g written, ~1.8 GB at 8x128 and 393,216
+points, 0.54 ms) and, in the design above, by what each tile and layer costs
+besides. Persistent blocks, one per multiprocessor (`narrow_plan`), walk
+256-point tiles; four consumer warpgroups each run one 64-point sub-tile
+through every layer, four independent chains per multiprocessor. A producer
+warp streams [128 inputs x 64 outputs] weight stages by TMA into a 2-stage
+ring that serves all four, running on across layers and tiles. Each
+warpgroup moves its masks and g as 64 x 64 TMA boxes with the 128-byte
+swizzle through three slots: the epilogue writes g over the mask it read,
+the slot goes out to `gsave` by TMA and is the next layer's A operand, read
+by `wgmma` from shared memory (no operand in registers), and once read it
+takes the mask two layers ahead. Each consumer warp adds its column sums of
+g to its own copy of db in device memory; the block adds its copies at its
+end and a small kernel adds the blocks' in block order, so db is the same
+from run to run. The skip layer's encoding part goes through denc itself.
 """
 from __future__ import annotations
 
@@ -255,6 +277,32 @@ def wide_plan(n: int, L: int, skip: int, width: int, pad: int, sms: int) -> dict
             "dw_rows_per_split": per * DW_POINTS, "slots": min(2, L - 1)}
 
 
+NARROW_WIDTH = 128    # the width whose backward chain runs csrc/trunk_narrow.cu
+NARROW_TILE = 256     # points of a narrow block's tile: four consumer warpgroups of 64
+NARROW_WARPS = 16     # consumer warps of a narrow block, each with its own copy of db
+NARROW_RING = 2       # weight stages of [128 inputs x 64 outputs], 16 KB each
+NARROW_SLOTS = 3      # mask / g slots of [64 points x 128] bf16, 16 KB each, per warpgroup
+
+
+def narrow_plan(n: int, L: int, pad: int, sms: int) -> dict:
+    """What the wrapper passes csrc/trunk_narrow.cu's chain for n > 0 points
+    on a card with `sms` multiprocessors (the C side refuses another plan):
+    `tiles` of NARROW_TILE points, `blocks` persistent blocks (one per
+    multiprocessor, no more than the tiles; block b takes tiles b, b +
+    blocks, ...: at most `tiles_per_block`), `db_part` the f32 scratch for
+    the blocks' db copies (NARROW_WARPS a block, each the first L * 128 + 1
+    columns of db), and `smem` the block's shared-memory bytes (1 KB of
+    alignment, the weight ring, the warpgroups' slots, the last layer's
+    density column as f32, the mbarriers)."""
+    tiles = -(-n // NARROW_TILE)
+    blocks = max(1, min(sms, tiles))
+    box = 64 * 64 * 2
+    smem = (1024 + NARROW_RING * 2 * box + 4 * NARROW_SLOTS * 2 * box + (NARROW_WIDTH + pad) * 4
+            + (2 * NARROW_RING + 4 * NARROW_SLOTS) * 8)
+    return {"tiles": tiles, "blocks": blocks, "tiles_per_block": -(-tiles // blocks),
+            "db_part": blocks * NARROW_WARPS * (L * NARROW_WIDTH + 1), "smem": smem}
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -324,12 +372,14 @@ def trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The two libraries: csrc/fused_trunk.cu's (widths 128 and 256) and
-    csrc/trunk_wide.cu's (wider)."""
+    """The three libraries: csrc/fused_trunk.cu's (widths 128 and 256),
+    csrc/trunk_wide.cu's (wider) and csrc/trunk_narrow.cu's (the chain at
+    width 128)."""
     return (_build.declare(_build.load("fused_trunk"), trunk_fwd="ppppppiiiiip",
                            trunk_bwd_chain="ppppppppiiiiip", trunk_bwd_dw="pppppiiiiip"),
             _build.declare(_build.load("trunk_wide"), trunk_wide_fwd="ppppppiiiiiiip",
-                           trunk_wide_bwd_chain="ppppppppiiiiiip", trunk_wide_bwd_dw="pppppiiiiiiiip"))
+                           trunk_wide_bwd_chain="ppppppppiiiiiip", trunk_wide_bwd_dw="pppppiiiiiiiip"),
+            _build.declare(_build.load("trunk_narrow"), trunk_narrow_bwd_chain="pppppppppiiiiilip"))
 
 
 def _check_inputs(L: int, skip: int, enc, w, b, **tensors) -> tuple:
@@ -441,7 +491,15 @@ def _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L: int, skip: int,
     stream = torch.cuda.current_stream(enc.device).cuda_stream
     ptrs = (_ptr(g_feat), _ptr(g_dens), _ptr(feat), _ptr(acts), _ptr(w), _ptr(denc), _ptr(gsave), _ptr(db))
     if not wide:
-        if "chain" in kernels:
+        if "chain" in kernels and H == NARROW_WIDTH:
+            # each consumer warp of each block sums db into its copy, and the copies are added into db
+            plan = narrow_plan(N, L, pad, _sms(enc.device))
+            part = torch.empty(plan["db_part"], dtype=torch.float32, device=w.device)
+            narrow = _lib()[2]
+            _check(narrow, narrow.trunk_narrow_bwd_chain(*ptrs, _ptr(part), N, L, skip, pad, plan["blocks"],
+                                                         plan["db_part"], plan["smem"], stream),
+                   "trunk_narrow_bwd_chain")
+        elif "chain" in kernels:
             _check(lib, lib.trunk_bwd_chain(*ptrs, N, L, skip, H, pad, stream), "trunk_bwd_chain")
         if "dw" in kernels:
             _check(lib, lib.trunk_bwd_dw(_ptr(enc), _ptr(acts), _ptr(gsave), _ptr(g_dens), _ptr(dw), N, L, skip,

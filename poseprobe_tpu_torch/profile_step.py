@@ -2,6 +2,7 @@
 
     python3 -m poseprobe_tpu_torch.profile_step [--steps 8] [--superstep K] [--composite]
                                                [--out TRACE_DIR] [--phases early coarse mid]
+                                               [--trunk WIDTH L_3D]
 
 For each phase cell of `build_trainer()` (early: step 1, object branch on;
 coarse: step 10,001; mid: step 18,001) it times steps without the profiler
@@ -18,8 +19,11 @@ capture time of each cell and the peak device memory. After the phases it
 prints the 60k-weighted rays/s of the measured step times (10k early steps at
 object + scene rays, 8k coarse and 42k mid steps at scene rays), for each
 mode. `--composite` turns on the fused alpha-composite kernels
-(`use_pallas_composite`, off by default as in the reference). One JSON line
-per phase and one for the weighting; Chrome traces go to `--out`.
+(`use_pallas_composite`, off by default as in the reference). `--trunk 128
+16` replaces the scene trunk by 8 layers of that width at that L_3D, as
+`chip_smoke.py`'s trunk-width cells do (the narrow cell: 8x128, L_3D 16).
+One JSON line per phase and one for the weighting; Chrome traces go to
+`--out`.
 """
 from __future__ import annotations
 
@@ -155,12 +159,19 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None, help="directory for Chrome traces")
     ap.add_argument("--phases", nargs="+", default=["early", "coarse", "mid"],
                     choices=["early", "coarse", "mid"])
+    ap.add_argument("--trunk", type=int, nargs=2, metavar=("WIDTH", "L_3D"), default=None,
+                    help="the scene trunk as 8 layers of WIDTH at L_3D (build_trainer()'s workload otherwise)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    tr = trainer_mod.build_trainer(device="cuda")
+    if args.trunk:
+        cfg, data = trainer_mod._bench_workload(False, "bfloat16")       # build_trainer()'s workload
+        scene = dataclasses.replace(cfg.scene_model, layers_feat=(args.trunk[0],) * 8, L_3D=args.trunk[1])
+        tr = trainer_mod.JointTrainer(dataclasses.replace(cfg, scene_model=scene), data, device="cuda")
+    else:
+        tr = trainer_mod.build_trainer(device="cuda")
     if args.composite:
         tr.cfg = dataclasses.replace(tr.cfg, object_model=dataclasses.replace(
             tr.cfg.object_model, use_pallas_composite=True))

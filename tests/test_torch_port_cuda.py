@@ -197,6 +197,67 @@ def test_fused_trunk_autograd_matches_cpu_twin():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("skip", [1, 7])                # the skip after the first layer, and on the last
+@pytest.mark.parametrize("n", [1, 127, "ragged"])
+@pytest.mark.parametrize("L_3D", [10, 16])              # input 63 (pad 64) and 99 (pad 128)
+def test_narrow_chain_matches_twin(L_3D, n, skip):
+    """The H = 128 backward (the chain of csrc/trunk_narrow.cu, then dW)
+    through `trunk_bwd` against the twin: denc, dW and db within REL_TOL of
+    their max, the last layer's db and density column of dW element by
+    element (as in `test_trunk_bwd_density_column_and_last_db_match_twin`).
+    n = 1 and 127 leave sub-tiles of the one 256-point tile empty; "ragged"
+    has more tiles than three per multiprocessor, so every persistent block
+    walks several, and ends inside a tile. db is summed from per-block copies
+    in a fixed order, so a second call gives it bit for bit."""
+    _need_card()
+    ragged = n == "ragged"
+    if ragged:
+        n = fused_mlp.NARROW_TILE * 3 * fused_mlp._sms(torch.device("cuda")) + 77
+    layers, enc, g = _inputs(n, n_layers=L, skip=skip, width=128, L_3D=L_3D)
+    w, b = fused_mlp.pack_params(layers, skip)
+    x = _padded(enc)
+    plan = fused_mlp.narrow_plan(n, L, x.shape[1], fused_mlp._sms(x.device))
+    assert plan["tiles"] > 3 * plan["blocks"] if ragged else plan["blocks"] == 1
+    feat, _, acts = fused_mlp.trunk_fwd_plain(x, w, b, L, skip)
+    g_feat = (torch.randn((n, 128), generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    g_dens = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    name = fused_mlp.kernel_name("bwd", 128, x.shape[1])
+    before = fused_mlp.launches[name]
+    out = fused_mlp.trunk_bwd(x, g_feat, g_dens, feat, acts, w, b, L, skip)
+    again = fused_mlp.trunk_bwd(x, g_feat, g_dens, feat, acts, w, b, L, skip)
+    ref = fused_mlp.trunk_bwd_plain(x, g_feat, g_dens, feat, acts, w, b, L, skip)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        _close(o, r)
+    K, NO, wo, bo = fused_mlp.layout(L, skip, 128, x.shape[1])[-1]
+    col, col_ref = (d[wo:wo + K * NO].view(K, NO)[:, 128] for d in (out[1], ref[1]))
+    for o, r in ((col, col_ref), (out[2][bo:], ref[2][bo:])):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+    assert torch.equal(again[2], out[2])
+    assert fused_mlp.launches[name] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_3D", [10, 16])
+def test_narrow_backward_with_no_points(L_3D):
+    """No points: the wrapper returns empty denc and zero dW and db without
+    launching."""
+    _need_card()
+    layers, enc, _ = _inputs(0, n_layers=L, skip=SKIP, width=128, L_3D=L_3D)
+    w, b = fused_mlp.pack_params(layers, SKIP)
+    x = _padded(enc)
+    feat, _, acts = fused_mlp.trunk_fwd_plain(x, w, b, L, SKIP)
+    g_feat = torch.zeros((0, 128), dtype=torch.bfloat16, device="cuda")
+    g_dens = torch.zeros(0, dtype=torch.bfloat16, device="cuda")
+    name = fused_mlp.kernel_name("bwd", 128, x.shape[1])
+    before = fused_mlp.launches[name]
+    denc, dw, db = fused_mlp.trunk_bwd(x, g_feat, g_dens, feat, acts, w, b, L, SKIP)
+    torch.cuda.synchronize()
+    assert denc.shape == (0, x.shape[1]) and dw.shape == w.shape and db.shape == b.shape
+    assert not dw.any() and not db.any() and fused_mlp.launches[name] == before
+
+
+@pytest.mark.cuda
 def test_scene_step_runs_through_the_kernels():
     _need_card()
     tr = build_scene_trainer(small=True, device="cuda")

@@ -318,6 +318,7 @@ def test_conv3d_separable_replicate(kernel):
 
 @pytest.mark.parametrize("module,source", [("grid", "trilinear"), ("layout", "layout"),
                                            ("fused_mlp", "fused_trunk"), ("fused_mlp", "trunk_wide"),
+                                           ("fused_mlp", "trunk_narrow"),
                                            ("fused_composite", "fused_composite")])
 def test_ctypes_signatures_match_the_c_interfaces(module, source, monkeypatch):
     """Every signature a wrapper declares for ctypes names, argument by

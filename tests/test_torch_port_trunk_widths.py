@@ -8,9 +8,11 @@ Here, on the CPU:
   (widths 48 / 128 / 256 / 384 / 512, L_3D 10 / 11 / 16 / 20 / 21, raw xyz on
   and off, one and two skips);
 * the twin (`fused_trunk` on CPU tensors) against the Pallas kernel in
-  interpret mode at (H 128, L 3, D 99), (H 384, L 3, D 39), (H 512, L 2,
-  D 123) and (H 640, L 3, D 63, the skip on the last layer), forward and VJP, with `tests/test_torch_port_trunk.py`'s
-  tolerances (1e-2 abs forward; gradients within 2e-2 of their max);
+  interpret mode at (H 128, L 3, D 99), (H 128, L 4, D 39, pad 64, the skip
+  on the last layer), (H 384, L 3, D 39), (H 512, L 2, D 123) and (H 640, L
+  3, D 63, the skip on the last layer), forward and VJP, with
+  `tests/test_torch_port_trunk.py`'s tolerances (1e-2 abs forward; gradients
+  within 2e-2 of their max);
 * which kernel takes which shape (`in_pad`, `kernel_name`, the backward's
   scratch), and the wrapper's refusals, which run before any CUDA call;
 * the layout facts the wide kernels (`csrc/trunk_wide.cu`) rely on, for H in
@@ -18,6 +20,8 @@ Here, on the CPU:
   operand box inside its tensor, 16-byte strides and bases, and the launch
   plan (`wide_plan`: clusters, dW tiles and point slices) and scratch sizes
   the wrapper passes;
+* the launch plan of the H = 128 chain (`csrc/trunk_narrow.cu`,
+  `narrow_plan`): its grid, tiles, db scratch and shared memory;
 * the parameter converter carrying a 128- and a 512-wide trunk both ways.
 
 The kernels themselves are held against the twin on the card
@@ -68,7 +72,7 @@ def _to_torch(layers, requires_grad=False):
     return [{k: torch.tensor(v, requires_grad=requires_grad) for k, v in layer.items()} for layer in layers]
 
 
-SHAPES = [(128, 3, 99, 1), (384, 3, 39, 1), (512, 2, 123, 1), (640, 3, 63, 2)]   # (H, L, D, skip)
+SHAPES = [(128, 3, 99, 1), (128, 4, 39, 3), (384, 3, 39, 1), (512, 2, 123, 1), (640, 3, 63, 2)]   # (H, L, D, skip)
 N = 300
 
 
@@ -269,3 +273,36 @@ def test_wide_kernels_tiles_boxes_and_plan(H, pad):
             assert gsave.numel() == (L - 1) * n * H + n * (H + t_fused.DENS_PAD)
             for nbytes in (H * 2, (H + t_fused.DENS_PAD) * 2, pad * 2, n * H * 2, (L - 1) * n * H * 2):
                 assert nbytes % 16 == 0
+
+
+@pytest.mark.parametrize("pad", [64, 128])
+def test_narrow_chain_plan(pad):
+    """What the wrapper passes csrc/trunk_narrow.cu's chain (`narrow_plan`;
+    its C side refuses another plan), for an 8 x 128 trunk on cards of 132,
+    114 and 8 multiprocessors:
+    * one persistent block per multiprocessor, never more than the 256-point
+      tiles (four 64-point chains a tile), and the blocks' turns cover the
+      tiles, ceil(n / 256), with no block idle;
+    * the db scratch: 16 copies a block (one per consumer warp) of db's first
+      L * 128 + 1 entries, every layer's columns and then the last layer's
+      density column (the packed layout puts it at L * 128);
+    * the block's shared memory, 1 KB of alignment + a 2-stage ring of 16 KB
+      weight stages + 3 slots of 16 KB per warpgroup + the density column of
+      W_last in f32 + the mbarriers, fits the 227 KB a block may have."""
+    L, skip, H = 8, 4, t_fused.NARROW_WIDTH
+    lay = t_fused.layout(L, skip, H, pad)
+    assert lay[-1][3] + H == L * H and sum(NO for _, NO, *_ in lay) == L * H + t_fused.DENS_PAD
+    for sms in (132, 114, 8):
+        for n in (1, 127, 256, 257, 100_003, 393_216):
+            plan = t_fused.narrow_plan(n, L, pad, sms)
+            tiles = -(-n // t_fused.NARROW_TILE)
+            assert t_fused.NARROW_TILE == 4 * 64 and plan["tiles"] == tiles
+            assert plan["blocks"] == min(sms, tiles) >= 1
+            per = plan["tiles_per_block"]
+            assert (per - 1) * plan["blocks"] < tiles <= per * plan["blocks"]
+            assert plan["db_part"] == plan["blocks"] * t_fused.NARROW_WARPS * (L * H + 1)
+            box = 64 * 64 * 2
+            parts = (1024, t_fused.NARROW_RING * 2 * box, 4 * t_fused.NARROW_SLOTS * 2 * box, (H + pad) * 4,
+                     (2 * t_fused.NARROW_RING + 4 * t_fused.NARROW_SLOTS) * 8)
+            assert t_fused.NARROW_RING >= 2 and t_fused.NARROW_SLOTS >= 3
+            assert plan["smem"] == sum(parts) <= 232_448   # the shared memory a block may have on an H100

@@ -5,14 +5,19 @@
 Builds `csrc/fused_trunk.cu` of this checkout and of the checkout in DIR
 (each with its own `ops/_build.py`, into its own `build/`), disassembles both
 libraries with `cuobjdump -sass`, and compares, for the forward, the backward
-chain and the dW kernel, the instructions of each of this checkout's
-instantiations (width 256 or 128, input pad 64 or 128; 256 and 64 is the
-8x256 main path) with DIR's kernel of the same name and template arguments
-(for a DIR whose kernel is not a template, its only one, against <256, 64>).
-Addresses, encodings and symbol names are left out of the comparison. Prints
-one line per kernel and instantiation (its instruction count and whether the
-two are identical) and, last, one JSON object. Needs nvcc and cuobjdump (CUDA
-toolkit under /usr/local/cuda, or CUDA_HOME).
+chain and the dW kernel, the instructions of each instantiation (width 256 or
+128, input pad 64 or 128; 256 and 64 is the 8x256 main path) with DIR's
+kernel of the same name and template arguments (for a DIR whose kernel is not
+a template, its only one, against <256, 64>). The backward chain at width 128
+lives in `csrc/trunk_narrow.cu` (`trunk_narrow_chain_kernel<pad>`): where DIR
+has fused_trunk.cu's <128, pad> and this checkout has not, that
+instantiation is reported as replaced, with the new kernel's instruction
+count, not compared. Addresses, encodings and symbol names are left out of
+the comparison. Prints one line per kernel and instantiation (its
+instruction count and whether the two are identical, or what replaced it)
+and, last, one JSON object whose `all_identical` says whether every compared
+instantiation was. Needs nvcc and cuobjdump (CUDA toolkit under
+/usr/local/cuda, or CUDA_HOME).
 """
 from __future__ import annotations
 
@@ -28,12 +33,13 @@ HERE = Path(__file__).resolve().parents[1]
 KERNELS = ("trunk_fwd_kernel", "trunk_bwd_chain_kernel", "trunk_bwd_dw_kernel")
 INSTANCES = {(256, 64): "ILi256ELi64E", (256, 128): "ILi256ELi128E",   # mangled template arguments
              (128, 64): "ILi128ELi64E", (128, 128): "ILi128ELi128E"}
+NARROW = "trunk_narrow_chain_kernel"   # csrc/trunk_narrow.cu: the chain at width 128, a template on the pad
 
 
-def _library(tree: Path) -> Path:
-    subprocess.run([sys.executable, "-c", "from poseprobe_tpu_torch.ops import _build; _build.build(['fused_trunk'])"],
+def _library(tree: Path, name: str = "fused_trunk") -> Path:
+    subprocess.run([sys.executable, "-c", f"from poseprobe_tpu_torch.ops import _build; _build.build(['{name}'])"],
                    cwd=tree, check=True)
-    return tree / "poseprobe_tpu_torch" / "build" / "libfused_trunk.so"
+    return tree / "poseprobe_tpu_torch" / "build" / f"lib{name}.so"
 
 
 def _functions(lib: Path) -> dict:
@@ -70,17 +76,25 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", required=True, help="the other checkout")
     args = parser.parse_args(argv)
     ours, theirs = _functions(_library(HERE)), _functions(_library(Path(args.tree).resolve()))
+    narrow = _functions(_library(HERE, "trunk_narrow"))
     result = {}
     for kernel in KERNELS:
         for (H, kin), instance in INSTANCES.items():
             a = _pick(ours, kernel, instance, False)
             b = _pick(theirs, kernel, instance, (H, kin) == (256, 64))
+            name = f"{kernel}<{H}, {kin}>"
+            if a is None and b is not None and kernel == "trunk_bwd_chain_kernel" and H == 128:
+                new = _pick(narrow, NARROW, f"ILi{kin}E", False)
+                result[name] = {"replaced_by": f"{NARROW}<{kin}>", "instructions": len(new or []),
+                                "other_instructions": len(b)}
+                print(f"{name}: replaced by {NARROW}<{kin}> ({len(new or [])} instructions), {args.tree}: {len(b)}")
+                continue
             if a is None or b is None:
                 continue
-            name = f"{kernel}<{H}, {kin}>"
             result[name] = {"instructions": len(a), "other_instructions": len(b), "identical": a == b}
             print(f"{name}: {len(a)} instructions, {args.tree}: {len(b)}; {'identical' if a == b else 'different'}")
-    print(json.dumps(result))
+    compared = [v["identical"] for v in result.values() if "identical" in v]
+    print(json.dumps({"kernels": result, "all_identical": bool(compared) and all(compared)}))
     return 0
 
 

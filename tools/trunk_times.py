@@ -1,6 +1,6 @@
 """Device times of a tree's trunk kernels at the mid step's fine render.
 
-    python3 tools/trunk_times.py [--tree DIR] [--width 512]
+    python3 tools/trunk_times.py [--tree DIR] [--width 128|256|512] [--l3d L] [--records]
 
 Times the trunk forward (with and without stored activations) and backward
 of the `poseprobe_tpu_torch` package found in DIR (default: this checkout)
@@ -14,8 +14,14 @@ backward's zero-fill of dW and db included). With `--width 512` the trunk is
 the wide cell's, 8x512 at L_3D 10 (the same 63-wide encoding; the kernels of
 `csrc/trunk_wide.cu`), and the backward's chain and dW are also timed apart
 (`bwd_chain`, `bwd_dw`: the tree's `_bwd_launch` on buffers made once; the
-chain's time includes its seed kernel). Two trees are compared on the same
-card by running this once per tree, in turns (A, B, B, A).
+chain's time includes its seed kernel). With `--width 128` it is the narrow
+cell's 8x128 trunk at L_3D 16 (a 99-wide encoding padded to 128; `--l3d 10`
+gives the 63-wide one padded to 64), with the chain and dW also apart. The
+encoding is padded with the tree's `fused_mlp.in_pad`. Two trees are
+compared on the same card by running this once per tree, in turns (A, B, B,
+A). `--records` also prints `chip_smoke.py`'s kernel records of this trunk
+(`_trunk_records`: the plain twin's time, the bound, the library's products),
+for a tree whose `fused_mlp` is this checkout's.
 
 Prints one line per call and, last, one JSON object of all the times.
 Needs a CUDA card.
@@ -45,8 +51,11 @@ def _chip_smoke():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(HERE), help="checkout whose poseprobe_tpu_torch is timed")
-    parser.add_argument("--width", type=int, default=256, choices=(256, 512),
-                        help="the trunk's width: 256 (the main path) or 512 (the wide cell, L_3D 10)")
+    parser.add_argument("--width", type=int, default=256, choices=(128, 256, 512),
+                        help="the trunk's width: 256 (the main path), 128 (the narrow cell) or 512 (the wide cell)")
+    parser.add_argument("--l3d", type=int, default=None,
+                        help="the encoding's L_3D (default: 16 at width 128, else 10)")
+    parser.add_argument("--records", action="store_true", help="also print chip_smoke.py's kernel records")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("trunk_times: no CUDA device", file=sys.stderr)
@@ -58,14 +67,15 @@ def main(argv=None) -> int:
     if not Path(fused_mlp.__file__).resolve().is_relative_to(tree):
         raise AssertionError(f"imported {fused_mlp.__file__}, not the package of {tree}")
     cs = _chip_smoke()
-    cfg = scene_nerf.SceneConfig(layers_feat=(args.width,) * 8, L_3D=10)
+    l3d = args.l3d if args.l3d is not None else (16 if args.width == 128 else 10)
+    cfg = scene_nerf.SceneConfig(layers_feat=(args.width,) * 8, L_3D=l3d)
     L, skip = len(cfg.layers_feat), cfg.skip[0]
     mlp = scene_nerf.init_nerf_mlp(torch.Generator().manual_seed(0), cfg)
     w, b = fused_mlp.pack_params([{k: v.cuda() for k, v in la.items()} for la in mlp["feat"]], skip)
     g = torch.Generator(device="cuda").manual_seed(POINTS)
     points = torch.rand((POINTS, 3), generator=g, device="cuda") * 6.0 - 3.0
     enc = pe.posenc_scene(points, cfg.L_3D, 1.0, cfg.barf_c2f).to(torch.bfloat16)
-    enc = torch.nn.functional.pad(enc, (0, 64 - enc.shape[1])).contiguous()
+    enc = torch.nn.functional.pad(enc, (0, fused_mlp.in_pad(enc.shape[1]) - enc.shape[1])).contiguous()
     feat, _, acts = fused_mlp.trunk_fwd(enc, w, b, L, skip)
     g_feat = (torch.randn(feat.shape, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
     g_dens = (torch.randn(POINTS, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
@@ -86,10 +96,13 @@ def main(argv=None) -> int:
         runs[d].append({"kernel_ms": kernel, "wrapper_ms": ms, "wrapper_events": events})
     results = {d: {m: sum(r[m] for r in rs) / len(rs) for m in rs[0]} | {"turns": rs} for d, rs in runs.items()}
     for d, v in results.items():
-        print(f"trunk {d} at {POINTS} points, {args.width}x{L}: kernel {v['kernel_ms']:.4f} ms (turns "
+        print(f"trunk {d} at {POINTS} points, {args.width}x{L}, input pad {enc.shape[1]}: kernel {v['kernel_ms']:.4f} ms (turns "
               f"{[round(r['kernel_ms'], 4) for r in v['turns']]}), wrapper {v['wrapper_ms']:.4f} in "
               f"{v['wrapper_events']:g} events")
-    print(json.dumps({"tree": str(tree), "width": args.width, "times": results}))
+    if args.records:
+        recs = cs._trunk_records(fused_mlp, cfg, enc, w, b, L, skip, g_feat, g_dens, feat, acts, 0.0, 0.0)
+        print(json.dumps({k: {m: r[m] for m in ("name", "ms", "plain_ms", "bound_ms", "bound_by")} for k, r in recs.items()}))
+    print(json.dumps({"tree": str(tree), "width": args.width, "L_3D": l3d, "pad": enc.shape[1], "times": results}))
     return 0
 
 
