@@ -28,8 +28,10 @@ PyTorch version on the card:
   dense [1024, n_samples], at ragged shapes, for a soft and a sharp NeuS
   sigmoid, with saturated, grazing and masked rays; at [1024, K] each kernel's
   device time (torch.profiler) as a bare launch and through its wrapper, with
-  the wrapper's device events per call; past the 1024-sample tile (1025, 2048
-  and 4096 samples) the chunked kernels, timed at [1024, 2048].
+  the wrapper's device events per call; past the 1024-sample tile (1025,
+  1312, 2048, 4096 and 8192 samples; the last two in several stages) the ray
+  kernels, timed in turns at [1024, 2048] and [1024, 1312], L2 warm and
+  flushed.
 Beside each kernel's time stands the time of the one PyTorch call that
 computes the same function, where there is one (a copy for the layout
 kernels, `F.grid_sample` and its backward for the trilinear ones): timed and
@@ -121,7 +123,7 @@ call counted under the kernel instantiation that takes it, the kernels held
 at the step's own calls, the loss against the plain trunk, a graph window
 against eager steps and its profile, each instantiation timed at the fine
 render's 393,216 points; then its early step with the fused composite at
-stepsize 0.08 (2101 samples, K 1312 > 1024), through the chunked kernels,
+stepsize 0.08 (2101 samples, K 1312 > 1024), through the ray kernels,
 against the unfused step.
 With `--lookup-points FILE` it also saves the captured lookup points there
 (`torch.save`), for `tools/lookup_times.py`.
@@ -155,8 +157,9 @@ PEAK_HBM_BYTES = 3.35e12
 FINE_POINTS = (1024 + 2 * 256) * 256   # mid-phase fine render: (rays + corres pair rays) x 256
 RAGGED_POINTS = 100_003                # not a multiple of the 128-point tile
 REL_TOL = 2e-2                         # max abs error allowed, as a fraction of max |twin|
-COMPOSITE_TILE = 1024                  # ops/fused_composite.TILE: longer rays go to the chunked kernels
-CHUNKED_S = (1025, 2048, 4096)         # sample counts past the tile held; the chunked records time 2048
+COMPOSITE_TILE = 1024                  # ops/fused_composite.TILE: longer rays go to the ray kernels
+CHUNKED_S = (1025, 2048, 4096, 8192)   # sample counts past the tile held (4096, 8192: several stages)
+LONG_RAY_K = 1312                      # the long-ray early step's chord-bound K, also held and timed
 TRI_REL_TOL, TRI_ABS_TOL = 1e-5, 1e-6  # trilinear kernels: float32 sums in another order (atomics)
 # superstep windows (`steps_scan`, a captured step replayed) against as many eager steps from one
 # state: per-step losses within GRAPH_LOSS_RTOL, every parameter tensor within REL_TOL in the L2
@@ -823,7 +826,7 @@ def check_composite_kernels(fused_composite, compositing, n_rays: int, K: int, n
     dist = 0.0125
     worst = {"fwd": 0.0, "bwd": 0.0, "fwd_chunked": 0.0, "bwd_chunked": 0.0}
     for N, S in ((n_rays, K), (n_rays, n_samples), (1000, 7), (37, 1000), (n_rays, CHUNKED_S[0]),
-                 (n_rays, CHUNKED_S[1]), (256, CHUNKED_S[2])):
+                 (n_rays, LONG_RAY_K), (n_rays, CHUNKED_S[1]), (256, CHUNKED_S[2]), (128, CHUNKED_S[3])):
         for inv_s in (20.0, 2000.0):
             args, cts = _composite_case(N, S, inv_s, dist, seed=N * 7 + S)
             outs = fused_composite.composite_fwd(*args)
@@ -838,7 +841,7 @@ def check_composite_kernels(fused_composite, compositing, n_rays: int, K: int, n
             keep = ~((T / 1e-3 - 1.0).abs() < 1e-4).any(dim=1)
             if not all(bool(torch.isfinite(t).all()) for t in (*outs, *grads)):
                 raise AssertionError(f"composite kernels: non-finite values at N={N} S={S} inv_s={inv_s}")
-            # past the tile the kernel's transmittance (runs, scans, chunk carries) and the plain cumprod round
+            # past the tile the kernel's transmittance (runs, block scans, stage carries) and the plain cumprod round
             # a product of up to S float32 factors in other orders: each output is held to S x 2^-24 (the bound
             # on that rounding, relative) of its largest value where that exceeds 1e-5 (n_step reaches S * dist)
             f_errs = [float((o[keep] - r[keep]).abs().max()) for o, r in zip(outs, refs)]
@@ -916,29 +919,44 @@ def check_composite_kernels(fused_composite, compositing, n_rays: int, K: int, n
               f"{rec['enqueue_loop_ms']:.5f} ms")
     print(f"fused_alpha_composite forward + backward: {entry_events:g} device events per call")
 
-    # past the tile: the chunked kernels' bare launches at [n_rays, 2048]
-    S = CHUNKED_S[1]
-    args, cts = _composite_case(n_rays, S, 20.0, dist, seed=12)
-    fns = _composite_bare(fused_composite, args, cts)
-    ns = float(n_rays * S)
-    chunked = {k: _device_ms(fns[k]) for k in ("fwd_kernel", "bwd_kernel")}
-    records += [
-        _record("composite_fwd_chunked", src, line, worst["fwd_chunked"], chunked["fwd_kernel"],
-                _device_ms(lambda: fused_composite.fused_alpha_composite_plain(*args[:5], args[5][0], args[5][1])),
-                ns * 60, ns * 29 + n_rays * 20, None, PEAK_F32_FLOPS),
-        _record("composite_bwd_chunked", src, line, worst["bwd_chunked"], chunked["bwd_kernel"],
-                _device_ms(lambda: fused_composite.composite_bwd_plain(*args, *cts)),
-                ns * 120, ns * 53 + n_rays * 28, None, PEAK_F32_FLOPS),
-    ]
-    for rec in records[-2:]:
-        print(f"{rec['name']} at [{n_rays}, {S}]: kernel device {rec['ms']:.5f} ms (a bare launch, L2 warm)")
+    # past the tile: the ray kernels' bare launches at [n_rays, 2048] (the records) and at the long-ray
+    # step's [n_rays, LONG_RAY_K], in turns (forward, backward, backward, forward), L2 warm; also flushed
+    ray = {}
+    for S in (CHUNKED_S[1], LONG_RAY_K):
+        args, cts = _composite_case(n_rays, S, 20.0, dist, seed=12)
+        fns = _composite_bare(fused_composite, args, cts)
+        ns = float(n_rays * S)
+        turns = {"fwd": [], "bwd": []}
+        for d in ("fwd", "bwd", "bwd", "fwd"):
+            turns[d].append(_device_ms(fns[f"{d}_kernel"]))
+        plain = {"fwd": lambda: fused_composite.fused_alpha_composite_plain(*args[:5], args[5][0], args[5][1]),
+                 "bwd": lambda: fused_composite.composite_bwd_plain(*args, *cts)}
+        ray[S] = {d: {"kernel_ms": sum(turns[d]) / 2, "kernel_turns_ms": turns[d],
+                      "kernel_flushed_ms": _device_ms(fns[f"{d}_kernel"], flush=True), "plain_ms": _device_ms(plain[d]),
+                      # forward 29 B a sample and 20 a ray, backward 53 and 28 (as the tiled records)
+                      "bound_ms": _bound(ns * (60 if d == "fwd" else 120),
+                                         ns * (29 if d == "fwd" else 53) + n_rays * (20 if d == "fwd" else 28),
+                                         PEAK_F32_FLOPS)[0]} for d in turns}
+        for d, r in ray[S].items():
+            print(f"composite_{d}_chunked at [{n_rays}, {S}]: bare launch {r['kernel_ms']:.5f} ms in turns "
+                  f"{r['kernel_turns_ms']}, flushed {r['kernel_flushed_ms']:.5f}, bound {r['bound_ms']:.5f} "
+                  f"({r['bound_ms'] / r['kernel_ms']:.0%} of it), plain {r['plain_ms']:.4f} ms")
+    S, ns = CHUNKED_S[1], float(n_rays * CHUNKED_S[1])
+    for d, flops, nbytes in (("fwd", ns * 60, ns * 29 + n_rays * 20), ("bwd", ns * 120, ns * 53 + n_rays * 28)):
+        r = ray[S][d]
+        rec = _record(f"composite_{d}_chunked", src, line, worst[f"{d}_chunked"], r["kernel_ms"], r["plain_ms"], flops,
+                      nbytes, None, PEAK_F32_FLOPS)
+        rec.update(kernel_ms=r["kernel_ms"], kernel_turns_ms=r["kernel_turns_ms"],
+                   kernel_flushed_ms=r["kernel_flushed_ms"], shape=[n_rays, S],
+                   at_long_ray_k={"shape": [n_rays, LONG_RAY_K], **ray[LONG_RAY_K][d]})
+        records.append(rec)
     return records
 
 
 def _composite_bare(fused_composite, args, cts) -> dict:
     """{"fwd_kernel", "bwd_kernel"}: the composite kernels' bare launches on
     `args` and `cts`, into buffers made once, with the wrapper's launch plan
-    (the chunked kernels past the tile)."""
+    (the ray kernels past the tile)."""
     N, S = args[0].shape
     lib, ptr, chk = fused_composite._lib(), fused_composite._ptr, fused_composite._check
     stream = torch.cuda.current_stream().cuda_stream
@@ -950,13 +968,13 @@ def _composite_bare(fused_composite, args, cts) -> dict:
                                         backward=False)
     bplan = fused_composite.launch_plan(N, S, dict(zip(names(fused_composite.BWD_ARRAYS), ins[:5] + ct_ptrs[:1]
                                                        + [ptr(t) for t in grads[:4]])), backward=True)
-    geo = lambda p: (N, S, p.rays_per_block, p.run, p.bulk_full, p.bulk_last, p.smem_bytes)  # noqa: E731
     print(f"composite launch plans at [{N}, {S}]: forward {fplan}, backward {bplan}")
+    launch = fused_composite._launch
     return {
-        "fwd_kernel": lambda: chk(lib, lib.composite_fwd(*ins, *geo(fplan), *[ptr(t) for t in outs], stream),
+        "fwd_kernel": lambda: chk(lib, launch(lib, False, N, S, fplan, ins, [ptr(t) for t in outs], stream),
                                   "composite_fwd"),
-        "bwd_kernel": lambda: chk(lib, lib.composite_bwd(*ins, *ct_ptrs, *geo(bplan), *[ptr(t) for t in grads],
-                                                         stream), "composite_bwd"),
+        "bwd_kernel": lambda: chk(lib, launch(lib, True, N, S, bplan, ins + ct_ptrs, [ptr(t) for t in grads], stream),
+                                  "composite_bwd"),
     }
 
 
@@ -1259,15 +1277,15 @@ def drive_trunk_widths(mods: dict, trainer_mod) -> tuple[dict, dict, list]:
 def drive_long_rays(mods: dict, trainer_mod) -> dict:
     """One early step of `build_trainer()` with the fused composite on and
     the object step size at LONG_RAY_STEPSIZE, so that the chord-bound K
-    passes the composite's tile: the step runs through the chunked kernels
+    passes the composite's tile: the step runs through the ray kernels
     (one launch each way), and its loss equals the same step through the
     unfused composite on the same draws (1e-5 relative)."""
     fc = mods["fused_composite"]
     cfg, data = trainer_mod._bench_workload(SMALL, "bfloat16")               # build_trainer()'s workload
     om = dataclasses.replace(cfg.object_model, use_pallas_composite=True, stepsize=LONG_RAY_STEPSIZE)
     tr = trainer_mod.JointTrainer(dataclasses.replace(cfg, object_model=om), data, device=DEVICE)
-    if not tr._mask_k > COMPOSITE_TILE:
-        raise AssertionError(f"the long-ray step's K {tr._mask_k} does not pass the tile {COMPOSITE_TILE}")
+    if not tr._mask_k > COMPOSITE_TILE or (not SMALL and tr._mask_k != LONG_RAY_K):
+        raise AssertionError(f"the long-ray step's K {tr._mask_k}: expected {LONG_RAY_K}, past the tile {COMPOSITE_TILE}")
     tr.global_step = 1
     tr.step()                                          # warm
     flags = tr.phase_flags(tr.global_step)
@@ -1287,11 +1305,11 @@ def drive_long_rays(mods: dict, trainer_mod) -> dict:
                 "composite_bwd_chunked": fc.bwd_chunked_launches - before[1]}
     rel = abs(float(m["loss_total"]) - plain) / abs(plain)
     print(f"long-ray early step (stepsize {om.stepsize}: {om.n_samples} samples, chord-bound K {tr._mask_k}, "
-          f"{tr.cfg.object_train.N_rand} object rays): {ms:.2f} ms, loss {float(m['loss_total']):.6f}, unfused "
+          f"{tr.cfg.object_train.N_rand} object rays): eager step {ms:.2f} ms, loss {float(m['loss_total']):.6f}, unfused "
           f"{plain:.6f} (rel diff {rel:.2e}, tolerance 1e-5), launches {launched}")
     if not (rel <= 1e-5 and launched == {"composite_fwd_chunked": 1, "composite_bwd_chunked": 1}
             and all(math.isfinite(float(v)) for v in m.values())):
-        raise AssertionError("the long-ray step did not run through the chunked composite kernels, or disagrees")
+        raise AssertionError("the long-ray step did not run through the composite's ray kernels, or disagrees")
     return {"long_rays": launched}
 
 

@@ -10,9 +10,12 @@ reference instead). A block stages R rays of every array into shared memory
 of k samples; `launch_plan` below chooses R, k and the copy path of each
 array, and `transmittance_in_runs` is the kernel's order of multiplication
 in plain PyTorch. A ray longer than the tile (S > TILE, any S as on the TPU)
-goes to the chunked kernels: a warp walks it in chunks of TILE samples,
-carrying T from one chunk to the next (the backward walks the chunks back,
-carrying its suffix sum).
+goes to the ray kernels: a block of W warps takes the ray, each lane a run
+of RUN_IN_REGISTERS samples, and scans it with a block-wide scan, the whole
+ray staged at once up to STAGE samples and in stages of STAGE / 2 past it (T
+carried from one stage to the next; the backward runs the stages back,
+carrying its suffix sum); blocks are persistent and stage the next ray while
+computing one.
 
 Function, per ray of S samples (`fused_alpha_composite_plain` below is the same
 in plain PyTorch, built from `compositing.alpha2weights`): NeuS alpha from
@@ -42,10 +45,12 @@ import torch
 from . import _build, compositing
 from ._build import check as _check, ptr as _ptr
 
-# the kernels' launch geometry (csrc/fused_composite.cu: TILE, RUN_REGS, SMEM_LIMIT)
-TILE = 1024               # samples a block stages at most: rays per block x S, or a chunk of a longer ray
+# the kernels' launch geometry (csrc/fused_composite.cu: TILE, RUN_REGS, SMEM_LIMIT, STAGE, RAY_SMEM_LIMIT)
+TILE = 1024               # samples a tiled block stages at most: rays per block x S
 RUN_IN_REGISTERS = 5      # runs up to this long keep their per-sample values in registers
 SMEM_LIMIT = 48 * 1024    # dynamic shared memory a block takes without an attribute
+STAGE = 2560              # past the tile: samples a ray kernel's block stages at once, at most
+RAY_SMEM_LIMIT = 225 * 1024   # a ray kernel's dynamic shared memory (its attribute), at most
 BULK_ALIGN = 16           # a bulk copy's addresses and size are multiples of this
 # the arrays of each kernel in the order of its launch function's pointers (bit j
 # of a bulk mask is array j), with their bytes per sample
@@ -53,7 +58,7 @@ FWD_ARRAYS = (("sdf", 4), ("cos_term", 4), ("mask", 1), ("rgb", 12), ("step", 4)
 BWD_ARRAYS = (("sdf", 4), ("cos_term", 4), ("mask", 1), ("rgb", 12), ("step", 4), ("ct_w", 4),
               ("d_sdf", 4), ("d_cos", 4), ("d_rgb", 12), ("d_step", 4))
 
-# launch counts of the kernels (the tiled ones, and the chunked ones for S > TILE); the plain
+# launch counts of the kernels (the tiled ones, and the ray kernels for S > TILE); the plain
 # version does not count
 fwd_launches = 0
 bwd_launches = 0
@@ -63,17 +68,32 @@ bwd_chunked_launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    rays_per_block: int   # R: a warp per ray
+    rays_per_block: int   # R: a warp per ray (past the tile a block per ray: 1)
     run: int              # k: the samples of a lane's run, odd (the lanes' runs lie on distinct banks)
     blocks: int
-    smem_bytes: int       # dynamic shared memory of the block's tile
+    smem_bytes: int       # dynamic shared memory of the block's tile (past it: its stage buffers)
     bulk_full: int        # bit j: array j moves by one bulk copy in a full block
     bulk_last: int        # the same for the last block (ragged when R does not divide N)
+    warps: int = 0        # past the tile: the W warps of a ray's block (0: the tiled kernels)
+    stage: int = 0        # past the tile: the samples a block stages at once
 
 
 def run_length(S: int) -> int:
     """k = ceil(S / 32) made odd: lane l owns samples [l k, l k + k)."""
     return -(-S // 32) | 1
+
+
+def _tile_bytes(n: int, regions: int) -> int:
+    """Shared bytes of n samples: `regions` float regions of n rounded up to 4, then the byte mask."""
+    return 4 * (-(-n // 4) * 4) * regions + -(-n // 16) * 16
+
+
+def ray_geometry(S: int) -> tuple[int, int, int]:
+    """(stage, W, stages) of the ray kernels for S > TILE: the whole ray in one
+    stage up to STAGE samples, else stages of STAGE // 2; W warps whose lanes'
+    runs of RUN_IN_REGISTERS samples cover a stage."""
+    stage = S if S <= STAGE else STAGE // 2
+    return stage, -(-stage // (32 * RUN_IN_REGISTERS)), -(-S // stage)
 
 
 def launch_plan(N: int, S: int, ptrs: dict, backward: bool) -> LaunchPlan:
@@ -82,19 +102,29 @@ def launch_plan(N: int, S: int, ptrs: dict, backward: bool) -> LaunchPlan:
     at N = 1024, two per SM of 132). `ptrs` maps each name of FWD_ARRAYS or
     BWD_ARRAYS to its data_ptr (None for an absent cotangent); an array takes
     the bulk path in a block whose span of it starts and ends on 16 bytes.
-    Past the tile (S > TILE) the chunked kernels take one ray a block in
-    chunks of TILE samples, runs of run_length(TILE), and choose each chunk's
-    copy path themselves (no bulk bits here)."""
-    chunk = min(S, TILE)
-    R = next(r for r in (4, 2, 1) if r * chunk <= TILE)
-    k = run_length(chunk)
-    arrays = BWD_ARRAYS if backward else FWD_ARRAYS
-    n = R * chunk
-    regions = (7 if k <= RUN_IN_REGISTERS else 8) if backward else 6   # float regions of the tile
-    smem = 4 * (-(-n // 4) * 4) * regions + -(-n // 16) * 16          # ... then the byte mask
-    blocks = -(-N // R)
+    Past the tile (S > TILE) the ray kernels take a block of W warps per ray
+    (`ray_geometry`), runs of RUN_IN_REGISTERS, the shared bytes of two stage
+    buffers of the forward's tile layout (the next stage's copies land in one
+    while the other is computed; the backward reads its weight cotangents
+    straight into registers) and, backward past one stage, a float per stage;
+    `blocks` is the number of rays, which the launch function spreads over as
+    many persistent blocks as the SMs hold. The kernels choose each stage's
+    copy path themselves (no bulk bits here). A plan past RAY_SMEM_LIMIT (S
+    past ~5e7) raises."""
     if S > TILE:
-        return LaunchPlan(R, k, blocks, smem, 0, 0)
+        stage, W, stages = ray_geometry(S)
+        smem = 2 * _tile_bytes(stage, 6)
+        if backward and stages > 1:
+            smem += -(-stages // 4) * 16                                  # T at each stage's start
+        if smem > RAY_SMEM_LIMIT:
+            raise ValueError(f"fused composite: S={S} takes {smem} B of shared memory, past {RAY_SMEM_LIMIT}")
+        return LaunchPlan(1, RUN_IN_REGISTERS, N, smem, 0, 0, W, stage)
+    arrays = BWD_ARRAYS if backward else FWD_ARRAYS
+    R = next(r for r in (4, 2, 1) if r * S <= TILE)
+    k = run_length(S)
+    regions = (7 if k <= RUN_IN_REGISTERS else 8) if backward else 6   # float regions of the tile
+    smem = _tile_bytes(R * S, regions)                                 # ... then the byte mask
+    blocks = -(-N // R)
     last = N - (blocks - 1) * R
 
     def bulk(first_ray: int, rays: int) -> int:
@@ -107,37 +137,53 @@ def launch_plan(N: int, S: int, ptrs: dict, backward: bool) -> LaunchPlan:
     return LaunchPlan(R, k, blocks, smem, bulk(0, R), bulk((blocks - 1) * R, last))
 
 
+def _lane_scan(p: torch.Tensor) -> torch.Tensor:
+    """The inclusive Hillis-Steele product scan over the last dim of 32 lanes
+    (`exclusive_product` before its shift): lane l times lane l - off, off =
+    1, 2, 4, 8, 16, every lane at once."""
+    for off in (1, 2, 4, 8, 16):
+        p = torch.cat([p[..., :off], p[..., off:] * p[..., :-off]], dim=-1)
+    return p
+
+
 def transmittance_in_runs(om: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(T [N, S], alphainv [N]) from o = clamp(1 - alpha) [N, S] in the
     kernels' order of multiplication: lane l's run of k samples multiplied in
     order, a 32-lane Hillis-Steele product scan over the run products (lane l
     times lane l - off, off = 1, 2, 4, 8, 16), T inside a run serially from
-    the exclusive scan value; alphainv is the scan's total. Past the tile the
-    ray goes in chunks of TILE samples, runs of run_length(TILE): a run starts
-    at carry x its exclusive scan value, and carry (1 at the ray's start; 1 x
-    a value is that value, so one chunk is the scan above) takes the chunk's
-    total at each chunk's end; alphainv is the last carry."""
+    the exclusive scan value; alphainv is the scan's total. Past the tile, the
+    ray kernels' order: the ray in the stages of `ray_geometry(S)`; in each,
+    thread t = 32 w + l of the block owns the run [t k, t k + k), k =
+    RUN_IN_REGISTERS, each warp scans its lanes' run products as above, the
+    W warp totals (lane 31's inclusive values) go through the same 32-lane
+    scan (1 past W), and warp w's runs start at (carry x the totals' exclusive
+    value at w) x the lane's exclusive value; carry (1 at the ray's start)
+    takes carry x the totals' inclusive value at lane 31 at the stage's end,
+    and alphainv is the last carry. Within the tile that is the one warp's
+    scan (1 x a value is that value)."""
     N, S = om.shape
-    chunk = min(S, TILE)
-    k = run_length(chunk)
+    if S <= TILE:
+        stage, W, k = S, 1, run_length(S)
+    else:
+        (stage, W, _), k = ray_geometry(S), RUN_IN_REGISTERS
     carry = torch.ones_like(om[:, 0])
     parts = []
-    for c0 in range(0, S, chunk):
-        n = min(chunk, S - c0)
-        runs = torch.nn.functional.pad(om[:, c0:c0 + n], (0, 32 * k - n), value=1.0).reshape(N, 32, k)
+    for s0 in range(0, S, stage):
+        n = min(stage, S - s0)
+        runs = torch.nn.functional.pad(om[:, s0:s0 + n], (0, W * 32 * k - n), value=1.0).reshape(N, W, 32, k)
         prod = torch.ones_like(runs[..., 0])
         for i in range(k):
             prod = prod * runs[..., i]
-        p = prod
-        for off in (1, 2, 4, 8, 16):
-            p = torch.cat([p[:, :off], p[:, off:] * p[:, :-off]], dim=1)
-        T = carry[:, None] * torch.cat([torch.ones_like(p[:, :1]), p[:, :-1]], dim=1)
+        p = _lane_scan(prod)                                           # [N, W, 32] inclusive
+        w = _lane_scan(torch.nn.functional.pad(p[..., 31], (0, 32 - W), value=1.0))   # [N, 32] over warp totals
+        excl = lambda x: torch.cat([torch.ones_like(x[..., :1]), x[..., :-1]], dim=-1)  # noqa: E731
+        T = (carry[:, None] * excl(w)[:, :W])[..., None] * excl(p)
+        carry = carry * w[:, 31]
         Ts = []
         for i in range(k):
             Ts.append(T)
             T = T * runs[..., i]
-        parts.append(torch.stack(Ts, dim=-1).reshape(N, 32 * k)[:, :n])
-        carry = carry * p[:, 31]
+        parts.append(torch.stack(Ts, dim=-1).reshape(N, W * 32 * k)[:, :n])
     return torch.cat(parts, dim=1), carry
 
 
@@ -167,7 +213,21 @@ def composite_bwd_plain(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, 
 @functools.lru_cache(maxsize=None)
 def _lib():
     return _build.declare(_build.load("fused_composite"), composite_fwd="pppppp" "iiiiiii" "ppppp",
-                          composite_bwd="pppppppppp" "iiiiiii" "pppppp", division_check="pppip")
+                          composite_bwd="pppppppppp" "iiiiiii" "pppppp", composite_fwd_ray="pppppp" "iiiiii" "ppppp",
+                          composite_bwd_ray="pppppppppp" "iiiiii" "pppppp", division_check="pppip")
+
+
+def _launch(lib, backward: bool, N: int, S: int, plan: LaunchPlan, inputs: list, outputs: list, stream) -> int:
+    """The launch function of `plan` on data pointers (`inputs`: the arrays and
+    scalars, then the backward's four cotangents; `outputs`: the outputs, then
+    the backward's partials): the tiled kernels within the tile, the ray
+    kernels past it. Returns the CUDA error code."""
+    if S > TILE:
+        fn = lib.composite_bwd_ray if backward else lib.composite_fwd_ray
+        return fn(*inputs, N, S, plan.warps, plan.run, plan.stage, plan.smem_bytes, *outputs, stream)
+    fn = lib.composite_bwd if backward else lib.composite_fwd
+    return fn(*inputs, N, S, plan.rays_per_block, plan.run, plan.bulk_full, plan.bulk_last, plan.smem_bytes,
+              *outputs, stream)
 
 
 def _check_inputs(sdf, cos_term, mask, rgb, step, scalars, **more) -> tuple:
@@ -205,10 +265,8 @@ def composite_fwd(sdf, cos_term, mask, rgb, step, scalars):
     plan = launch_plan(N, S, dict(sdf=_ptr(sdf), cos_term=_ptr(cos_term), mask=_ptr(mask), rgb=_ptr(rgb),
                                   step=_ptr(step), w=_ptr(w)), backward=False)
     stream = torch.cuda.current_stream(sdf.device).cuda_stream
-    _check(lib, lib.composite_fwd(_ptr(sdf), _ptr(cos_term), _ptr(mask), _ptr(rgb), _ptr(step), _ptr(scalars),
-                                  N, S, plan.rays_per_block, plan.run, plan.bulk_full, plan.bulk_last,
-                                  plan.smem_bytes, _ptr(w), _ptr(ainv), _ptr(rgbm), _ptr(nstep), stream),
-           "composite_fwd")
+    _check(lib, _launch(lib, False, N, S, plan, [_ptr(t) for t in (sdf, cos_term, mask, rgb, step, scalars)],
+                        [_ptr(t) for t in (w, ainv, rgbm, nstep)], stream), "composite_fwd")
     if S > TILE:
         fwd_chunked_launches += 1
     else:
@@ -238,11 +296,9 @@ def composite_bwd(sdf, cos_term, mask, rgb, step, scalars, ct_w, ct_ainv, ct_rgb
                                   step=_ptr(step), ct_w=_ptr(ct_w), d_sdf=_ptr(d_sdf), d_cos=_ptr(d_cos),
                                   d_rgb=_ptr(d_rgb), d_step=_ptr(d_step)), backward=True)
     stream = torch.cuda.current_stream(sdf.device).cuda_stream
-    _check(lib, lib.composite_bwd(_ptr(sdf), _ptr(cos_term), _ptr(mask), _ptr(rgb), _ptr(step), _ptr(scalars),
-                                  _ptr(ct_w), _ptr(ct_ainv), _ptr(ct_rgbm), _ptr(ct_nstep), N, S,
-                                  plan.rays_per_block, plan.run, plan.bulk_full, plan.bulk_last, plan.smem_bytes,
-                                  _ptr(d_sdf), _ptr(d_cos), _ptr(d_rgb), _ptr(d_step), _ptr(partials), stream),
-           "composite_bwd")
+    _check(lib, _launch(lib, True, N, S, plan, [_ptr(t) for t in (sdf, cos_term, mask, rgb, step, scalars, ct_w,
+                                                                  ct_ainv, ct_rgbm, ct_nstep)],
+                        [_ptr(t) for t in (d_sdf, d_cos, d_rgb, d_step, partials)], stream), "composite_bwd")
     if S > TILE:
         bwd_chunked_launches += 1
     else:

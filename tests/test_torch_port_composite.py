@@ -68,7 +68,7 @@ def _case(kind: str, N: int, S: int, seed: int):
         mask[N // 8: N // 4, S // 2:] = False        # rays that leave the box early
     elif kind == "long":
         # rays past the tile that reach the surface between samples ~900 and
-        # ~1900: the transmittance crosses the chunks' boundary at 1024
+        # ~1900: the transmittance crosses the tile's 1024 samples
         cos = f32(-rng.uniform(size=(N, S)))
         sdf = f32(rng.uniform(450, 950, (N, 1)) * DIST + np.cumsum(cos * DIST, axis=1)
                   + rng.uniform(-0.1, 0.1, (N, S)) * DIST)
@@ -104,7 +104,8 @@ def _away_from_gate(sdf, cos, mask, inv_s, dist, rel=1e-5):
 
 
 CASES = [("random", 64, 40), ("march", 96, 76), ("march", 40, 113), ("edges", 64, 24), ("march", 33, 7),
-         ("long", 12, 1500), ("long", 8, 2100)]   # the last two past the tile: the chunked kernels' rays
+         ("long", 12, 1500), ("long", 8, 2100),   # past the tile: the ray kernels' rays
+         ("long", 8, 1312)]                       # ... at the long-ray early step's chord-bound K
 
 
 def _product_tol(S: int, tol: float) -> float:
@@ -274,7 +275,7 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="outside"):
         TFC._check_inputs(*(t[:, :0].contiguous() for t in (sdf, cos, mask, rgb, step)), scalars)
     assert TFC._check_inputs(sdf, cos, mask, rgb, step, scalars) == (8, 5)
-    # any S from 1 up: past the tile the chunked kernels take the ray
+    # any S from 1 up: past the tile the ray kernels take the ray
     long = (torch.tensor(a) for a in _case("march", 3, 1500, seed=0))
     assert TFC._check_inputs(*long, scalars) == (3, 1500)
 
@@ -325,10 +326,28 @@ def test_launch_plan_at_the_main_paths_shapes(N, S, R, k, full_off, last_off, ba
     assert plan.bulk_last == _bits(backward, *(x for x in everything if x not in last_off))
 
 
+def _tiled_plan(N, S, backward):
+    """The tiled kernels' plan as it stood before the ray kernels (rays R of
+    (4, 2, 1) filling the tile, k = ceil(S / 32) made odd, the tile's bytes),
+    for arrays on the 16-byte grid."""
+    R = next(r for r in (4, 2, 1) if r * S <= 1024)
+    k = -(-S // 32) | 1
+    regions = (7 if k <= 5 else 8) if backward else 6
+    n = R * S
+    blocks = -(-N // R)
+    last = N - (blocks - 1) * R
+    arrays = TFC.BWD_ARRAYS if backward else TFC.FWD_ARRAYS
+    full = sum(1 << j for j, (_, e) in enumerate(arrays) if R * S * e % 16 == 0)
+    last_bits = sum(1 << j for j, (_, e) in enumerate(arrays)
+                    if (blocks - 1) * R * S * e % 16 == 0 and last * S * e % 16 == 0)
+    return TFC.LaunchPlan(R, k, blocks, 4 * (-(-n // 4) * 4) * regions + -(-n // 16) * 16, full, last_bits)
+
+
 def test_launch_plan_for_every_sample_count():
     """For every S the kernels take: the block's tile fits, the odd runs of the
     32 lanes cover the ray, and runs past RUN_IN_REGISTERS add the backward's
-    T region."""
+    T region; the plan is the tiled kernels' plan as it stood before the ray
+    kernels, field for field, for every S up to the tile."""
     for S in range(1, TFC.TILE + 1):
         for backward in (False, True):
             plan = _plan(1024, S, backward)
@@ -336,50 +355,144 @@ def test_launch_plan_for_every_sample_count():
             assert R * S <= TFC.TILE and plan.smem_bytes <= TFC.SMEM_LIMIT, S
             assert k % 2 == 1 and 32 * k >= S and -(-S // k) <= 32 and k <= 33, S
             assert (k <= TFC.RUN_IN_REGISTERS) == (S <= 160), S
+            for N in (1024, 1023, 37):
+                assert _plan(N, S, backward) == _tiled_plan(N, S, backward), (N, S, backward)
 
 
 @pytest.mark.parametrize("backward", [False, True])
-@pytest.mark.parametrize("N,S", [(1024, 1024), (1024, 1025), (37, 4096)])
-def test_launch_plan_at_and_past_the_tile(N, S, backward):
+@pytest.mark.parametrize("N,S,W,stage,stages", [
+    (1024, 1024, 0, 0, 0),         # the tile's last S: one warp a block, runs of 33
+    (1024, 1025, 7, 1025, 1),      # past it a block of W warps per ray, the whole ray one stage
+    (1024, 1312, 9, 1312, 1),      # the long-ray early step's K
+    (1024, 2048, 13, 2048, 1),
+    (5, 2560, 16, 2560, 1),        # STAGE: the most one stage holds
+    (7, 2561, 8, 1280, 3),         # past it stages of STAGE / 2
+    (37, 4096, 8, 1280, 4),
+    (4, 8192, 8, 1280, 7),
+])
+def test_launch_plan_at_and_past_the_tile(N, S, W, stage, stages, backward):
     """S = 1024 fills the tile with one ray: one warp a block, runs of 33,
-    bulk copies as the spans allow. Past it the chunked kernels take one ray
-    a block over chunks of TILE samples with the same runs and tile, and
-    choose each chunk's copies themselves: no bulk bits."""
+    bulk copies as the spans allow. Past it the ray kernels take a block of W
+    warps per ray, runs of RUN_IN_REGISTERS that cover a stage, the whole ray
+    one stage up to STAGE samples and stages of STAGE / 2 past it; their
+    shared memory is two stage buffers (the next stage lands in one while the
+    other is computed) of 25 B a sample, forward and backward alike (each
+    float region rounded to 16 bytes; the backward's weight cotangents go
+    straight to registers), plus, backward past one stage, a float per stage;
+    past 48 KB it takes the kernels' attribute (RAY_SMEM_LIMIT). They choose
+    each stage's copies themselves: no bulk bits."""
     plan = _plan(N, S, backward)
-    n = TFC.TILE
-    regions = 8 if backward else 6
-    assert (plan.rays_per_block, plan.run, plan.blocks) == (1, 33, N)
-    assert plan.smem_bytes == 4 * n * regions + n <= TFC.SMEM_LIMIT
     arrays = TFC.BWD_ARRAYS if backward else TFC.FWD_ARRAYS
     if S <= TFC.TILE:
+        n = TFC.TILE
+        regions = 8 if backward else 6
+        assert (plan.rays_per_block, plan.run, plan.blocks, plan.warps, plan.stage) == (1, 33, N, 0, 0)
+        assert plan.smem_bytes == 4 * n * regions + n <= TFC.SMEM_LIMIT
         assert plan.bulk_full == plan.bulk_last == _bits(backward, *(name for name, _ in arrays))
-    else:
-        assert plan.bulk_full == plan.bulk_last == 0
+        return
+    assert (plan.rays_per_block, plan.run, plan.blocks, plan.warps, plan.stage) == (1, 5, N, W, stage)
+    assert TFC.ray_geometry(S) == (stage, W, stages)
+    assert plan.run <= TFC.RUN_IN_REGISTERS and plan.run % 2 == 1
+    assert 32 * (W - 1) * plan.run < stage <= 32 * W * plan.run and W <= TFC.STAGE // (32 * plan.run)
+    stage_bytes = 24 * (-(-stage // 4) * 4) + -(-stage // 16) * 16
+    carries = -(-stages // 4) * 16 if backward and stages > 1 else 0
+    assert plan.smem_bytes == 2 * stage_bytes + carries <= TFC.RAY_SMEM_LIMIT
+    if S == 2048:
+        assert plan.smem_bytes == 2 * 51200      # the whole ray twice, ~100 KB: past 48 KB, by the attribute
+    assert plan.bulk_full == plan.bulk_last == 0
 
 
-@pytest.mark.parametrize("S", [1024, 1025, 4096])
+def test_ray_plan_for_sample_counts_past_the_tile():
+    """For S past the tile up to 10^5 (every S to 3000, then a stride) and at
+    the largest S a plan takes: the runs of the W x 32 lanes cover each stage
+    with k <= RUN_IN_REGISTERS, W <= 16, stages of S up to STAGE and of
+    STAGE / 2 past it, the shared memory within the attribute's limit and, up
+    to S = 2048, small enough for two blocks an SM (228 KB an SM, 1 KB of it
+    reserved a block; at the long-ray step's 1312, three); past the largest
+    S, the plan raises."""
+    for S in [*range(TFC.TILE + 1, 3001), *range(3001, 100_001, 997)]:
+        for backward in (False, True):
+            plan = _plan(1024, S, backward)
+            W, k, stage = plan.warps, plan.run, plan.stage
+            assert k == TFC.RUN_IN_REGISTERS and 1 <= W <= 16 and 32 * W * k >= stage, S
+            assert stage == (S if S <= TFC.STAGE else TFC.STAGE // 2), S
+            assert plan.smem_bytes <= TFC.RAY_SMEM_LIMIT, S
+            blocks_per_sm = 228 * 1024 // (plan.smem_bytes + 1024 + 1024)   # dynamic, static, reserved
+            if S <= 2048:
+                assert blocks_per_sm >= (3 if S <= 1312 else 2), (S, backward, blocks_per_sm)
+    largest = (TFC.RAY_SMEM_LIMIT - 2 * 25 * 1280) // 4 * 1280
+    assert _plan(1, largest, True).smem_bytes <= TFC.RAY_SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan(1, largest + 4 * 1280 * 4, True)
+
+
+def _kernel_order(om: np.ndarray, stage: int, W: int, k: int) -> tuple[np.ndarray, np.float32]:
+    """One ray's (T, alphainv) walked scalar by scalar in float32 as a block of
+    W warps computes it: per stage of `stage` samples, thread t = 32 w + l
+    multiplies its run [t k, t k + k) in order; each warp's Hillis-Steele scan
+    of its lanes' products (every lane at once: lane l times lane l - off, off
+    = 1, 2, 4, 8, 16); the same scan over the W warp totals (lane v warp v's,
+    1 past W); a run starts at (the stage's carry x the totals' exclusive
+    value at its warp) x its lane's exclusive value, T inside a run serially;
+    the carry after the stage is carry x the totals' product (lane 31)."""
+    f = np.float32
+
+    def scan(v):                       # inclusive, 32 lanes
+        for off in (1, 2, 4, 8, 16):
+            v = [v[lane] if lane < off else f(v[lane] * v[lane - off]) for lane in range(32)]
+        return v
+
+    S = om.shape[0]
+    T = np.empty(S, np.float32)
+    carry = f(1.0)
+    for s0 in range(0, S, stage):
+        n = min(stage, S - s0)
+        prods = []
+        for t in range(32 * W):
+            p = f(1.0)
+            for i in range(t * k, min(t * k + k, n)):
+                p = f(p * om[s0 + i])
+            prods.append(p)
+        lanes = [scan(prods[32 * w:32 * w + 32]) for w in range(W)]
+        warps = scan([lanes[w][31] for w in range(W)] + [f(1.0)] * (32 - W))
+        for w in range(W):
+            pre = f(carry * ([f(1.0)] + warps)[w])
+            for lane in range(32):
+                t = 32 * w + lane
+                Tr = f(pre * ([f(1.0)] + lanes[w])[lane])
+                for i in range(t * k, min(t * k + k, n)):
+                    T[s0 + i] = Tr
+                    Tr = f(Tr * om[s0 + i])
+        carry = f(carry * warps[31])
+    return T, carry
+
+
+@pytest.mark.parametrize("S", [1024, 1025, 4096, 1312, 2048])
 def test_transmittance_in_runs_carries_T_across_chunks(S):
-    """The chunked order of multiplication, bit for bit: chunk c of TILE
-    samples is scanned as a ray of its own (runs of 33), each run starts at
-    carry x (that scan's value at the run's start), T inside a run is the
-    serial product, and the carry takes each chunk's total in order;
-    alphainv is the last carry."""
+    """The kernels' order of multiplication, bit for bit, against a scalar
+    float32 walk of it (`_kernel_order`): within the tile one warp, runs of
+    33 (S = 1024); past it the ray kernels' blocks of W warps, runs of 5, the
+    warps' totals scanned as the lanes' are and multiplied onto the stage's
+    carry, the whole ray one stage up to STAGE (1025: 7 warps; 1312: 9; 2048:
+    13) and stages of STAGE / 2 with T carried across them past it (4096:
+    four stages of 8 warps); alphainv is the last carry. T stays within 1e-5
+    of the cumprod."""
     rng = np.random.default_rng(S)
     om = torch.tensor(np.clip(1.0 - rng.uniform(0, 0.02, (5, S)), 1e-10, 1.0).astype(np.float32))
     T, alphainv = TFC.transmittance_in_runs(om)
-    assert TFC.run_length(min(S, TFC.TILE)) == 33 and T.shape == (5, S)
-    carry = torch.ones(5)
-    for c0 in range(0, S, TFC.TILE):
-        part = om[:, c0:c0 + TFC.TILE]
-        T_alone, total = TFC.transmittance_in_runs(part)
-        for start in range(0, part.shape[1], 33):
-            assert torch.equal(T[:, c0 + start], carry * T_alone[:, start])
-            for i in range(start, min(start + 33, part.shape[1]) - 1):
-                assert torch.equal(T[:, c0 + i + 1], T[:, c0 + i] * part[:, i])
-        carry = carry * total
-    assert torch.equal(alphainv, carry)
+    assert T.shape == (5, S)
     if S <= TFC.TILE:
-        assert S == TFC.TILE                      # one chunk: carry 1, the one-chunk scan itself
+        stage, W, k = S, 1, TFC.run_length(S)
+        assert k == 33
+    else:
+        (stage, W, stages), k = TFC.ray_geometry(S), TFC.RUN_IN_REGISTERS
+        assert (stages > 1) == (S > TFC.STAGE) and (W, k) == ((8, 5) if S > TFC.STAGE else (-(-S // 160), 5))
+    for r in range(5):
+        T_ref, ainv_ref = _kernel_order(om[r].numpy(), stage, W, k)
+        np.testing.assert_array_equal(T[r].numpy(), T_ref)
+        assert alphainv[r].numpy() == ainv_ref
+        for s0 in range(stage, S, stage):          # each stage starts at the carry of the stages before it
+            assert T[r, s0].numpy() == _kernel_order(om[r, :s0].numpy(), stage, W, k)[1]
     T_cum = torch.cumprod(torch.cat([torch.ones_like(om[:, :1]), om[:, :-1]], dim=1), dim=1)
     np.testing.assert_allclose(T.numpy(), T_cum.numpy(), rtol=1e-5)
 

@@ -20,6 +20,7 @@ version's largest + 1e-6; rays with a sample whose transmittance lies within
 1e-4 (relative) of the early-termination threshold 1e-3 are left out, since
 the gate is a step and the two products round differently.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -709,17 +710,22 @@ def _bulk_bits(names, arrays):
     (1021, 113, 0),           # the same, its spans off the 16-byte grid
     (1024, 76, 1),            # every input one element past a 16-byte boundary
     (64, 1024, 0),            # one ray fills the tile
-    (64, 1025, 0), (16, 2048, 0), (8, 4096, 0),   # past the tile: the chunked kernels
-    (33, 1027, 0),            # rays off the 16-byte grid: each chunk's copies chosen apart
+    (64, 1025, 0), (16, 2048, 0),   # past the tile: the ray kernels, the whole ray one stage
+    (64, 1312, 0),            # the long-ray early step's K
+    (5, 2560, 0),             # the most one stage holds
+    (3, 2561, 0), (8, 4096, 0), (4, 8192, 0),   # past it stages of 1280
+    (33, 1027, 0),            # rays off the 16-byte grid: each stage's copies chosen apart
     (7, 1500, 1),             # ... and every input one element past a 16-byte boundary
+    (5, 4099, 1),             # ... over several stages
 ])
 def test_composite_kernels_match_plain_version(N, S, offset, inv_s):
     _need_card()
     args, cts = _composite_case(N, S, inv_s, 0.0125, seed=N + S)
     chunked = S > fused_composite.TILE
-    if offset and not chunked:
+    if offset:
         args = tuple(_offset_view(t, offset) for t in args[:5]) + args[5:]
         cts = tuple(_offset_view(t, offset) for t in cts)
+    if offset and not chunked:
         # the plan moves no input of the block's span by a bulk copy, every output by one
         plan = fused_composite.launch_plan(N, S, {n: t.data_ptr() for n, t in zip(
             ("sdf", "cos_term", "mask", "rgb", "step", "ct_w"), args[:5] + cts[:1])} | {
@@ -737,7 +743,7 @@ def test_composite_kernels_match_plain_version(N, S, offset, inv_s):
     keep = _away_from_gate(args)
     assert int((~keep).sum()) <= 3
     for o, r in zip(outs, refs):
-        # past the tile the kernel's transmittance (runs, scans, chunk carries) and the plain cumprod round
+        # past the tile the kernel's transmittance (runs, block scans, stage carries) and the plain cumprod round
         # a product of up to S float32 factors in other orders: S x 2^-24 (the bound on that rounding,
         # relative) of the output's largest value (n_step reaches S * dist, 51 at S = 4096)
         tol = max(1e-5, S * 2.0 ** -24 * float(r[keep].abs().max())) if chunked else 1e-5
@@ -770,7 +776,71 @@ def test_composite_bwd_without_cotangents_or_scalar_grads():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,S", [(1024, 76), (37, 1000), (64, 2048)])
+@pytest.mark.parametrize("N,S", [(64, 1312), (8, 8192)])
+def test_ray_kernels_take_each_absent_cotangent(N, S):
+    """Past the tile, one stage and several: each cotangent absent in turn
+    (None: the kernel reads nothing for it) gives what zeros give, bit for
+    bit; `scalar_grads=False` leaves d_scalars out and changes no other
+    gradient."""
+    _need_card()
+    args, cts = _composite_case(N, S, 20.0, 0.0125, seed=6)
+    full = fused_composite.composite_bwd(*args, *cts)
+    for j in range(4):
+        absent = fused_composite.composite_bwd(*args, *(None if i == j else c for i, c in enumerate(cts)))
+        zeros = fused_composite.composite_bwd(*args, *(torch.zeros_like(c) if i == j else c for i, c in enumerate(cts)))
+        for a, b in zip(absent, zeros):
+            assert torch.equal(a, b), j
+    part = fused_composite.composite_bwd(*args, *cts, scalar_grads=False)
+    assert part[4] is None
+    for a, b in zip(full[:4], part[:4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S", [(1024, 2048), (64, 8192)])
+def test_ray_kernels_are_deterministic(N, S):
+    """Two runs on the same inputs give the same outputs, gradients and
+    per-ray partials of d_inv_s and d_dist, bit for bit (no atomics; sums in
+    a fixed order)."""
+    _need_card()
+    args, cts = _composite_case(N, S, 20.0, 0.0125, seed=7)
+    lib, ptr = fused_composite._lib(), fused_composite._ptr
+    plan = fused_composite.launch_plan(N, S, {}, backward=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = []
+    for _ in range(2):
+        outs = fused_composite.composite_fwd(*args)
+        grads = [torch.empty_like(t) for t in (args[0], args[1], args[3], args[4])] + [torch.empty((N, 2), device="cuda")]
+        fused_composite._check(lib, fused_composite._launch(lib, True, N, S, plan, [ptr(t) for t in (*args, *cts)],
+                                                            [ptr(t) for t in grads], stream), "composite_bwd")
+        runs.append([*outs, *grads])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S", [(64, 76), (16, 1000), (64, 1312), (16, 2048), (8, 8192)])
+def test_kernels_follow_transmittance_in_runs(N, S):
+    """The kernels' transmittance is `transmittance_in_runs`, bit for bit: at
+    inv_s = 0 both cdfs are 0.5 exactly and a live sample's alpha is 1e-5 /
+    (0.5 + 1e-5), IEEE's quotient in either, so the kernel and the plain
+    version take the same factors; with the mask leaving out samples at
+    random, the weights and alphainv equal the model's products exactly."""
+    _need_card()
+    args, cts = _composite_case(N, S, 0.0, 0.0125, seed=8)
+    mask = args[2]
+    outs = fused_composite.composite_fwd(*args)
+    alpha = torch.where(mask, torch.tensor(1e-5, device="cuda") / (torch.tensor(0.5, device="cuda") + 1e-5), 0.0)
+    T, alphainv = fused_composite.transmittance_in_runs(torch.clamp(1.0 - alpha, 1e-10, 1.0))
+    assert torch.equal(outs[1], alphainv)
+    assert torch.equal(outs[0], torch.where(T > 1e-3, T * alpha, 0.0))
+    ref = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha[:, :-1]], dim=1), dim=1)
+    assert not torch.equal(T, ref) or S <= 76       # the orders differ: the check above can tell them apart
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S", [(1024, 76), (37, 1000), (64, 2048), (4, 8192)])
 def test_composite_kernels_replay_in_a_cuda_graph(N, S):
     """Forward and backward captured in one CUDA graph: a replay on new
     inputs copied into the captured ones equals the eager calls bit for bit."""
@@ -874,9 +944,18 @@ def test_composite_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="outside"):
         fused_composite.composite_fwd(none, none, none > 0, none[..., None].expand(-1, -1, 3).contiguous(), none,
                                       scalars)
-    big = torch.zeros((1, fused_composite.TILE + 1), device="cuda")   # past the tile: taken, by the chunked kernel
-    out = fused_composite.composite_fwd(big, big, big > 0, big[..., None].expand(-1, -1, 3).contiguous(), big, scalars)
+    big = torch.zeros((1, fused_composite.TILE + 1), device="cuda")   # past the tile: taken, by the ray kernel
+    big_args = (big, big, big > 0, big[..., None].expand(-1, -1, 3).contiguous(), big, scalars)
+    out = fused_composite.composite_fwd(*big_args)
     assert out[0].shape == big.shape
+    # a plan the ray kernels cannot take is refused at the launch, not run
+    lib, ptr, stream = fused_composite._lib(), fused_composite._ptr, torch.cuda.current_stream().cuda_stream
+    plan = fused_composite.launch_plan(1, big.shape[1], {}, backward=False)
+    for bad in (dataclasses.replace(plan, warps=plan.warps + 1), dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16),
+                dataclasses.replace(plan, run=3), dataclasses.replace(plan, stage=plan.stage - 1)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            fused_composite._check(lib, fused_composite._launch(lib, False, 1, big.shape[1], bad, [ptr(t) for t in big_args],
+                                                                [ptr(t) for t in out], stream), "composite_fwd")
     empty = fused_composite.composite_fwd(*(t[:0].contiguous() for t in args[:5]), scalars)
     assert [tuple(t.shape) for t in empty] == [(0, 5), (0,), (0, 3), (0,)]
 
@@ -887,7 +966,7 @@ def test_early_step_with_the_fused_composite_runs_through_its_kernels(stepsize):
     """With `use_pallas_composite=True` every early step launches the
     composite forward and backward once, and its loss equals the unfused
     step's on the same draws (1e-5 relative). At stepsize 0.02 the chord-bound
-    K passes the tile (1308 of 2166 samples at 24^3): the chunked kernels."""
+    K passes the tile (1308 of 2166 samples at 24^3): the ray kernels."""
     _need_card()
     import dataclasses
     cfg, data = _bench_workload(True, "bfloat16")
