@@ -125,6 +125,17 @@ against eager steps and its profile, each instantiation timed at the fine
 render's 393,216 points; then its early step with the fused composite at
 stepsize 0.08 (2101 samples, K 1312 > 1024), through the ray kernels,
 against the unfused step.
+Last, the trunk's activation-checkpoint strides (`drive_trunk_ckpt`;
+`fused_mlp.TRUNK_CKPT`, $POSEPROBE_TRUNK_CKPT): at every trunk instantiation
+(8x256 with pads 64 and 128, 8x128 with both, 8x384, 8x512) and 393,216 and
+100,003 points, strides 0 and 2 against stride 1: the forward's outputs and
+stored layers, the remat kernel's refilled layers and the backward's denc bit
+for bit (dW and db too where they are summed in a fixed order), the remat and
+the backward against their plain versions; the forward, backward, remat, chain
+and dW timed at strides 1, 0, 2 in turns; then `build_trainer()`'s mid step at
+strides 0 and 2 (8x256) and 0 (8x128, 8x512) against stride 1 from one state:
+the loss, the params after the step, launches by kernel (4 remats a step), the
+peak memory, a graph window at each stride against eager steps.
 With `--lookup-points FILE` it also saves the captured lookup points there
 (`torch.save`), for `tools/lookup_times.py`.
 
@@ -1311,6 +1322,265 @@ def drive_long_rays(mods: dict, trainer_mod) -> dict:
             and all(math.isfinite(float(v)) for v in m.values())):
         raise AssertionError("the long-ray step did not run through the composite's ray kernels, or disagrees")
     return {"long_rays": launched}
+
+
+# the trunk instantiations held at every checkpoint stride (label, width, L_3D): the five of
+# `fused_mlp.KERNEL_NAMES` (L_3D 10 pads the encoding to 64, 16 to 128; 8x384 is the wide family's
+# first width) and the wide cell's 8x512
+CKPT_CELLS = (("8x256", 256, 10), ("8x256 pad 128", 256, 16), ("8x128 pad 64", 128, 10), ("8x128", 128, 16),
+              ("8x384", 384, 10), ("8x512", 512, 10))
+CKPT_STRIDES = (0, 2)                   # held against stride 1 (the default)
+CKPT_RECORDS = ("8x256", "8x128", "8x512")   # the cells a mid step below runs: their remat records
+CKPT_STEP_CELLS = (("8x256", {}, (0, 2)), ("8x128", WIDTH_CELLS["narrow"], (0,)),
+                   ("8x512", WIDTH_CELLS["wide"], (0,)))
+
+
+def _layer_macs(cfg) -> list:
+    """Multiply-adds per point of each trunk layer (unpadded), as `_trunk_macs`."""
+    D, H, L = cfg.input_3d_dim, cfg.layers_feat[0], len(cfg.layers_feat)
+    return [((D if l == 0 else H) + (D if l == cfg.skip[0] else 0)) * (H + 1 if l == L - 1 else H) for l in range(L)]
+
+
+def _ckpt_bounds(fused_mlp, cfg, n: int, pad: int, w, b, ckpt: int) -> dict:
+    """The bounds at stride `ckpt` for n points: the remat alone (the layers
+    it computes, and the stored layers read once, every hidden layer written
+    once, the encoding and weights read once) and the whole backward (the
+    backward's products, twice the multiply-adds, plus the remat's, and the
+    backward's inputs and outputs with the stored layers in place of all)."""
+    H, L = cfg.layers_feat[0], len(cfg.layers_feat)
+    macs = _layer_macs(cfg)
+    stored = fused_mlp.stored_layers(L, ckpt)
+    remat_macs = sum(macs[l] for l in range(L - 1) if l not in stored)
+    layer = n * H * 2
+    wb = (w.numel() + b.numel()) * 2
+    remat = _bound(2 * remat_macs * n, n * pad * 2 + wb + (len(stored) + L - 1) * layer)
+    bwd_bytes = (n * pad * 2 + n * H * 2 + n * 2 + n * H * 2 + len(stored) * layer + w.numel() * 2 + n * pad * 2
+                 + (w.numel() + b.numel()) * 4)
+    bwd = _bound(4 * sum(macs) * n + (2 * remat_macs * n if ckpt != 1 else 0), bwd_bytes)
+    return {"remat_bound_ms": remat[0], "remat_bound_by": remat[1], "bwd_bound_ms": bwd[0], "bwd_bound_by": bwd[1]}
+
+
+def check_ckpt_kernels(fused_mlp, scene_nerf, pe) -> tuple[dict, dict]:
+    """Each CKPT_CELLS trunk at FINE_POINTS and RAGGED_POINTS, at strides 0
+    and 2 against stride 1: the forward's feat and density and its stored
+    layers bit for bit; the remat kernel's buffer equal to stride 1's stored
+    layers bit for bit and within REL_TOL of its plain version; the
+    backward's denc bit for bit, db bit for bit at width 128 and dW from
+    width 384 (summed in a fixed order), the rest within 1e-4 relative + 1e-4
+    of the largest (f32 atomics), and the backward within REL_TOL of its
+    plain version on the layers the remat refilled (the plain remat, held
+    apart, may round a value to the other side of a ReLU and so reroute one
+    point's gradient). At FINE_POINTS each stride's forward,
+    backward, remat, chain and dW are timed in turns (1, 0, 2, 2, 0, 1).
+    Returns ({label: times, bounds and errors}, {remat name: kernel record})
+    for the cells of CKPT_RECORDS."""
+    results, records = {}, {}
+    for label, width, l3d in CKPT_CELLS:
+        cfg = scene_nerf.SceneConfig(layers_feat=(width,) * 8, L_3D=l3d)
+        L, skip = len(cfg.layers_feat), cfg.skip[0]
+        mlp = scene_nerf.init_nerf_mlp(torch.Generator().manual_seed(0), cfg)
+        w, b = fused_mlp.pack_params([{k: v.to(DEVICE) for k, v in la.items()} for la in mlp["feat"]], skip)
+        exact = {"denc": True, "dw": width not in fused_mlp.WGMMA_WIDTHS, "db": width == fused_mlp.NARROW_WIDTH}
+        worst = {"remat": 0.0, "bwd": 0.0}
+        for n in (FINE_POINTS, RAGGED_POINTS):
+            g = torch.Generator(device=DEVICE).manual_seed(n)
+            points = torch.rand((n, 3), generator=g, device=DEVICE) * 6.0 - 3.0
+            enc = pe.posenc_scene(points, cfg.L_3D, 1.0, cfg.barf_c2f).to(torch.bfloat16)
+            pad = fused_mlp.in_pad(enc.shape[1])
+            enc = torch.nn.functional.pad(enc, (0, pad - enc.shape[1])).contiguous()
+            feat, dens, full = fused_mlp.trunk_fwd(enc, w, b, L, skip)
+            g_feat = (torch.randn((n, width), generator=g, device=DEVICE) * 1e-3).to(torch.bfloat16)
+            g_dens = (torch.randn(n, generator=g, device=DEVICE) * 1e-3).to(torch.bfloat16)
+            want = fused_mlp.trunk_bwd(enc, g_feat, g_dens, feat, full, w, b, L, skip)
+            stored_acts = {1: full}
+            for ckpt in CKPT_STRIDES:
+                stored = fused_mlp.stored_layers(L, ckpt)
+                f, d, acts = fused_mlp.trunk_fwd(enc, w, b, L, skip, store_acts=stored)
+                remat = fused_mlp.trunk_remat(enc, acts, w, b, L, skip, ckpt)
+                got = fused_mlp.trunk_bwd(enc, g_feat, g_dens, f, acts, w, b, L, skip, ckpt)
+                remat_ref = fused_mlp.trunk_remat_plain(enc, acts, w, b, L, skip, ckpt)
+                bwd_ref = fused_mlp.trunk_bwd_plain(enc, g_feat, g_dens, f, remat, w, b, L, skip)
+                torch.cuda.synchronize()
+                what = f"{label} N={n} stride {ckpt}"
+                if not (torch.equal(f, feat) and torch.equal(d, dens)
+                        and (acts is None if not stored else torch.equal(acts, full[list(stored)]))):
+                    raise AssertionError(f"{what}: the forward's outputs or stored layers differ from stride 1's")
+                if not torch.equal(remat, full):
+                    raise AssertionError(f"{what}: the remat kernel's layers differ from the forward's")
+                for key, o, r in zip(("denc", "dw", "db"), got, want):
+                    if exact[key]:
+                        if not torch.equal(o, r):
+                            raise AssertionError(f"{what}: {key} differs from stride 1's")
+                    else:
+                        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()),
+                                                   msg=lambda m: f"{what}: {key} against stride 1's: {m}")
+                r_abs, r_rel = _max_err([remat], [remat_ref])
+                b_abs, b_rel = _max_err(got, bwd_ref)
+                print(f"trunk {what}: feat, density, stored layers and remat bit-identical to stride 1, denc "
+                      f"bit-identical, dW {'bit-identical' if exact['dw'] else 'within 1e-4'}, db "
+                      f"{'bit-identical' if exact['db'] else 'within 1e-4'}; the remat against its plain version max "
+                      f"abs err {r_abs:.3e} ({r_rel:.3e} of max), the backward against its plain version on the "
+                      f"refilled layers {b_abs:.3e} ({b_rel:.3e} of max), tolerance {REL_TOL} of max")
+                if not (r_rel <= REL_TOL and b_rel <= REL_TOL):
+                    raise AssertionError(f"{what}: the remat or the backward disagrees with its plain version")
+                worst["remat"], worst["bwd"] = max(worst["remat"], r_abs), max(worst["bwd"], b_abs)
+                stored_acts[ckpt] = acts
+                del remat_ref, bwd_ref
+            if n != FINE_POINTS:
+                continue
+            # in turns: each stride's forward, backward and remat; chain and dW on the full layers
+            out = fused_mlp._bwd_outputs(n, w, b, L, pad)
+            buf = torch.empty_like(full)
+            times = {}
+            for ckpt in (1, 0, 2, 2, 0, 1):
+                stored, acts = fused_mlp.stored_layers(L, ckpt), stored_acts[ckpt]
+                t = times.setdefault(ckpt, {"fwd_ms": [], "bwd_ms": [], "remat_ms": [], "chain_ms": [], "dw_ms": []})
+                t["fwd_ms"].append(_time_ms(lambda: fused_mlp.trunk_fwd(enc, w, b, L, skip, store_acts=stored)))
+                t["bwd_ms"].append(_time_ms(lambda: fused_mlp.trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L,
+                                                                        skip, ckpt)))
+                if ckpt != 1:
+                    t["remat_ms"].append(_time_ms(lambda: fused_mlp.trunk_remat(enc, acts, w, b, L, skip, ckpt,
+                                                                                out=buf)))
+                for part in ("chain", "dw"):
+                    t[f"{part}_ms"].append(_time_ms(lambda: fused_mlp._bwd_launch(enc, g_feat, g_dens, feat, full, w,
+                                                                                  out, L, skip, (part,))))
+            plain_ms = _time_ms(lambda: fused_mlp.trunk_remat_plain(enc, None, w, b, L, skip, 0), iters=3, warmup=1)
+            cell = {"name": fused_mlp.kernel_name("remat", width, pad), "pad": pad, "points": n,
+                    "remat_plain_ms": plain_ms, "max_abs_err": worst}
+            for ckpt, t in times.items():
+                cell[f"ckpt{ckpt}"] = ({k: sum(v) / len(v) for k, v in t.items() if v}
+                                       | {"turns": {k: v for k, v in t.items() if v}}
+                                       | _ckpt_bounds(fused_mlp, cfg, n, pad, w, b, ckpt)
+                                       | {"stored_gb": len(fused_mlp.stored_layers(L, ckpt)) * n * width * 2 / 1e9})
+                c = cell[f"ckpt{ckpt}"]
+                print(f"trunk {label} N={n} stride {ckpt}: forward {c['fwd_ms']:.4f} ms, backward {c['bwd_ms']:.4f} ms "
+                      f"(bound {c['bwd_bound_ms']:.4f} ms, {c['bwd_bound_by']}), remat "
+                      + (f"{c['remat_ms']:.4f} ms (bound {c['remat_bound_ms']:.4f} ms, {c['remat_bound_by']})"
+                         if ckpt != 1 else "none")
+                      + f", chain {c['chain_ms']:.4f} ms, dW {c['dw_ms']:.4f} ms; stored layers {c['stored_gb']:.3f} GB")
+            results[label] = cell
+            del out, buf
+        cell = results[label]
+        if label in CKPT_RECORDS:
+            rec = {"name": cell["name"], "route": "cuda",
+                   "source": "poseprobe_tpu_torch/csrc/" + ("fused_trunk.cu" if width in fused_mlp.WGMMA_WIDTHS
+                                                           else "trunk_wide.cu"),
+                   "replaces": "poseprobe_tpu/ops/pallas/fused_mlp.py:284", "launches": 0,
+                   "max_abs_err": worst["remat"], "ms": cell["ckpt0"]["remat_ms"], "plain_ms": cell["remat_plain_ms"],
+                   "bound_ms": cell["ckpt0"]["remat_bound_ms"], "bound_by": cell["ckpt0"]["remat_bound_by"],
+                   "library_ms": None, "ms_ckpt2": cell["ckpt2"]["remat_ms"],
+                   "bound_ms_ckpt2": cell["ckpt2"]["remat_bound_ms"],
+                   "bwd_ms_by_ckpt": {k: cell[f"ckpt{k}"]["bwd_ms"] for k in (1, 0, 2)},
+                   "fwd_ms_by_ckpt": {k: cell[f"ckpt{k}"]["fwd_ms"] for k in (1, 0, 2)}}
+            records[label] = rec
+            print(f"{rec['name']}: kernel {rec['ms']:.4f} ms at stride 0 ({rec['ms_ckpt2']:.4f} at 2), plain "
+                  f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), max abs err "
+                  f"{rec['max_abs_err']:.3e}")
+        del full, feat, stored_acts
+        torch.cuda.empty_cache()
+    print("trunk strides: " + json.dumps(results))
+    return results, records
+
+
+def _mid_step_strides(fused_mlp, tr, label: str, strides: tuple) -> dict:
+    """`tr` at its mid step (18,001): one eager step at stride 1 and at each
+    of `strides` from one state (the draws, the state and the step restored
+    before each), the loss equal to stride 1's and the parameters after the
+    step within REL_TOL (rel L2) of stride 1's, each step's launches by
+    kernel (6 forwards, 4 backwards and, past stride 1, 4 remats) and its
+    peak memory; then a graph window at stride 1 and at each of `strides`
+    against eager steps (`check_superstep`: their step times and peak
+    memory). Returns the launches by phase."""
+    sm = tr.cfg.scene_model
+    H, pad = sm.layers_feat[0], fused_mlp.in_pad(sm.input_3d_dim)
+    names = {k: fused_mlp.kernel_name(k, H, pad) for k in ("fwd", "bwd", "remat")}
+
+    def counts():
+        return {names[k]: fused_mlp.launches[names[k]] for k in names}
+
+    def reset():
+        fused_mlp.launches.update(dict.fromkeys(fused_mlp.launches, 0))
+        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+
+    from poseprobe_tpu_torch.core.tree import tree_leaves
+    tr.global_step = tr.fine_start + 1
+    flags = tr.phase_flags(tr.global_step)
+    if not (flags["fine_on"] and flags["depth_cons_on"]):
+        raise AssertionError(f"{label}: step {tr.global_step} is not the mid phase: {flags}")
+    for _ in range(2):
+        tr.step()
+    torch.cuda.synchronize()
+    start = ([t.clone() for t in tr.state_tensors()], tr.generator.get_state(), tr.global_step)
+    host = _host_state(tr)
+    by_phase, steps = {}, {}
+    for ckpt in (1,) + strides:
+        fused_mlp.TRUNK_CKPT = ckpt
+        tr.generator.set_state(start[1])
+        tr.global_step = start[2]
+        _copy_state(tr, start[0], host, f"{label} stride {ckpt}")
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = tr.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps[ckpt] = {"loss": float(m["loss_total"]), "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches": counts(),
+                       "params": [t.clone() for n in tr.GROUPS for t in tree_leaves(getattr(tr, f"{n}_params"))]}
+        expect = {names["fwd"]: 6, names["bwd"]: 4, names["remat"]: 0 if ckpt == 1 else 4}
+        if steps[ckpt]["launches"] != expect or not math.isfinite(steps[ckpt]["loss"]):
+            raise AssertionError(f"{label} stride {ckpt}: launches {steps[ckpt]['launches']}, expected {expect}, "
+                                 f"loss {steps[ckpt]['loss']}")
+        by_phase[f"{label}_ckpt{ckpt}"] = steps[ckpt]["launches"]
+    for ckpt in strides:
+        a, b = steps[ckpt], steps[1]
+        loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        rel_l2 = max(float((x - y).norm()) / max(float(y.norm()), 1e-30) for x, y in zip(a["params"], b["params"]))
+        print(f"{label} mid step {start[2]} at stride {ckpt}: loss {a['loss']:.6f} (stride 1 {b['loss']:.6f}, rel diff "
+              f"{loss_rel:.2e}, tolerance 1e-6), params after the step rel L2 {rel_l2:.2e} from stride 1's (tolerance "
+              f"{REL_TOL}); eager step {a['ms']:.2f} ms (stride 1 {b['ms']:.2f}); peak memory {a['peak_gib']:.3f} GiB "
+              f"(stride 1 {b['peak_gib']:.3f} GiB); launches {a['launches']}")
+        if not (loss_rel <= 1e-6 and rel_l2 <= REL_TOL):
+            raise AssertionError(f"{label}: the mid step at stride {ckpt} disagrees with stride 1's")
+    for ckpt in (1,) + strides:
+        fused_mlp.TRUNK_CKPT = ckpt
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        graph = check_superstep(tr, f"{label} stride {ckpt}", counts, reset)
+        expect = {k: v * SUPERSTEP for k, v in by_phase[f"{label}_ckpt{ckpt}"].items()}
+        if graph != expect:
+            raise AssertionError(f"{label} stride {ckpt}: the graph window launched {graph}, expected {expect}")
+        by_phase[f"{label}_ckpt{ckpt}_graph"] = graph
+    print(f"{label} mid step peak memory by stride (GiB): "
+          + json.dumps({k: round(v["peak_gib"], 4) for k, v in steps.items()}))
+    return by_phase
+
+
+def drive_trunk_ckpt(mods: dict, scene_nerf, pe, trainer_mod) -> tuple[dict, list]:
+    """The trunk's activation-checkpoint strides (`fused_mlp.TRUNK_CKPT`,
+    $POSEPROBE_TRUNK_CKPT): `check_ckpt_kernels` at every instantiation, then
+    `build_trainer()`'s mid step under each trunk of CKPT_STEP_CELLS (8x256;
+    the narrow and wide cells of `drive_trunk_widths`) at its strides
+    (`_mid_step_strides`). The stride is set back to what it was. Returns
+    (launches by phase, the remat kernels' records)."""
+    fused_mlp = mods["fused_mlp"]
+    saved = fused_mlp.TRUNK_CKPT
+    try:
+        _, records = check_ckpt_kernels(fused_mlp, scene_nerf, pe)
+        by_phase = {}
+        for label, scene, strides in CKPT_STEP_CELLS:
+            cfg, data = trainer_mod._bench_workload(SMALL, "bfloat16")           # build_trainer()'s workload
+            tr = trainer_mod.JointTrainer(
+                dataclasses.replace(cfg, scene_model=dataclasses.replace(cfg.scene_model, **scene)), data,
+                device=DEVICE)
+            by_phase.update(_mid_step_strides(fused_mlp, tr, label, strides))
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        fused_mlp.TRUNK_CKPT = saved
+    return by_phase, [records[k] for k in CKPT_RECORDS]
 
 
 def drive_fit(mods: dict, trainer_mod) -> dict:
@@ -2870,6 +3140,11 @@ def main(argv=None) -> int:
     records += widths_records
     by_phase.update(drive_long_rays({"fused_composite": fused_composite}, trainer_mod))
     widths_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt_counts, ckpt_records = drive_trunk_ckpt({"fused_mlp": fused_mlp}, scene_nerf, pe, trainer_mod)
+    by_phase.update(ckpt_counts)
+    records += ckpt_records
+    ckpt_s = time.perf_counter() - t0
     for rec in records:
         for tag, errs in (("widths", widths_errs), ("preset", preset_errs), ("cli", cli_errs),
                           ("last_paths", last_errs), ("parallel", parallel_errs)):
@@ -2885,7 +3160,7 @@ def main(argv=None) -> int:
                     for label, sets in CAPTURED.items()}, args.lookup_points)
         print(f"lookup points saved to {args.lookup_points}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the widths and long-ray phases "
-          f"{widths_s:.1f} s, the preset phase {preset_s:.1f} s, the cli phase {cli_s:.1f} s, the last paths' phase "
+          f"{widths_s:.1f} s, the checkpoint strides' phase {ckpt_s:.1f} s, the preset phase {preset_s:.1f} s, the cli phase {cli_s:.1f} s, the last paths' phase "
           f"{last_s:.1f} s and the parallel phase {parallel_s:.1f} s of it")
     print(smi)                          # again beside the numbers: the head of a long log may be cut
     print(json.dumps({"kernels": records}))

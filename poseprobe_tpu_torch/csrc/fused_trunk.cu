@@ -1,4 +1,5 @@
-// Fused scene-NeRF trunk for Hopper (sm_90a): forward, backward chain, dW.
+// Fused scene-NeRF trunk for Hopper (sm_90a): forward, backward chain, dW,
+// and the remat of the backward at an activation-checkpoint stride other than 1.
 //
 // Replaces the Pallas TPU kernels `_trunk_fwd_call` and `_trunk_bwd_call` of
 // poseprobe_tpu/ops/pallas/fused_mlp.py. The Python side
@@ -26,6 +27,16 @@
 // activations as wgmma's A operand from registers (the accumulator layout of
 // one layer is the A layout of the next) and sends them out by TMA stores;
 // dW takes both operands from shared memory. Each has its own section below.
+//
+// Checkpoint strides (the reference's `ckpt`, `_stored_layers`): stride 1
+// stores every hidden layer a_0 .. a_{L-2} as [L-1, N, H], 0 none, k >= 2 the
+// layers k-1, 2k-1, ... as [n_stored, N, H] (layer l in slot l / k). Stride 1
+// and "none" run trunk_fwd_kernel; k >= 2 runs trunk_fwd_ckpt_kernel, the
+// same body storing only those layers. At a stride other than 1 the backward
+// first runs trunk_remat_kernel, the same body again over layers 0 .. L-2: a
+// stored layer is loaded and copied, the others recomputed, into a transient
+// [L-1, N, H] that the chain and dW kernels read as they read the stored
+// layers at stride 1 (see the forward's section).
 
 #include <algorithm>
 
@@ -813,22 +824,296 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   if (wtid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");  // feat and acts written
 }
 
+// The kernels of the checkpoint strides other than 1 share `fwd_body<MODE>`,
+// trunk_fwd_kernel's body with these changes (trunk_fwd_kernel, which runs
+// stride 1 and the forward that stores nothing, keeps a text of its own:
+// written as a third mode of this body it compiled to other machine code):
+// * FWD_CKPT (trunk_fwd_ckpt_kernel, stride k >= 2): every layer, feat and
+//   the density; a_l into acts[l / k] for the stored layers l = k-1, 2k-1,
+//   ... < L-1 only;
+// * REMAT (trunk_remat_kernel, the backward at a stride other than 1): layers
+//   0 .. L-2 into the full [L-1, n, H] buffer. A stored layer is loaded, not
+//   computed: its tile comes by TMA from the forward's [n_stored, n, H] into
+//   the staging tile, becomes the next layer's A there (the inverse of the
+//   epilogue's write) and goes out again by the same TMA stores; the producer
+//   streams no weights for it, nor for the last layer. A layer that is not
+//   stored is computed from the one before (or the encoding) as the forward
+//   computes it, so each is bit for bit the forward's. No feat, no density.
+enum { FWD_CKPT = 1, REMAT = 2 };
+
+struct RematMaps {
+  WeightMaps w;
+  CUtensorMap enc;     // as FwdMaps
+  CUtensorMap stored;  // [n_stored, n, H], box 64 x 64 x 1 (loads); not encoded without stored layers
+  CUtensorMap acts;    // [L-1, n, H], box 64 x 64 x 1 (stores)
+};
+
+template <int H, int KIN, int MODE, class Maps>
+__device__ __forceinline__ void fwd_body(const Maps& maps, const bf16* __restrict__ w, const bf16* __restrict__ b,
+                                         float* __restrict__ dens, int n, int L, int skip, int arg) {
+  constexpr int FW_STAGE = Fwd<H, KIN>::STAGE, FW_TILE = Fwd<H, KIN>::TILE, FW_ENC = Fwd<H, KIN>::ENC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = base;
+  unsigned char* stg = ring + FW_RING * FW_STAGE;  // [wg] staging tiles
+  unsigned char* enc_s = stg + 2 * FW_TILE;        // [wg] encoding tiles
+  float* wd_s = reinterpret_cast<float*>(enc_s + 2 * FW_ENC);  // W_last[:, H]
+  uint64_t* full = reinterpret_cast<uint64_t*>(wd_s + H + KIN);
+  uint64_t* empty = full + FW_RING;
+  uint64_t* efull = empty + FW_RING;
+  uint64_t* lfull = efull + 1;  // REMAT: [wg] a stored layer's tile has arrived
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long row0 = (long)blockIdx.x * FW_T;
+  if (tid == 0) {
+    for (int s = 0; s < FW_RING; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);  // every consumer thread arrives
+    }
+    mbar_init(efull, 1);
+    if constexpr (MODE == REMAT) {
+      mbar_init(lfull, 1);
+      mbar_init(lfull + 1, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    // 128 x 40 + 256 x 232 = 384 x 168, the registers the block was launched with
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      const int tiles = n - row0 > 64 ? 2 : 1;  // the second warpgroup's tile only if it has rows
+      mbar_expect_tx(efull, tiles * FW_ENC);
+      for (int h = 0; h < tiles; ++h)
+        for (int kb = 0; kb < KIN / 64; ++kb)
+          tma_load_2d(enc_s + h * FW_ENC + kb * FW_BOX, &maps.enc, 64 * kb, (int)row0 + 64 * h, efull);
+      // stage t: rows y .. y + 64 of a layer, its H / 64 64-column boxes
+      int t = 0, y0 = 0;
+      for (int l = 0; l < L; ++l) {
+        const int K = layer_in(l, skip, H, KIN);
+        const bool last = l == L - 1;
+        if constexpr (MODE == REMAT) {
+          if (last || ckpt_stored(l, arg)) {  // not computed: no weights
+            y0 += K;
+            continue;
+          }
+        }
+        for (int k0 = 0; k0 < K; k0 += 64, ++t) {
+          const int s = t % FW_RING;
+          mbar_wait(empty + s, ((t / FW_RING) & 1) ^ 1);
+          mbar_expect_tx(full + s, FW_STAGE);
+          for (int i = 0; i < H / 64; ++i)
+            tma_load_2d(ring + s * FW_STAGE + i * FW_BOX, last ? &maps.w.last : &maps.w.hidden, 64 * i,
+                        (last ? 0 : y0) + k0, full + s);
+        }
+        y0 += K;
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2, wq = warp & 3, wtid = tid & 127;
+  const int q = lane & 3, g = lane >> 2;
+  const int r_lo = wq * 16 + g, r_hi = r_lo + 8;  // rows of this thread in the WG tile
+  const long wrow0 = row0 + wg * 64;
+  const int wg_rows = (int)max(0L, min(64L, (long)n - wrow0));
+  if constexpr (MODE != REMAT) {
+    const int K_last = layer_in(L - 1, skip, H, KIN);
+    const bf16* w_last = w + w_offset(L - 1, L, skip, H, KIN);
+    for (int k = tid; k < K_last; k += 256) wd_s[k] = __bfloat162float(w_last[(long)k * (H + DENS_PAD) + H]);
+  }
+  named_bar(3, 256);
+
+  const FwdRing rg{smem_u32(ring), full, empty};
+  const uint32_t enc_u = smem_u32(enc_s + wg * FW_ENC);
+  unsigned char* tile = stg + wg * FW_TILE;
+  mbar_wait(efull, 0);
+
+  uint32_t A[H / 4];
+  float acc[H / 2];
+  int t = 0;
+  int loads = 0;  // REMAT: stored tiles loaded so far (lfull's phase)
+  for (int l = 0; l < (MODE == REMAT ? L - 1 : L); ++l) {
+    if constexpr (MODE == REMAT) {
+      if (ckpt_stored(l, arg)) {
+        // the stored tile by TMA into the staging tile (rows past n as zeros), once the last
+        // stores have read it and every thread has read its A from it; A from it, and out again
+        if (wg_rows > 0) {
+          if (wtid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          named_bar(1 + wg, 128);
+          if (wtid == 0) {
+            mbar_expect_tx(lfull + wg, FW_TILE);
+            for (int i = 0; i < H / 64; ++i)
+              tma_load(tile + i * FW_BOX, &maps.stored, 64 * i, (int)wrow0, l / arg, lfull + wg);
+          }
+          mbar_wait(lfull + wg, loads & 1);
+          ++loads;
+#pragma unroll
+          for (int j = 0; j < H / 8; ++j) {
+            const int c = 8 * j + 2 * q;
+            A[2 * j] = *reinterpret_cast<const uint32_t*>(tile + stage_offset(r_lo, c));
+            A[2 * j + 1] = *reinterpret_cast<const uint32_t*>(tile + stage_offset(r_hi, c));
+          }
+          if (wtid == 0) {
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            for (int i = 0; i < H / 64; ++i) tma_store_3d(&maps.acts, 64 * i, (int)wrow0, l, tile + i * FW_BOX);
+            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          }
+        }
+        continue;
+      }
+    }
+    if (l == 0) {
+#pragma unroll
+      for (int kb = 0; kb < KIN / 64; ++kb) fwd_mma_enc<H>(acc, enc_u + kb * FW_BOX, kb != 0, t, rg);
+    } else {
+      fwd_mma_regs<H>(acc, A, t, rg);
+      if (l == skip) {
+#pragma unroll
+        for (int kb = 0; kb < KIN / 64; ++kb) fwd_mma_enc<H>(acc, enc_u + kb * FW_BOX, 1, t, rg);
+      }
+    }
+    const bool last = MODE != REMAT && l == L - 1;
+    if (last) {
+      // density: the last layer's input (A, and the encoding if it is the skip layer) . W_last[:, H]
+      float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < H / 8; ++j) {
+        const int c = 8 * j + 2 * q;
+        const float2 lo = unpack_bf16(A[2 * j]), hi = unpack_bf16(A[2 * j + 1]);
+        d_lo += lo.x * wd_s[c] + lo.y * wd_s[c + 1];
+        d_hi += hi.x * wd_s[c] + hi.y * wd_s[c + 1];
+      }
+      if (skip == L - 1) {
+        const unsigned char* e = enc_s + wg * FW_ENC;
+#pragma unroll
+        for (int j = 0; j < KIN / 8; ++j) {
+          const int c = 8 * j + 2 * q;
+          const float2 lo = unpack_bf16(*reinterpret_cast<const uint32_t*>(e + stage_offset(r_lo, c)));
+          const float2 hi = unpack_bf16(*reinterpret_cast<const uint32_t*>(e + stage_offset(r_hi, c)));
+          d_lo += lo.x * wd_s[H + c] + lo.y * wd_s[H + c + 1];
+          d_hi += hi.x * wd_s[H + c] + hi.y * wd_s[H + c + 1];
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        d_lo += __shfl_xor_sync(0xffffffffu, d_lo, o);
+        d_hi += __shfl_xor_sync(0xffffffffu, d_hi, o);
+      }
+      const float bd = __bfloat162float(b[(long)(L - 1) * H + H]);
+      if (q == 0 && r_lo < wg_rows) dens[wrow0 + r_lo] = d_lo + bd;
+      if (q == 0 && r_hi < wg_rows) dens[wrow0 + r_hi] = d_hi + bd;
+    }
+
+    // bias + ReLU + bf16 -> the next layer's A, and into the staging tile for acts[l] / feat
+    const bool store = (last || MODE == REMAT || ckpt_stored(l, arg)) && wg_rows > 0;
+    if (store) {
+      if (wtid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the last stores read it
+      named_bar(1 + wg, 128);
+    }
+    const __nv_bfloat162* bl = reinterpret_cast<const __nv_bfloat162*>(b + (long)l * H);
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j) {
+      const int c = 8 * j + 2 * q;
+      const float2 bb = __bfloat1622float2(bl[c >> 1]);
+      A[2 * j] = pack_bf16(fmaxf(acc[4 * j] + bb.x, 0.f), fmaxf(acc[4 * j + 1] + bb.y, 0.f));
+      A[2 * j + 1] = pack_bf16(fmaxf(acc[4 * j + 2] + bb.x, 0.f), fmaxf(acc[4 * j + 3] + bb.y, 0.f));
+      if (store) {
+        *reinterpret_cast<uint32_t*>(tile + stage_offset(r_lo, c)) = A[2 * j];
+        *reinterpret_cast<uint32_t*>(tile + stage_offset(r_hi, c)) = A[2 * j + 1];
+      }
+    }
+    if (store) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_bar(1 + wg, 128);
+      if (wtid == 0) {
+        for (int i = 0; i < H / 64; ++i) {
+          if constexpr (MODE == REMAT)
+            tma_store_3d(&maps.acts, 64 * i, (int)wrow0, l, tile + i * FW_BOX);
+          else if (last)
+            tma_store_2d(&maps.feat, 64 * i, (int)wrow0, tile + i * FW_BOX);
+          else
+            tma_store_3d(&maps.acts, 64 * i, (int)wrow0, l / arg, tile + i * FW_BOX);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+  }
+  if (wtid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");  // feat and acts written
+}
+
+
+template <int H, int KIN>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+    trunk_fwd_ckpt_kernel(const __grid_constant__ FwdMaps maps, const bf16* __restrict__ w,
+                          const bf16* __restrict__ b, float* __restrict__ dens, int n, int L, int skip, int ckpt) {
+  fwd_body<H, KIN, FWD_CKPT>(maps, w, b, dens, n, L, skip, ckpt);
+}
+
+template <int H, int KIN>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+    trunk_remat_kernel(const __grid_constant__ RematMaps maps, const bf16* __restrict__ w,
+                       const bf16* __restrict__ b, int n, int L, int skip, int ckpt) {
+  fwd_body<H, KIN, REMAT>(maps, w, b, nullptr, n, L, skip, ckpt);
+}
+
+// acts: the stored layers of checkpoint stride `ckpt`, [n_stored, n, H] (all L-1 at stride 1),
+// or null when none are stored; stride 1 and no stored layer run trunk_fwd_kernel, the others
+// trunk_fwd_ckpt_kernel
 template <int H, int KIN>
 int fwd_launch(EncodeTiled encode, const void* enc, const void* w, const void* b, void* feat, void* dens, void* acts,
-               int n, int L, int skip, cudaStream_t stream) {
+               int n, int L, int skip, int ckpt, cudaStream_t stream) {
   FwdMaps maps = {};
   const cuuint64_t N = (cuuint64_t)n;
+  const int n_acts = ckpt_count(L, ckpt);
+  if ((acts != nullptr) != (n_acts > 0)) return (int)cudaErrorInvalidValue;
   int err = make_weight_maps(encode, &maps.w, w, L, skip, H, KIN);
   if (!err) err = make_map(encode, &maps.enc, enc, 2, {(cuuint64_t)KIN, N, 1}, {64, 64, 1}, true);
   if (!err) err = make_map(encode, &maps.feat, feat, 2, {(cuuint64_t)H, N, 1}, {64, 64, 1}, true);
-  if (!err && acts) err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)(L - 1)}, {64, 64, 1}, true);
+  if (!err && acts) err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)n_acts}, {64, 64, 1}, true);
   if (err) return err;
   constexpr size_t smem = Fwd<H, KIN>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel<H, KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int blocks = (n + FW_T - 1) / FW_T;
+  if (ckpt == 1 || acts == nullptr) {
+    cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel<H, KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    trunk_fwd_kernel<H, KIN><<<blocks, FW_THREADS, smem, stream>>>(maps, (const bf16*)w, (const bf16*)b, (float*)dens, n,
+                                                                    L, skip, acts != nullptr);
+  } else {
+    cudaError_t e =
+        cudaFuncSetAttribute(trunk_fwd_ckpt_kernel<H, KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    trunk_fwd_ckpt_kernel<H, KIN><<<blocks, FW_THREADS, smem, stream>>>(maps, (const bf16*)w, (const bf16*)b,
+                                                                         (float*)dens, n, L, skip, ckpt);
+  }
+  return (int)cudaGetLastError();
+}
+
+// stored: the forward's [n_stored, n, H] of stride `ckpt` (null when it stored none); acts: the
+// [L-1, n, H] every hidden layer is written into
+template <int H, int KIN>
+int remat_launch(EncodeTiled encode, const void* enc, const void* w, const void* b, const void* stored, void* acts,
+                 int n, int L, int skip, int ckpt, cudaStream_t stream) {
+  RematMaps maps = {};
+  const cuuint64_t N = (cuuint64_t)n;
+  const int n_stored = ckpt_count(L, ckpt);
+  if ((stored != nullptr) != (n_stored > 0) || acts == nullptr) return (int)cudaErrorInvalidValue;
+  int err = make_weight_maps(encode, &maps.w, w, L, skip, H, KIN);
+  if (!err) err = make_map(encode, &maps.enc, enc, 2, {(cuuint64_t)KIN, N, 1}, {64, 64, 1}, true);
+  if (!err && stored)
+    err = make_map(encode, &maps.stored, stored, 3, {(cuuint64_t)H, N, (cuuint64_t)n_stored}, {64, 64, 1}, true);
+  if (!err) err = make_map(encode, &maps.acts, acts, 3, {(cuuint64_t)H, N, (cuuint64_t)(L - 1)}, {64, 64, 1}, true);
+  if (err) return err;
+  constexpr size_t smem = Fwd<H, KIN>::SMEM + 2 * sizeof(uint64_t);  // + lfull
+  cudaError_t e = cudaFuncSetAttribute(trunk_remat_kernel<H, KIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (n + FW_T - 1) / FW_T;
-  trunk_fwd_kernel<H, KIN><<<blocks, FW_THREADS, smem, stream>>>(maps, (const bf16*)w, (const bf16*)b, (float*)dens, n,
-                                                                  L, skip, acts != nullptr);
+  trunk_remat_kernel<H, KIN><<<blocks, FW_THREADS, smem, stream>>>(maps, (const bf16*)w, (const bf16*)b, n, L, skip,
+                                                                    ckpt);
   return (int)cudaGetLastError();
 }
 
@@ -897,11 +1182,23 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// acts: [n_stored, n, H], the hidden layers that checkpoint stride `ckpt` stores (fwd_launch)
 int trunk_fwd(const void* enc, const void* w, const void* b, void* feat, void* dens, void* acts,
-              int n, int L, int skip, int H, int kin, void* stream) {
+              int n, int L, int skip, int H, int kin, int ckpt, void* stream) {
   static EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  return TRUNK_DISPATCH(fwd_launch, H, kin, encode, enc, w, b, feat, dens, acts, n, L, skip, (cudaStream_t)stream);
+  return TRUNK_DISPATCH(fwd_launch, H, kin, encode, enc, w, b, feat, dens, acts, n, L, skip, ckpt,
+                        (cudaStream_t)stream);
+}
+
+// every hidden layer into acts [L-1, n, H]: the stored ones of stride `ckpt` copied from
+// `stored`, the others recomputed from the nearest one before (remat_launch)
+int trunk_remat(const void* enc, const void* w, const void* b, const void* stored, void* acts, int n, int L, int skip,
+                int H, int kin, int ckpt, void* stream) {
+  static EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  return TRUNK_DISPATCH(remat_launch, H, kin, encode, enc, w, b, stored, acts, n, L, skip, ckpt,
+                        (cudaStream_t)stream);
 }
 
 int trunk_bwd_chain(const void* gfeat, const void* gdens, const void* feat, const void* acts,

@@ -31,6 +31,11 @@ __host__ __device__ __forceinline__ long w_offset(int l, int L, int skip, int H,
   for (int i = 0; i < l; ++i) o += (long)layer_in(i, skip, H, KIN) * layer_out(i, L, H);
   return o;
 }
+// hidden layer l is stored by a forward of activation-checkpoint stride `ckpt` (the reference's
+// _stored_layers: k-1, 2k-1, ... up to L-2; none for ckpt <= 0), in slot l / ckpt of the stored
+// [ckpt_count, n, H]
+__host__ __device__ __forceinline__ bool ckpt_stored(int l, int ckpt) { return ckpt > 0 && (l + 1) % ckpt == 0; }
+__host__ __device__ __forceinline__ int ckpt_count(int L, int ckpt) { return ckpt > 0 ? (L - 1) / ckpt : 0; }
 
 // ---------------------------------------------------------------- primitives
 

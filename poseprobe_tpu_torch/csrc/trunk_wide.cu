@@ -69,6 +69,13 @@
 //   trunk_wide_dw_sum_kernel adds the copies into dw: no atomics.
 // db is summed with f32 atomics in a run-dependent order, as in
 // fused_trunk.cu.
+// * checkpoint strides (fused_trunk.cu's header): the forward writes the
+//   layers stride k stores into `acts` ([n_stored, N, H], layer l in slot
+//   l / k) and the others into two scratch slots; at a stride other than 1 the
+//   backward first refills every hidden layer into a transient [L-1, N, H]
+//   (trunk_wide_remat): the stored ones copied, the others recomputed in
+//   order by the forward's GEMM launches, so that the chain and dW read what
+//   they read at stride 1.
 
 #include <algorithm>
 
@@ -632,6 +639,7 @@ __global__ void __launch_bounds__(256) trunk_wide_dw_sum_kernel(const float4* __
 
 bool wide_ok(int H, int KIN) { return H >= 384 && H % 128 == 0 && (KIN == 64 || KIN == 128); }
 
+
 template <int MODE>
 int gemm_launch(const GemmMaps& maps, const GemmLayer& g, int clusters, cudaStream_t stream) {
   const int ctiles = col_tiles(g.cm, g.xw), items = (g.n + CLUSTER * W_T - 1) / (CLUSTER * W_T) * ctiles;
@@ -664,14 +672,21 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// acts: `slots` activation buffers [n, H] one after another; layer l writes slot l % slots.
-// `clusters`: the most clusters of two blocks a layer's persistent launch takes
-int trunk_wide_fwd(const void* enc, const void* w, const void* b, void* feat, void* dens, void* acts, int n, int L,
-                   int skip, int H, int kin, int slots, int clusters, void* stream) {
+// acts: the hidden layers that checkpoint stride `ckpt` stores ([n_stored, n, H]: all L-1 at
+// stride 1, null when none are stored); the others go to `scratch`, two [n, H] slots (layer l to
+// slot l % 2; null at stride 1). `clusters`: the most clusters of two blocks a layer's persistent
+// launch takes
+int trunk_wide_fwd(const void* enc, const void* w, const void* b, void* feat, void* dens, void* acts, void* scratch,
+                   int n, int L, int skip, int H, int kin, int ckpt, int clusters, void* stream) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  if (!wide_ok(H, kin) || slots < 1 || clusters < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  bf16* act = (bf16*)acts;
+  if (!wide_ok(H, kin) || clusters < 1 || n < 1 || (acts != nullptr) != (ckpt_count(L, ckpt) > 0) ||
+      (scratch == nullptr && ckpt_count(L, ckpt) < L - 1))
+    return (int)cudaErrorInvalidValue;
+  // where hidden layer l goes
+  auto act = [&](int l) {
+    return ckpt_stored(l, ckpt) ? (bf16*)acts + (long)(l / ckpt) * n * H : (bf16*)scratch + (long)(l % 2) * n * H;
+  };
   WeightMaps wm;
   GemmMaps maps;
   int err = make_weight_maps(encode, &wm, w, L, skip, H, kin);
@@ -679,12 +694,11 @@ int trunk_wide_fwd(const void* enc, const void* w, const void* b, void* feat, vo
   if (err) return err;
   for (int l = 0; l < L; ++l) {
     const bool last = l == L - 1;
-    const void* prev = l == 0 ? enc : act + (long)((l - 1) % slots) * n * H;
+    const void* prev = l == 0 ? enc : act(l - 1);
     err = make_map(encode, &maps.a0, prev, 2, {(cuuint64_t)(l == 0 ? kin : H), (cuuint64_t)n, 1}, {64, 64, 1}, true);
     if (err) return err;
     maps.b = last ? wm.last : wm.hidden;
-    err = make_map(encode, &maps.out, last ? feat : act + (long)(l % slots) * n * H, 2, {(cuuint64_t)H, (cuuint64_t)n, 1},
-                   {64, 64, 1}, true);
+    err = make_map(encode, &maps.out, last ? feat : act(l), 2, {(cuuint64_t)H, (cuuint64_t)n, 1}, {64, 64, 1}, true);
     if (err) return err;
     maps.mask = maps.out;  // not read by the forward
     GemmLayer g = {};
@@ -698,6 +712,53 @@ int trunk_wide_fwd(const void* enc, const void* w, const void* b, void* feat, vo
     g.kin = kin;
     g.bias = (const bf16*)b + (long)l * H;
     g.dens = (float*)dens;
+    err = gemm_launch<FWD>(maps, g, clusters, (cudaStream_t)stream);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// every hidden layer into acts [L-1, n, H] (the backward's buffer at a stride other than 1): a
+// layer that stride `ckpt` stored is copied from `stored_acts` ([n_stored, n, H], null when
+// none are), the others recomputed in order, each by the forward's GEMM launch from the layer before
+// it in `acts` (or the encoding), so bit for bit the forward's
+int trunk_wide_remat(const void* enc, const void* w, const void* b, const void* stored_acts, void* acts, int n, int L,
+                     int skip, int H, int kin, int ckpt, int clusters, void* stream) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  if (!wide_ok(H, kin) || clusters < 1 || n < 1 || acts == nullptr ||
+      (stored_acts != nullptr) != (ckpt_count(L, ckpt) > 0))
+    return (int)cudaErrorInvalidValue;
+  bf16* act = (bf16*)acts;
+  const size_t layer_bytes = (size_t)n * H * sizeof(bf16);
+  WeightMaps wm;
+  GemmMaps maps;
+  int err = make_weight_maps(encode, &wm, w, L, skip, H, kin);
+  if (!err) err = make_map(encode, &maps.a1, enc, 2, {(cuuint64_t)kin, (cuuint64_t)n, 1}, {64, 64, 1}, true);
+  if (err) return err;
+  maps.b = wm.hidden;
+  for (int l = 0; l < L - 1; ++l) {
+    if (ckpt_stored(l, ckpt)) {
+      err = (int)cudaMemcpyAsync(act + (long)l * n * H, (const bf16*)stored_acts + (long)(l / ckpt) * n * H,
+                                 layer_bytes, cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+      if (err) return err;
+      continue;
+    }
+    const void* prev = l == 0 ? enc : act + (long)(l - 1) * n * H;
+    err = make_map(encode, &maps.a0, prev, 2, {(cuuint64_t)(l == 0 ? kin : H), (cuuint64_t)n, 1}, {64, 64, 1}, true);
+    if (!err)
+      err = make_map(encode, &maps.out, act + (long)l * n * H, 2, {(cuuint64_t)H, (cuuint64_t)n, 1}, {64, 64, 1}, true);
+    if (err) return err;
+    maps.mask = maps.out;  // not read by the forward
+    GemmLayer g = {};
+    g.n = n;
+    g.K = layer_in(l, skip, H, kin);
+    g.ka = l == 0 ? 0 : H;
+    g.kb0 = (int)(w_offset(l, L, skip, H, kin) / H);
+    g.cm = H;
+    g.H = H;
+    g.kin = kin;
+    g.bias = (const bf16*)b + (long)l * H;
     err = gemm_launch<FWD>(maps, g, clusters, (cudaStream_t)stream);
     if (err) return err;
   }

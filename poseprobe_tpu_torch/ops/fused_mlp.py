@@ -20,14 +20,26 @@ sources (sm_90a, built with nvcc at first use and bound with ctypes):
   (its design below; the launch plan is `wide_plan`).
 All include `csrc/hopper.cuh`, the PTX wrappers and packed layout they share.
 
-Function (identical to the TPU kernels' numerics, checkpoint stride 1):
+Function (identical to the TPU kernels' numerics):
 * forward: bf16 operands, f32 accumulation, bias added in f32, ReLU output
   rounded to bf16 between layers; the skip layer reads concat([act, enc]);
   the last layer's columns are reordered to [feat | density]. Outputs feat
-  [N, H] bf16, raw density [N] f32 and the L-1 hidden activations
-  [L-1, N, H] bf16 that the backward reads instead of recomputing.
+  [N, H] bf16, raw density [N] f32 and the hidden activations that the
+  checkpoint stride stores for the backward, [n_stored, N, H] bf16.
+* checkpoint stride `ckpt` (the reference's `_stored_layers`;
+  `fused_trunk(..., ckpt=None)` takes TRUNK_CKPT, $POSEPROBE_TRUNK_CKPT read
+  at import, default 1): 1 stores all L-1 hidden layers, 0 none, k >= 2 the
+  layers k-1, 2k-1, ... up to L-2 (`stored_layers`). At a stride other than
+  1 the backward first recomputes the rest (`trunk_remat`): each layer not
+  stored from the one before it (or the encoding), as the forward computes
+  it, so the backward's inputs, and so its results, are those of stride 1 bit
+  for bit. The trade is memory for work: at 8x256 and 393,216 points the
+  stored layers are 1.41 GB, live from a call's forward to its backward,
+  and recomputing all of them adds 0.34 ms of products to the backward's
+  0.78 ms operations bound (`chip_smoke.py`'s `drive_trunk_ckpt` measures
+  both sides).
 * backward: the last layer's ReLU' mask comes from the forward's bf16 feat;
-  the others from the stored activations. Each layer's pre-activation
+  the others from the hidden activations. Each layer's pre-activation
   gradient g is kept in f32 but cast to bf16 for both of its products
   (dx = g W^T and dW = inp^T g); db sums the f32 g. denc is rounded to bf16
   at layer 0 and the skip layer's enc part is added to it as bf16. The
@@ -46,6 +58,31 @@ point make both directions bound by operations (1.51 ms forward, 3.02
 backward). The wide family's per-layer launches move every activation and g
 through device memory: ~6.1 GB a forward and ~16 GB a backward at 8x512 and
 393,216 points, floors of 1.8 and 4.9 ms beside those bounds.
+
+The remat (H = 128 and 256: `trunk_remat_kernel` of `csrc/fused_trunk.cu`)
+is the forward kernel's design run over layers 0..L-2 into a transient
+[L-1, N, H] buffer that `_bwd_outputs` adds to the backward's scratch: a
+stored layer's tile is loaded by TMA into the warpgroup's staging tile, read
+from there as the next layer's A fragment (the inverse of the epilogue's
+write) and stored again by the same TMA stores; the producer streams no
+weights for it, nor for the last layer; the other layers are computed as in
+the forward. The chain and dW kernels then read the buffer as they read the
+stored layers at stride 1: they and their instantiations are unchanged. The
+forward at a stride k >= 2 (`trunk_fwd_ckpt_kernel`) shares the remat's body,
+the forward's design storing layer l into slot l / k; stride 1 and a stride
+that stores nothing run the forward kernel as before, its text and machine
+code unchanged. From H = 384 the remat is the wide
+forward's per-layer GEMM launches into the buffer, with the stored layers
+copied in (`trunk_wide_remat`), and the wide forward writes the layers it
+does not store into its two scratch slots.
+
+Not ported: the reference's other trunk switches, `BWD_WT`
+($POSEPROBE_TRUNK_WT: pre-transposed weights for the backward's products),
+`INTERLEAVE` ($POSEPROBE_TRUNK_INTERLEAVE: a tile as several sub-chains
+interleaved layer by layer) and `tile` (the grid step), steer how Mosaic
+lowers the TPU kernels, not what they compute; the Hopper kernels have
+their own operand layouts, warpgroups and tiles (below), as `ops/grid.py`
+says of the reference's XLA-lowering switches.
 
 Wide trunks (H >= 384; `csrc/trunk_wide.cu`): a 128-point activation is 128 KB
 at H = 512 and 256 KB at 1024, too much for shared memory beside a weight
@@ -134,6 +171,7 @@ from run to run. The skip layer's encoding part goes through denc itself.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -144,6 +182,9 @@ from ._build import check as _check, ptr as _ptr
 MAX_IN = 128     # widest encoded input the kernels take, as the reference's IN_PAD
 DENS_PAD = 128   # last layer: [feat(H) | density | zeros] = H + DENS_PAD columns
 WGMMA_WIDTHS = (128, 256)   # widths of csrc/fused_trunk.cu; wider ones go to csrc/trunk_wide.cu
+# the activation checkpoint stride of `fused_trunk` when the call names none, read at import as the
+# reference reads it: 0 stores no hidden layer, 1 all of them, k >= 2 every k-th (`stored_layers`)
+TRUNK_CKPT = int(os.environ.get("POSEPROBE_TRUNK_CKPT", "1"))
 
 # launch counts of the kernels: every call (`fwd_launches`, `bwd_launches`) and,
 # in `launches` below, by the kernel instantiation it launched; the CPU twin
@@ -175,17 +216,44 @@ def in_pad(D: int) -> int:
 
 def kernel_name(kind: str, width: int, pad: int) -> str:
     """The name of the kernel instantiation that runs a trunk of this width and
-    input pad, for `kind` "fwd" or "bwd": `trunk_fwd` / `trunk_bwd` for the
-    8x256 main path's (256, 64), `trunk_<kind>_h<H>_in<pad>` for the other
-    `csrc/fused_trunk.cu` ones, `trunk_<kind>_wide` for `csrc/trunk_wide.cu`."""
+    input pad, for `kind` "fwd", "bwd" or "remat": `trunk_fwd` / `trunk_bwd` /
+    `trunk_remat` for the 8x256 main path's (256, 64), `trunk_<kind>_h<H>_in<pad>`
+    for the other `csrc/fused_trunk.cu` ones, `trunk_<kind>_wide` for
+    `csrc/trunk_wide.cu`."""
     if width not in WGMMA_WIDTHS:
         return f"trunk_{kind}_wide"
     return f"trunk_{kind}" if (width, pad) == (256, 64) else f"trunk_{kind}_h{width}_in{pad}"
 
 
-KERNEL_NAMES = tuple(kernel_name(kind, width, pad) for kind in ("fwd", "bwd")
+KERNEL_NAMES = tuple(kernel_name(kind, width, pad) for kind in ("fwd", "bwd", "remat")
                      for width, pad in ((256, 64), (256, 128), (128, 64), (128, 128), (384, 64)))
 launches = dict.fromkeys(KERNEL_NAMES, 0)   # launches by kernel instantiation
+
+
+def stored_layers(L: int, ckpt: int) -> tuple:
+    """The hidden layers (0..L-2) that a forward of checkpoint stride `ckpt`
+    stores, as the reference's `_stored_layers`: none for ckpt <= 0, all for
+    1, k-1, 2k-1, ... for k >= 2."""
+    if ckpt <= 0:
+        return ()
+    return tuple(range(ckpt - 1, L - 1, ckpt))
+
+
+def _stored(L: int, store_acts) -> tuple:
+    """The stored set that `store_acts` names: True all hidden layers, False
+    none, else the layers themselves."""
+    if store_acts is True or store_acts is False:
+        return stored_layers(L, int(store_acts))
+    return tuple(store_acts)
+
+
+def _stride(L: int, stored: tuple) -> int:
+    """The checkpoint stride whose stored layers are `stored` (0 for none):
+    the kernels store only such sets."""
+    k = stored[0] + 1 if stored else 0
+    if stored_layers(L, k) != stored:
+        raise ValueError(f"the trunk kernels store the layers of a checkpoint stride, not {stored} of L={L}")
+    return k
 
 
 def layout(L: int, skip: int, width: int, pad: int) -> list:
@@ -316,27 +384,57 @@ def _width(b: torch.Tensor, L: int) -> int:
 # plain PyTorch twin (same roundings, f32 products of bf16 values)
 
 
-def trunk_fwd_plain(enc, w, b, L: int, skip: int, store_acts: bool = True):
+def _pre(x, a, w, b, lay, l: int, skip: int):
+    """Layer l's f32 pre-activation from the encoding x and the previous
+    layer's activation a (both f32 of bf16 values)."""
+    K, NO, wo, bo = lay[l]
+    inp = x if l == 0 else (torch.cat([a, x], dim=1) if l == skip else a)
+    return inp @ w[wo:wo + K * NO].view(K, NO).float() + b[bo:bo + NO].float()
+
+
+def trunk_fwd_plain(enc, w, b, L: int, skip: int, store_acts=True):
+    """(feat, dens, the stored layers [n_stored, N, H] or None): `store_acts`
+    True stores every hidden layer, False none, a tuple those layers."""
+    stored = _stored(L, store_acts)
     width = _width(b, L)
+    lay = layout(L, skip, width, enc.shape[1])
     x = enc.float()
     a = x
     acts = []
-    for l, (K, NO, wo, bo) in enumerate(layout(L, skip, width, enc.shape[1])):
-        Wl = w[wo:wo + K * NO].view(K, NO).float()
-        inp = x if l == 0 else (torch.cat([a, x], dim=1) if l == skip else a)
-        pre = inp @ Wl + b[bo:bo + NO].float()
+    for l in range(L):
+        pre = _pre(x, a, w, b, lay, l, skip)
         if l < L - 1:
             a = torch.relu(pre).to(torch.bfloat16)
-            if store_acts:
+            if l in stored:
                 acts.append(a)
             a = a.float()
         else:
             feat = torch.relu(pre[:, :width]).to(torch.bfloat16)
             dens = pre[:, width].contiguous()
-    return feat, dens, (torch.stack(acts) if store_acts else None)
+    return feat, dens, (torch.stack(acts) if acts else None)
 
 
-def trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
+def trunk_remat_plain(enc, acts, w, b, L: int, skip: int, ckpt: int):
+    """Every hidden layer [L-1, N, H] bf16 from the encoding and the layers a
+    forward of stride `ckpt` stored (`acts`, [n_stored, N, H], or None): a
+    stored layer as it is, the others recomputed from the one before, as the
+    forward computes them (the reference backward's remat)."""
+    stored = stored_layers(L, ckpt)
+    lay = layout(L, skip, _width(b, L), enc.shape[1])
+    x = enc.float()
+    a, out = x, []
+    for l in range(L - 1):
+        h = acts[stored.index(l)] if l in stored else torch.relu(_pre(x, a, w, b, lay, l, skip)).to(torch.bfloat16)
+        out.append(h)
+        a = h.float()
+    return torch.stack(out)
+
+
+def trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int, ckpt: int = 1):
+    """Backward of `trunk_fwd_plain` from the layers stride `ckpt` stored
+    (`acts`), the others recomputed first (`trunk_remat_plain`)."""
+    if ckpt != 1:
+        acts = trunk_remat_plain(enc, acts, w, b, L, skip, ckpt)
     width = _width(b, L)
     N = enc.shape[0]
     x = enc.float()
@@ -375,10 +473,11 @@ def _lib():
     """The three libraries: csrc/fused_trunk.cu's (widths 128 and 256),
     csrc/trunk_wide.cu's (wider) and csrc/trunk_narrow.cu's (the chain at
     width 128)."""
-    return (_build.declare(_build.load("fused_trunk"), trunk_fwd="ppppppiiiiip",
+    return (_build.declare(_build.load("fused_trunk"), trunk_fwd="ppppppiiiiiip", trunk_remat="pppppiiiiiip",
                            trunk_bwd_chain="ppppppppiiiiip", trunk_bwd_dw="pppppiiiiip"),
-            _build.declare(_build.load("trunk_wide"), trunk_wide_fwd="ppppppiiiiiiip",
-                           trunk_wide_bwd_chain="ppppppppiiiiiip", trunk_wide_bwd_dw="pppppiiiiiiiip"),
+            _build.declare(_build.load("trunk_wide"), trunk_wide_fwd="pppppppiiiiiiip",
+                           trunk_wide_remat="pppppiiiiiiip", trunk_wide_bwd_chain="ppppppppiiiiiip",
+                           trunk_wide_bwd_dw="pppppiiiiiiiip"),
             _build.declare(_build.load("trunk_narrow"), trunk_narrow_bwd_chain="pppppppppiiiiilip"))
 
 
@@ -399,6 +498,8 @@ def _check_inputs(L: int, skip: int, enc, w, b, **tensors) -> tuple:
     if w.numel() != lay[-1][2] + lay[-1][0] * lay[-1][1]:
         raise ValueError("packed trunk weights do not match the layout")
     for name, t in dict(tensors, enc=enc, w=w, b=b).items():
+        if t is None:           # stored activations of a stride that stores none
+            continue
         # the kernels' tensor maps and 16-byte accesses need 16-byte aligned bases
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: expected a contiguous, 16-byte aligned tensor on {dev}")
@@ -409,74 +510,134 @@ def _count(kind: str, width: int, pad: int) -> None:
     launches[kernel_name(kind, width, pad)] += 1
 
 
-def trunk_fwd(enc, w, b, L: int, skip: int, store_acts: bool = True):
+def _check_stored(L: int, ckpt: int, N: int, H: int, acts) -> None:
+    stored = stored_layers(L, ckpt)
+    if (acts is None) != (not stored) or (acts is not None and (acts.dim() != 3 or acts.shape != (len(stored), N, H)
+                                                                 or acts.dtype != torch.bfloat16)):
+        raise ValueError(f"expected the {len(stored)} layers that stride {ckpt} stores as [{len(stored)}, {N}, {H}] "
+                         f"bfloat16 (None for none), got {None if acts is None else (acts.shape, acts.dtype)}")
+
+
+def trunk_fwd(enc, w, b, L: int, skip: int, store_acts=True):
     """enc [N, pad] bf16 (pad 64 or 128), packed w/b bf16 -> (feat [N, H]
-    bf16, dens [N] f32, acts [L-1, N, H] bf16 or None). Kernel on CUDA
-    tensors, twin on CPU ones."""
+    bf16, dens [N] f32, the stored hidden layers [n_stored, N, H] bf16 or
+    None). `store_acts`: True stores all L-1, False none, or the tuple
+    `stored_layers(L, k)` of a checkpoint stride k. Kernel on CUDA tensors,
+    twin on CPU ones."""
     global fwd_launches
     if not enc.is_cuda:
         return trunk_fwd_plain(enc, w, b, L, skip, store_acts)
     H, pad = _check_inputs(L, skip, enc, w, b)
+    stored = _stored(L, store_acts)
+    ckpt = _stride(L, stored)
     N = enc.shape[0]
     if enc.dim() != 2 or {enc.dtype, w.dtype, b.dtype} != {torch.bfloat16}:
         raise ValueError("trunk_fwd expects enc [N, 64 or 128], w and b in bfloat16")
     feat = torch.empty((N, H), dtype=torch.bfloat16, device=enc.device)
     dens = torch.empty(N, dtype=torch.float32, device=enc.device)
-    acts = (torch.empty((L - 1, N, H), dtype=torch.bfloat16, device=enc.device)
-            if store_acts else None)
+    acts = (torch.empty((len(stored), N, H), dtype=torch.bfloat16, device=enc.device)
+            if stored else None)
     if N == 0:
         return feat, dens, acts
     lib = _lib()[H not in WGMMA_WIDTHS]
     stream = torch.cuda.current_stream(enc.device).cuda_stream
     if H in WGMMA_WIDTHS:
         _check(lib, lib.trunk_fwd(_ptr(enc), _ptr(w), _ptr(b), _ptr(feat), _ptr(dens), _ptr(acts),
-                                  N, L, skip, H, pad, stream), "trunk_fwd")
+                                  N, L, skip, H, pad, ckpt, stream), "trunk_fwd")
     else:
-        # the layers' activations go through device memory: acts, or two slots of scratch
+        # the layers' activations go through device memory: the stored ones into acts, the
+        # others into two slots of scratch
         plan = wide_plan(N, L, skip, H, pad, _sms(enc.device))
-        slots = acts if store_acts else torch.empty((plan["slots"], N, H), dtype=torch.bfloat16,
-                                                    device=enc.device)
-        _check(lib, lib.trunk_wide_fwd(_ptr(enc), _ptr(w), _ptr(b), _ptr(feat), _ptr(dens), _ptr(slots),
-                                       N, L, skip, H, pad, slots.shape[0], plan["clusters"], stream),
+        scratch = (None if ckpt == 1 else torch.empty((plan["slots"], N, H), dtype=torch.bfloat16,
+                                                      device=enc.device))
+        _check(lib, lib.trunk_wide_fwd(_ptr(enc), _ptr(w), _ptr(b), _ptr(feat), _ptr(dens), _ptr(acts),
+                                       _ptr(scratch), N, L, skip, H, pad, ckpt, plan["clusters"], stream),
                "trunk_wide_fwd")
     fwd_launches += 1
     _count("fwd", H, pad)
     return feat, dens, acts
 
 
-def trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int):
-    """Backward of `trunk_fwd`: g_feat [N, H] bf16, g_dens [N] bf16 ->
-    (denc [N, pad] bf16, dw f32 packed, db f32 packed). Kernels on CUDA
-    tensors, twin on CPU ones."""
+def trunk_remat(enc, acts, w, b, L: int, skip: int, ckpt: int, out=None):
+    """Every hidden layer [L-1, N, H] bf16 (into `out` when given) from enc
+    and the layers `acts` [n_stored, N, H] (or None) that a forward of stride
+    `ckpt` stored: those copied, the others recomputed from the nearest one
+    before (or the encoding), bit for bit the forward's. Kernel on CUDA
+    tensors (csrc/fused_trunk.cu's remat kernel; csrc/trunk_wide.cu's forward
+    GEMM layer by layer for H >= 384), twin on CPU ones."""
+    if not enc.is_cuda:
+        return trunk_remat_plain(enc, acts, w, b, L, skip, ckpt)
+    H, pad = _check_inputs(L, skip, enc, w, b, acts=acts, out=out)
+    N = enc.shape[0]
+    if enc.dim() != 2 or {enc.dtype, w.dtype, b.dtype} != {torch.bfloat16}:
+        raise ValueError("trunk_remat expects enc [N, 64 or 128], w and b in bfloat16")
+    _check_stored(L, ckpt, N, H, acts)
+    if out is None:
+        out = torch.empty((L - 1, N, H), dtype=torch.bfloat16, device=enc.device)
+    elif out.shape != (L - 1, N, H) or out.dtype != torch.bfloat16:
+        raise ValueError(f"trunk_remat: out must be [{L - 1}, {N}, {H}] bfloat16")
+    if N == 0:
+        return out
+    k = ckpt if acts is not None else 0
+    lib = _lib()[H not in WGMMA_WIDTHS]
+    stream = torch.cuda.current_stream(enc.device).cuda_stream
+    if H in WGMMA_WIDTHS:
+        _check(lib, lib.trunk_remat(_ptr(enc), _ptr(w), _ptr(b), _ptr(acts), _ptr(out), N, L, skip, H, pad, k,
+                                    stream), "trunk_remat")
+    else:
+        plan = wide_plan(N, L, skip, H, pad, _sms(enc.device))
+        _check(lib, lib.trunk_wide_remat(_ptr(enc), _ptr(w), _ptr(b), _ptr(acts), _ptr(out), N, L, skip, H, pad, k,
+                                         plan["clusters"], stream), "trunk_wide_remat")
+    _count("remat", H, pad)
+    return out
+
+
+def trunk_bwd(enc, g_feat, g_dens, feat, acts, w, b, L: int, skip: int, ckpt: int = 1):
+    """Backward of `trunk_fwd`: g_feat [N, H] bf16, g_dens [N] bf16, acts the
+    layers that checkpoint stride `ckpt` stored ([n_stored, N, H] or None) ->
+    (denc [N, pad] bf16, dw f32 packed, db f32 packed). At a stride other
+    than 1 the remat kernel first refills every hidden layer into a transient
+    buffer, which the chain and dW kernels read as they read the stored
+    layers at stride 1. Kernels on CUDA tensors, twin on CPU ones."""
     global bwd_launches
     if not enc.is_cuda:
-        return trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L, skip)
+        return trunk_bwd_plain(enc, g_feat, g_dens, feat, acts, w, b, L, skip, ckpt)
     H, pad = _check_inputs(L, skip, enc, w, b, g_feat=g_feat, g_dens=g_dens, feat=feat, acts=acts)
     N = enc.shape[0]
     if (enc.dim() != 2 or g_feat.shape != (N, H) or g_dens.shape != (N,) or feat.shape != (N, H)
-            or acts.shape != (L - 1, N, H)
-            or {t.dtype for t in (enc, g_feat, g_dens, feat, acts, w)} != {torch.bfloat16}):
+            or {t.dtype for t in (enc, g_feat, g_dens, feat, w)} != {torch.bfloat16}):
         raise ValueError("trunk_bwd: unexpected shapes or dtypes")
-    out = _bwd_outputs(N, w, b, L, pad)
+    _check_stored(L, ckpt, N, H, acts)
+    out = _bwd_outputs(N, w, b, L, pad, ckpt)
     if N == 0:
         return out[:3]
+    if ckpt != 1:
+        acts = trunk_remat(enc, acts, w, b, L, skip, ckpt, out=_remat_buffer(out[3], L, N, H))
     _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L, skip)
     bwd_launches += 1
     _count("bwd", H, pad)
     return out[:3]
 
 
-def _bwd_outputs(N: int, w, b, L: int, pad: int):
+def _bwd_outputs(N: int, w, b, L: int, pad: int, ckpt: int = 1):
     """The backward's buffers: (denc, dw, db) and the scratch `gsave`, each
     layer's g that the chain kernel writes for the dW kernel: [L, N, H] bf16;
     for the wide kernels layers 0..L-2 as [L-1, N, H] then the last layer's g
-    with its density column, [N, H + DENS_PAD] (flat)."""
+    with its density column, [N, H + DENS_PAD] (flat). At a checkpoint stride
+    other than 1 the scratch also holds, at its end, the transient [L-1, N, H]
+    that the remat fills (`_remat_buffer`): freed with the rest when the
+    backward returns."""
     dev, H = w.device, _width(b, L)
-    scratch = L * N * H + (0 if H in WGMMA_WIDTHS else N * DENS_PAD)
+    scratch = L * N * H + (0 if H in WGMMA_WIDTHS else N * DENS_PAD) + (0 if ckpt == 1 else (L - 1) * N * H)
     return (torch.empty((N, pad), dtype=torch.bfloat16, device=dev),
             torch.zeros(w.numel(), dtype=torch.float32, device=dev),
             torch.zeros(b.numel(), dtype=torch.float32, device=dev),
             torch.empty(scratch, dtype=torch.bfloat16, device=dev))
+
+
+def _remat_buffer(gsave, L: int, N: int, H: int):
+    """The [L-1, N, H] at the end of `_bwd_outputs`'s scratch."""
+    return gsave[gsave.numel() - (L - 1) * N * H:].view(L - 1, N, H)
 
 
 def _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L: int, skip: int,
@@ -523,11 +684,12 @@ def _bwd_launch(enc, g_feat, g_dens, feat, acts, w, out, L: int, skip: int,
 
 class _FusedTrunk(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, enc, w, b, L, skip):
-        store = any(ctx.needs_input_grad[:3])
-        feat, dens, acts = trunk_fwd(enc, w, b, L, skip, store_acts=store)
+    def forward(ctx, enc, w, b, L, skip, ckpt):
+        # the layers of the stride, [n_stored, N, H] (None when it stores none), only for a backward
+        stored = stored_layers(L, ckpt) if any(ctx.needs_input_grad[:3]) else False
+        feat, dens, acts = trunk_fwd(enc, w, b, L, skip, store_acts=stored)
         ctx.save_for_backward(enc, w, b, feat, acts)
-        ctx.L, ctx.skip = L, skip
+        ctx.L, ctx.skip, ctx.ckpt = L, skip, ckpt
         return feat, dens
 
     @staticmethod
@@ -539,20 +701,25 @@ class _FusedTrunk(torch.autograd.Function):
             g_dens = torch.zeros(feat.shape[0], dtype=torch.float32, device=feat.device)
         denc, dw, db = trunk_bwd(enc, g_feat.to(torch.bfloat16).contiguous(),
                                  g_dens.to(torch.bfloat16).contiguous(), feat, acts, w, b,
-                                 ctx.L, ctx.skip)
-        return denc, dw.to(torch.bfloat16), db.to(torch.bfloat16), None, None
+                                 ctx.L, ctx.skip, ctx.ckpt)
+        return denc, dw.to(torch.bfloat16), db.to(torch.bfloat16), None, None, None
 
 
-def fused_trunk(enc: torch.Tensor, feat_layers: list, skip: int):
+def fused_trunk(enc: torch.Tensor, feat_layers: list, skip: int, ckpt: int | None = None):
     """Run the trunk on [..., D] encoded points (D <= 128).
 
     feat_layers: JAX-layout layers [{'w': [in, out], 'b': [out]}], layer
     `skip` taking concat([feat, enc]) and the last emitting [density | feat].
+    `ckpt`: the activation checkpoint stride (default the module's
+    TRUNK_CKPT, $POSEPROBE_TRUNK_CKPT, read at this call): 0 stores no hidden
+    layer for the backward, 1 all of them, k >= 2 every k-th; the backward
+    recomputes the rest. The results are the same bit for bit at every stride.
     Returns (raw_density [...] f32, feat [..., H] bf16).
     """
+    ckpt = TRUNK_CKPT if ckpt is None else ckpt
     lead, D = enc.shape[:-1], enc.shape[-1]
     L = len(feat_layers)
     x = F.pad(enc.reshape(-1, D).to(torch.bfloat16), (0, in_pad(D) - D)).contiguous()
     w, b = pack_params(feat_layers, skip)
-    feat, dens = _FusedTrunk.apply(x, w, b, L, skip)
+    feat, dens = _FusedTrunk.apply(x, w, b, L, skip, ckpt)
     return dens.reshape(lead), feat.reshape(lead + (feat.shape[-1],))

@@ -258,6 +258,79 @@ def test_narrow_backward_with_no_points(L_3D):
     assert not dw.any() and not db.any() and fused_mlp.launches[name] == before
 
 
+# the trunk instantiations (width, L_3D) held at every checkpoint stride: the five of
+# `fused_mlp.KERNEL_NAMES` (L_3D 10 pads to 64, 16 to 128) and the wide cell's 8x512
+CKPT_CELLS = [(256, 10), (256, 16), (128, 10), (128, 16), (384, 10), (512, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5_000, 1, 0])
+@pytest.mark.parametrize("width,L_3D", CKPT_CELLS)
+def test_trunk_strides_match_stride_one(width, L_3D, n):
+    """At checkpoint strides 0, 2 and 3 (8 layers, skip 4): the forward's
+    feat and density and its stored layers are stride 1's bit for bit; the
+    remat kernel's buffer is stride 1's `acts` bit for bit (and within
+    REL_TOL of its plain version); the backward's denc is stride 1's bit for
+    bit, and so are db at width 128 (the narrow chain adds its blocks' copies
+    in order) and dW from width 384 (the wide dW adds its slices' copies);
+    the others are summed with f32 atomics in a run-dependent order, so they
+    are held as the last layer's db is held against the twin (1e-4 relative
+    + 1e-4 of the largest). Each backward at a stride other than 1 launches
+    the remat once (none for no points), and the backward agrees with its
+    plain version on the layers the remat refilled (REL_TOL of the max, as
+    `test_trunk_kernels_match_twin`; the plain remat, held apart, may round a
+    value to the other side of a ReLU and so reroute one point's gradient)."""
+    _need_card()
+    layers, enc, g = _inputs(n, width=width, L_3D=L_3D)
+    w, b = fused_mlp.pack_params(layers, SKIP)
+    x = _padded(enc)
+    pad = x.shape[1]
+    feat, dens, full = fused_mlp.trunk_fwd(x, w, b, L, SKIP)
+    g_feat = (torch.randn((n, width), generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    g_dens = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
+    want = fused_mlp.trunk_bwd(x, g_feat, g_dens, feat, full, w, b, L, SKIP)
+    exact = {"denc": True, "dw": width not in fused_mlp.WGMMA_WIDTHS, "db": width == fused_mlp.NARROW_WIDTH}
+    name = fused_mlp.kernel_name("remat", width, pad)
+    for ckpt in (0, 2, 3):
+        stored = fused_mlp.stored_layers(L, ckpt)
+        f, d, acts = fused_mlp.trunk_fwd(x, w, b, L, SKIP, store_acts=stored)
+        assert torch.equal(f, feat) and torch.equal(d, dens)
+        assert (acts is None) if ckpt == 0 else torch.equal(acts, full[list(stored)])
+        before = fused_mlp.launches[name]
+        remat = fused_mlp.trunk_remat(x, acts, w, b, L, SKIP, ckpt)
+        got = fused_mlp.trunk_bwd(x, g_feat, g_dens, f, acts, w, b, L, SKIP, ckpt)
+        ref = fused_mlp.trunk_bwd_plain(x, g_feat, g_dens, f, remat, w, b, L, SKIP)
+        torch.cuda.synchronize()
+        assert torch.equal(remat, full), ckpt
+        _close(remat, fused_mlp.trunk_remat_plain(x, acts, w, b, L, SKIP, ckpt))
+        for key, o, r, p in zip(("denc", "dw", "db"), got, want, ref):
+            if exact[key]:
+                assert torch.equal(o, r), (ckpt, key)
+            else:
+                torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()) if n else 0.0)
+            _close(o, p)
+        assert fused_mlp.launches[name] == before + 2 * (n > 0), ckpt
+
+
+@pytest.mark.cuda
+def test_stride_zero_mid_step_replays_as_a_cuda_graph(monkeypatch):
+    """The small scene trainer's mid step with `fused_mlp.TRUNK_CKPT` 0:
+    every trunk call keeps no layer and each backward runs the remat kernel
+    first. A superstep window and its replays agree with eager steps
+    (`_window_against_eager`), and the eager steps launch the remat once per
+    backward."""
+    _need_card()
+    from poseprobe_tpu_torch.train import graphs
+    monkeypatch.setattr(fused_mlp, "TRUNK_CKPT", 0)
+    tr = build_scene_trainer(small=True, device="cuda")
+    sm = tr.cfg.scene_model
+    H, pad = sm.layers_feat[0], fused_mlp.in_pad(sm.input_3d_dim)
+    tr.global_step = tr.fine_start + 1
+    launched = dict(zip(fused_mlp.KERNEL_NAMES, _window_against_eager(tr)[len(graphs._COUNTERS):]))
+    bwd, remat = (launched[fused_mlp.kernel_name(k, H, pad)] for k in ("bwd", "remat"))
+    assert bwd > 0 and remat == bwd, launched
+
+
 @pytest.mark.cuda
 def test_scene_step_runs_through_the_kernels():
     _need_card()

@@ -14,6 +14,10 @@ name and template arguments:
   (`trunk_narrow_chain_kernel<pad>`): where DIR has fused_trunk.cu's
   <128, pad> and this checkout has not, that instantiation is reported as
   replaced, with the new kernel's instruction count, not compared;
+* the kernels of the trunk's checkpoint strides other than 1, the forward
+  that stores every k-th layer (`trunk_fwd_ckpt_kernel`) and the remat
+  (`trunk_remat_kernel`), at the same four instantiations: compared where
+  DIR has them, else listed as new with their instruction counts;
 * the composite's tiled forward and backward (`composite_fwd_kernel`,
   `composite_bwd_kernel`), each with runs in registers (<5>) and in shared
   memory (<0>). Past the tile DIR's kernels that this checkout no longer has
@@ -38,6 +42,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 KERNELS = ("trunk_fwd_kernel", "trunk_bwd_chain_kernel", "trunk_bwd_dw_kernel")
+STRIDE_KERNELS = ("trunk_fwd_ckpt_kernel", "trunk_remat_kernel")   # checkpoint strides other than 1
 INSTANCES = {(256, 64): "ILi256ELi64E", (256, 128): "ILi256ELi128E",   # mangled template arguments
              (128, 64): "ILi128ELi64E", (128, 128): "ILi128ELi128E"}
 NARROW = "trunk_narrow_chain_kernel"   # csrc/trunk_narrow.cu: the chain at width 128, a template on the pad
@@ -102,6 +107,18 @@ def main(argv=None) -> int:
                 print(f"{name}: replaced by {NARROW}<{kin}> ({len(new or [])} instructions), {args.tree}: {len(b)}")
                 continue
             if a is None or b is None:
+                continue
+            result[name] = {"instructions": len(a), "other_instructions": len(b), "identical": a == b}
+            print(f"{name}: {len(a)} instructions, {args.tree}: {len(b)}; {'identical' if a == b else 'different'}")
+    for kernel in STRIDE_KERNELS:
+        for (H, kin), instance in INSTANCES.items():
+            a, b = _pick(ours, kernel, instance, False), _pick(theirs, kernel, instance, False)
+            name = f"{kernel}<{H}, {kin}>"
+            if a is None:
+                raise AssertionError(f"{name}: missing in this checkout")
+            if b is None:
+                result[name] = {"new": True, "instructions": len(a)}
+                print(f"{name}: {len(a)} instructions, new (not in {args.tree})")
                 continue
             result[name] = {"instructions": len(a), "other_instructions": len(b), "identical": a == b}
             print(f"{name}: {len(a)} instructions, {args.tree}: {len(b)}; {'identical' if a == b else 'different'}")
