@@ -1,0 +1,7 @@
+"""The trunk's least time (operations or bytes, counted from the configuration's trunk calls) over
+the device time of the trunk kernels, in a training cell's traced window, in percent."""
+from portbench import readers
+
+
+def read(ctx):
+    return readers.trunk_roofline_pct(ctx)
