@@ -68,8 +68,8 @@ fixture's analytic packs, said on the line), the trainer built (PnP chain,
 feature maps), `fit(20, superstep=4)` run across the activation of view 2;
 then step 3001, past the last pg_scale doubling (the grid at 96^3), runs as a
 graph window held against eager steps, with the surface-feature term's valid
-rays counted, and is profiled (eager and graph step time, device time, busy
-share, peak memory; `profile_step.profile_phase`).
+rays counted, and is profiled (eager and graph step time, device time, peak
+memory; `profile_step.profile_phase`).
 Last, the two CLIs on that scan (`drive_cli`, in a working directory of
 its own): `python -m poseprobe_tpu_torch.run` trains `dtu_generic` at full
 width for 40 steps (pg_scale doublings at 8, 16 and 24, view 2 activated and
@@ -531,7 +531,8 @@ def _device_profile(fn, iters: int = 20, flush: bool = False) -> tuple[float, fl
             calls(iters)
             prof.step()
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0 and not (flush and "Memcpy" in e.key)]
+                  and e.self_device_time_total > 0 and not (flush and "Memcpy" in e.key)
+                  and not getattr(e, "is_user_annotation", False)]      # the program's spans
         if events and all(e.count % iters == 0 for e in events):
             if lost:
                 print(f"note: torch.profiler lost device events in {len(lost)} window(s) before this one: "
@@ -1960,7 +1961,7 @@ def drive_preset(mods: dict, trainer_mod, root: str) -> tuple[dict, dict, tuple]
     # all but the cycle check's query, which takes no gradient
     if steps != {"trunk_fwd": 1, "trunk_bwd": 1, "trilinear_fwd": 5, "trilinear_bwd": 4} or replayed != graph:
         raise AssertionError(f"the preset's graph windows did not launch the kernels of its step: {graph}, {replayed}")
-    # step time eager and in graph windows (in turns), device time and busy share under torch.profiler
+    # step time eager and in graph windows (in turns), device time under torch.profiler
     from poseprobe_tpu_torch import profile_step
     prof = profile_step.profile_phase(tr, "preset", start, 8, SUPERSTEP, None)
     print(json.dumps({k: v for k, v in prof.items() if k not in ("eager", "graph")}
@@ -2297,8 +2298,8 @@ SG_REL_TOL = 1e-4                      # SuperPoint maps (of max |CPU|) and Supe
 
 def _profile(tr, name: str) -> None:
     """The cell's eager steps and graph windows in turns, then traced
-    (`profile_step.profile_phase`): step ms, device ms, busy share, device
-    events per step; printed, and as one JSON line."""
+    (`profile_step.profile_phase`): step ms, device ms, device events per
+    step; printed, and as one JSON line."""
     from poseprobe_tpu_torch import profile_step
     prof = profile_step.profile_phase(tr, name, tr.global_step, 8, SUPERSTEP, None)
     print(json.dumps({k: v for k, v in prof.items() if k not in ("eager", "graph")}

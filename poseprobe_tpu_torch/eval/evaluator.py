@@ -33,6 +33,7 @@ from ..data.png import write_png
 from ..models import scene_nerf
 from ..parallel import mesh as mesh_mod
 from ..train.optim import _Adam
+from ..utils.profiling import span
 from . import metrics as metrics_mod
 
 
@@ -181,27 +182,34 @@ def render_full(scene_params, scene_cfg, pose_w2c, K, H: int, W: int, depth_rang
     training, so their MLP input weights are still at init until the c2f
     window closes -- rendering a mid-training state at progress = 1.0 injects
     untrained-band garbage.
+
+    For a profiler it marks the pixel grid and rays (`poseprobe.render.rays`),
+    each chunk (`poseprobe.render.chunk`) and the final gather
+    (`poseprobe.render.gather`) as spans.
     """
     if use_fine is None:
         use_fine = scene_cfg.fine_sampling
     device = tree_leaves(scene_params)[0].device
-    pose_w2c, K = _on(device, pose_w2c, K)
-    ys, xs = torch.meshgrid(torch.arange(H, device=device, dtype=torch.float32),
-                            torch.arange(W, device=device, dtype=torch.float32), indexing="ij")
-    pixels = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)
     suffix = "_fine" if use_fine else ""
     outs = {"rgb": [], "depth": [], "depth_var": [], "opacity": []}
     with torch.no_grad():
-        center, ray = rays_mod.get_center_and_ray_at_pixels(pose_w2c[None], pixels, K[None])
+        with span("poseprobe.render.rays"):
+            pose_w2c, K = _on(device, pose_w2c, K)
+            ys, xs = torch.meshgrid(torch.arange(H, device=device, dtype=torch.float32),
+                                    torch.arange(W, device=device, dtype=torch.float32), indexing="ij")
+            pixels = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)
+            center, ray = rays_mod.get_center_and_ray_at_pixels(pose_w2c[None], pixels, K[None])
         for c in range(0, H * W, chunk):
-            cs, rs = center[:, c:c + chunk], ray[:, c:c + chunk]
-            rets = scene_nerf.render_rays(scene_params, scene_cfg, mesh_mod.shard_rays(cs, mesh, axis=1),
-                                          mesh_mod.shard_rays(rs, mesh, axis=1), depth_range,
-                                          progress=progress, noise=None, compute_fine=use_fine)
-            rets = mesh_mod.unshard_rays({k: rets[k + suffix] for k in outs}, cs.shape[1], mesh, axis=1)
-            for k in outs:
-                outs[k].append(rets[k])
-    return {k: torch.cat(v, dim=1).reshape(H, W, -1) for k, v in outs.items()}
+            with span("poseprobe.render.chunk"):
+                cs, rs = center[:, c:c + chunk], ray[:, c:c + chunk]
+                rets = scene_nerf.render_rays(scene_params, scene_cfg, mesh_mod.shard_rays(cs, mesh, axis=1),
+                                              mesh_mod.shard_rays(rs, mesh, axis=1), depth_range,
+                                              progress=progress, noise=None, compute_fine=use_fine)
+                rets = mesh_mod.unshard_rays({k: rets[k + suffix] for k in outs}, cs.shape[1], mesh, axis=1)
+                for k in outs:
+                    outs[k].append(rets[k])
+        with span("poseprobe.render.gather"):
+            return {k: torch.cat(v, dim=1).reshape(H, W, -1) for k, v in outs.items()}
 
 
 def evaluate_full(

@@ -26,6 +26,11 @@ VM-decomposed TensoRF grid (``"tensorf"``, a dict of planes and vectors,
 and k0 lookups at the sample points merge into one 13-channel lookup; with
 TensoRF the SDF goes through the 1-channel lookups and k0 through
 `tensorf_sample`.
+
+`render` and the surface queries mark their stages for a profiler
+(`utils/profiling.span`): `poseprobe.object.sample` (ray samples, mask
+lookup, compaction), `.field` (deform, lookups, SDF gradient), `.color` and
+`.composite`.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 
 from ..core.graphsafe import const
 from ..ops import compositing, fused_composite, grid as grid_ops, maskcache, pe, ray_sampling, tensorf
+from ..utils.profiling import span
 from . import deform as deform_mod
 from .mlp import apply_mlp, init_mlp
 
@@ -242,11 +248,12 @@ def sdf_with_deform(params: dict, cfg: ObjectConfig, sdf_grid: torch.Tensor, pts
     """SDF value at world points, optionally through the deformation field.
     Returns (sdf [...], aux dict with deform/correction when use_deform)."""
     lo, hi = _bounds(cfg, pts.device)
-    if use_deform:
-        deform, correction = deform_mod.apply_deform(params["warpnet"], pts)
-        sdf = grid_ops.trilinear_sample(sdf_grid, pts + deform, lo, hi)[..., 0]
-        return sdf + correction[..., 0], {"deform": deform, "correction": correction}
-    return grid_ops.trilinear_sample(sdf_grid, pts, lo, hi)[..., 0], {}
+    with span("poseprobe.object.field"):
+        if use_deform:
+            deform, correction = deform_mod.apply_deform(params["warpnet"], pts)
+            sdf = grid_ops.trilinear_sample(sdf_grid, pts + deform, lo, hi)[..., 0]
+            return sdf + correction[..., 0], {"deform": deform, "correction": correction}
+        return grid_ops.trilinear_sample(sdf_grid, pts, lo, hi)[..., 0], {}
 
 
 def _color_head(params: dict, cfg: ObjectConfig, pts, viewdirs, gradient, progress, lo, hi, k0=None):
@@ -291,12 +298,12 @@ def render(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor, rays_d: torch.
     Returns per-ray composited quantities plus the per-sample diagnostics the
     losses need (dense [N, S] with `mask` for validity).
     """
-    lo, hi = _bounds(cfg, rays_o.device)
-    progress = (torch.clamp(torch.as_tensor(global_step, dtype=torch.float32) / cfg.N_iters, 0.0, 1.0)
-                if is_train else 1.0)
-    samp, pts, step, mask = _sample(cfg, rays_o, rays_d, lo, hi, near, far,
-                                    jitter if is_train else None, mask_grid, mask_k)
-    sdf_grid = processed_sdf_grid(params, cfg)
+    with span("poseprobe.object.sample"):
+        lo, hi = _bounds(cfg, rays_o.device)
+        progress = (torch.clamp(torch.as_tensor(global_step, dtype=torch.float32) / cfg.N_iters, 0.0, 1.0)
+                    if is_train else 1.0)
+        samp, pts, step, mask = _sample(cfg, rays_o, rays_d, lo, hi, near, far,
+                                        jitter if is_train else None, mask_grid, mask_k)
 
     # With a dense k0, the sdf and the 12-channel k0 features are both sampled
     # at `pts`: they share one 13-channel gather (forward) and one 13-channel
@@ -306,62 +313,71 @@ def render(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor, rays_d: torch.
     merged = cfg.grid_type == "dense"
     k0_feat = None
     aux = {}
-    if use_deform:
-        deform, correction, jac_warp, grad_corr = deform_mod.deform_with_jacobian_fwd(
-            params["warpnet"], pts)
-        sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts + deform, lo, hi)
-        sdf_final = sdf_val[..., 0] + correction[..., 0]
-        # d sdf/d pts_j = sum_i J_warp[..., j, i] * d trilerp/d x_i + d corr/d pts_j
-        gradient = torch.einsum("...ji,...i->...j", jac_warp, tri_grad[..., 0, :]) + grad_corr
-        if merged:
-            both = grid_ops.trilinear_sample(torch.cat([sdf_grid, params["k0_grid"]], dim=0), pts, lo, hi)
-            sdf_wo_deform, k0_feat = both[..., 0], both[..., 1:]
+    with span("poseprobe.object.field"):
+        sdf_grid = processed_sdf_grid(params, cfg)
+        if use_deform:
+            deform, correction, jac_warp, grad_corr = deform_mod.deform_with_jacobian_fwd(
+                params["warpnet"], pts)
+            sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts + deform, lo, hi)
+            sdf_final = sdf_val[..., 0] + correction[..., 0]
+            # d sdf/d pts_j = sum_i J_warp[..., j, i] * d trilerp/d x_i + d corr/d pts_j
+            gradient = torch.einsum("...ji,...i->...j", jac_warp, tri_grad[..., 0, :]) + grad_corr
+            if merged:
+                both = grid_ops.trilinear_sample(torch.cat([sdf_grid, params["k0_grid"]], dim=0), pts, lo, hi)
+                sdf_wo_deform, k0_feat = both[..., 0], both[..., 1:]
+            else:
+                sdf_wo_deform = grid_ops.trilinear_sample(sdf_grid, pts, lo, hi)[..., 0]
+            aux = {"sdf_deform": sdf_final - sdf_wo_deform, "grad_deform": jac_warp,
+                   "sdf_correct": correction}
+        elif merged:
+            both, tri_grad = grid_ops.trilinear_sample_with_grad(
+                torch.cat([sdf_grid, params["k0_grid"]], dim=0), pts, lo, hi)
+            sdf_final, k0_feat = both[..., 0], both[..., 1:]
+            gradient = tri_grad[..., 0, :]
         else:
-            sdf_wo_deform = grid_ops.trilinear_sample(sdf_grid, pts, lo, hi)[..., 0]
-        aux = {"sdf_deform": sdf_final - sdf_wo_deform, "grad_deform": jac_warp,
-               "sdf_correct": correction}
-    elif merged:
-        both, tri_grad = grid_ops.trilinear_sample_with_grad(
-            torch.cat([sdf_grid, params["k0_grid"]], dim=0), pts, lo, hi)
-        sdf_final, k0_feat = both[..., 0], both[..., 1:]
-        gradient = tri_grad[..., 0, :]
-    else:
-        sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts, lo, hi)
-        sdf_final = sdf_val[..., 0]
-        gradient = tri_grad[..., 0, :]
+            sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts, lo, hi)
+            sdf_final = sdf_val[..., 0]
+            gradient = tri_grad[..., 0, :]
 
-    dist = cfg.stepsize * cfg.voxel_size
-    if is_train and not cfg.s_learn:
-        s_val = compositing.s_val_schedule(global_step, cfg.s_ratio, cfg.s_start, cfg.step_start)
-    else:
-        s_val = params["s_val"]
-
-    alpha = compositing.neus_alpha_from_sdf(viewdirs[:, None, :], dist, sdf_final, gradient, s_val)
-    alpha = torch.where(mask, alpha, 0.0)
+    with span("poseprobe.object.composite"):
+        dist = cfg.stepsize * cfg.voxel_size
+        if is_train and not cfg.s_learn:
+            s_val = compositing.s_val_schedule(global_step, cfg.s_ratio, cfg.s_start, cfg.step_start)
+        else:
+            s_val = params["s_val"]
+        alpha = compositing.neus_alpha_from_sdf(viewdirs[:, None, :], dist, sdf_final, gradient, s_val)
+        alpha = torch.where(mask, alpha, 0.0)
     if cfg.use_pallas_composite and cfg.fast_color_thres <= 0:
         # fused path: alpha, transmittance, weights and the (rgb, step) sums in
         # one kernel; it reads the colours, so the colour head runs first
-        true_cos = torch.sum(viewdirs[:, None, :] * gradient, dim=-1)
-        cos_term = -torch.clamp(-true_cos, min=0.0)
-        rgb = _color_head(params, cfg, pts, viewdirs, gradient, progress, lo, hi, k0=k0_feat)
-        weights, alphainv_last, rgb_sum, n_step = fused_composite.fused_alpha_composite(
-            sdf_final, cos_term, mask, rgb, step, 1.0 / s_val, dist)
-        w = weights[..., None]
+        with span("poseprobe.object.composite"):
+            true_cos = torch.sum(viewdirs[:, None, :] * gradient, dim=-1)
+            cos_term = -torch.clamp(-true_cos, min=0.0)
+        with span("poseprobe.object.color"):
+            rgb = _color_head(params, cfg, pts, viewdirs, gradient, progress, lo, hi, k0=k0_feat)
+        with span("poseprobe.object.composite"):
+            weights, alphainv_last, rgb_sum, n_step = fused_composite.fused_alpha_composite(
+                sdf_final, cos_term, mask, rgb, step, 1.0 / s_val, dist)
+            w = weights[..., None]
     else:
-        weights, alphainv_last = compositing.alpha2weights(alpha)
-        if cfg.fast_color_thres > 0:
-            alpha = torch.where(weights > cfg.fast_color_thres, alpha, 0.0)
+        with span("poseprobe.object.composite"):
             weights, alphainv_last = compositing.alpha2weights(alpha)
-        rgb = _color_head(params, cfg, pts, viewdirs, gradient, progress, lo, hi, k0=k0_feat)
-        w = weights[..., None]
-        rgb_sum = (w * rgb).sum(dim=1)
-        n_step = (weights * step).sum(dim=1)
+            if cfg.fast_color_thres > 0:
+                alpha = torch.where(weights > cfg.fast_color_thres, alpha, 0.0)
+                weights, alphainv_last = compositing.alpha2weights(alpha)
+        with span("poseprobe.object.color"):
+            rgb = _color_head(params, cfg, pts, viewdirs, gradient, progress, lo, hi, k0=k0_feat)
+        with span("poseprobe.object.composite"):
+            w = weights[..., None]
+            rgb_sum = (w * rgb).sum(dim=1)
+            n_step = (weights * step).sum(dim=1)
 
-    cum_weights = w.sum(dim=1)                                   # [N, 1]
-    rgb_marched = torch.clamp(rgb_sum + (1.0 - cum_weights) * bg, 0.0, 1.0)
-    normal_marched = (w * (gradient / (safe_norm(gradient, keepdim=True) + 1e-6))).sum(dim=1)
-    d_norm = torch.clamp(torch.linalg.norm(rays_d, dim=-1), min=1e-12)
-    depth = samp.t_min / d_norm + n_step
+    with span("poseprobe.object.composite"):
+        cum_weights = w.sum(dim=1)                                   # [N, 1]
+        rgb_marched = torch.clamp(rgb_sum + (1.0 - cum_weights) * bg, 0.0, 1.0)
+        normal_marched = (w * (gradient / (safe_norm(gradient, keepdim=True) + 1e-6))).sum(dim=1)
+        d_norm = torch.clamp(torch.linalg.norm(rays_d, dim=-1), min=1e-12)
+        depth = samp.t_min / d_norm + n_step
     return {
         "rgb_marched": rgb_marched,
         "normal_marched": normal_marched,
@@ -389,10 +405,12 @@ def query_surface_points(params: dict, cfg: ObjectConfig, rays_o: torch.Tensor,
     Returns (points [N, 3], valid [N] bool, sdf_d [N, S]).
     """
     lo, hi = _bounds(cfg, rays_o.device)
-    samp = ray_sampling.sample_ray(rays_o, rays_d, lo, hi, near=near, far=far,
-                                   stepsize=cfg.stepsize, voxel_size=cfg.voxel_size,
-                                   n_samples=cfg.n_samples, jitter=jitter if is_train else None)
-    sdf_grid = processed_sdf_grid(params, cfg)
+    with span("poseprobe.object.sample"):
+        samp = ray_sampling.sample_ray(rays_o, rays_d, lo, hi, near=near, far=far,
+                                       stepsize=cfg.stepsize, voxel_size=cfg.voxel_size,
+                                       n_samples=cfg.n_samples, jitter=jitter if is_train else None)
+    with span("poseprobe.object.field"):
+        sdf_grid = processed_sdf_grid(params, cfg)
     sdf, _ = sdf_with_deform(params, cfg, sdf_grid, samp.pts, use_deform)
     sdf_d = torch.where(samp.mask_inbbox, sdf, 1.0)
 
@@ -425,28 +443,31 @@ def query_surface_points_render(params: dict, cfg: ObjectConfig, rays_o: torch.T
     depth = t_min + sum(w * step)/|d|; valid where any weight mass exists.
     Returns (points [N, 3], valid [N] bool, depth [N])."""
     lo, hi = _bounds(cfg, rays_o.device)
-    samp, pts, step, mask = _sample(cfg, rays_o, rays_d, lo, hi, near, far, jitter, mask_grid, mask_k)
-    sdf_grid = processed_sdf_grid(params, cfg)
-    if use_deform:
-        deform, correction, jac_warp, grad_corr = deform_mod.deform_with_jacobian_fwd(
-            params["warpnet"], pts)
-        sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts + deform, lo, hi)
-        sdf = sdf_val[..., 0] + correction[..., 0]
-        gradient = torch.einsum("...ji,...i->...j", jac_warp, tri_grad[..., 0, :]) + grad_corr
-    else:
-        sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts, lo, hi)
-        sdf = sdf_val[..., 0]
-        gradient = tri_grad[..., 0, :]
-    dist = cfg.stepsize * cfg.voxel_size
-    s_val = (compositing.s_val_schedule(global_step, cfg.s_ratio, cfg.s_start, cfg.step_start)
-             if not cfg.s_learn else params["s_val"])
-    d_norm = torch.clamp(torch.linalg.norm(rays_d, dim=-1), min=1e-12)
-    viewdirs = rays_d / d_norm[:, None]
-    alpha = compositing.neus_alpha_from_sdf(viewdirs[:, None, :], dist, sdf, gradient, s_val)
-    alpha = torch.where(mask, alpha, 0.0)
-    weights, _ = compositing.alpha2weights(alpha)
-    n_step = (weights * step).sum(dim=1)
-    depth = samp.t_min + n_step / d_norm
+    with span("poseprobe.object.sample"):
+        samp, pts, step, mask = _sample(cfg, rays_o, rays_d, lo, hi, near, far, jitter, mask_grid, mask_k)
+    with span("poseprobe.object.field"):
+        sdf_grid = processed_sdf_grid(params, cfg)
+        if use_deform:
+            deform, correction, jac_warp, grad_corr = deform_mod.deform_with_jacobian_fwd(
+                params["warpnet"], pts)
+            sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts + deform, lo, hi)
+            sdf = sdf_val[..., 0] + correction[..., 0]
+            gradient = torch.einsum("...ji,...i->...j", jac_warp, tri_grad[..., 0, :]) + grad_corr
+        else:
+            sdf_val, tri_grad = grid_ops.trilinear_sample_with_grad(sdf_grid, pts, lo, hi)
+            sdf = sdf_val[..., 0]
+            gradient = tri_grad[..., 0, :]
+    with span("poseprobe.object.composite"):
+        dist = cfg.stepsize * cfg.voxel_size
+        s_val = (compositing.s_val_schedule(global_step, cfg.s_ratio, cfg.s_start, cfg.step_start)
+                 if not cfg.s_learn else params["s_val"])
+        d_norm = torch.clamp(torch.linalg.norm(rays_d, dim=-1), min=1e-12)
+        viewdirs = rays_d / d_norm[:, None]
+        alpha = compositing.neus_alpha_from_sdf(viewdirs[:, None, :], dist, sdf, gradient, s_val)
+        alpha = torch.where(mask, alpha, 0.0)
+        weights, _ = compositing.alpha2weights(alpha)
+        n_step = (weights * step).sum(dim=1)
+        depth = samp.t_min + n_step / d_norm
     return rays_o + rays_d * depth[:, None], n_step > 0.0, depth
 
 

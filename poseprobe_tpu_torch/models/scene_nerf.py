@@ -5,6 +5,9 @@ dicts of tensors in the JAX layout ({'feat': [{'w': [in, out], 'b'}...],
 'rgb': [...]}). With ``matmul_dtype="bfloat16"`` the trunk runs through the
 hand-written Hopper kernel (`ops/fused_mlp.py`) when its tensors are on
 CUDA; otherwise through the plain layer loop below.
+
+The renders mark their stages for a profiler (`utils/profiling.span`):
+`poseprobe.scene.sample`, `.encode`, `.trunk`, `.head` and `.composite`.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 from ..core import rays as rays_mod
 from ..core.tree import tree_map
 from ..ops import compositing, fused_mlp, pe, ray_sampling
+from ..utils.profiling import span
 from .mlp import init_linear
 
 
@@ -111,42 +115,45 @@ def nerf_forward(mlp: dict, cfg: SceneConfig, points: torch.Tensor, ray: torch.T
     """
     cdt = torch.bfloat16 if cfg.matmul_dtype == "bfloat16" else torch.float32
     mlp = cast_mlp_params(mlp, cfg.matmul_dtype)
-    enc = pe.posenc_scene(points, cfg.L_3D, progress, cfg.barf_c2f,
-                          include_pi=cfg.include_pi, add_raw=cfg.add_raw_3d).to(cdt)
-    if (cfg.use_fused_trunk and cdt == torch.bfloat16 and enc.is_cuda
-            and fused_mlp.supports(cfg)):
-        raw_density, feat = fused_mlp.fused_trunk(enc, mlp["feat"], cfg.skip[0])
-    else:
-        feat = enc
-        for li, layer in enumerate(mlp["feat"]):
-            if li in cfg.skip:
-                feat = torch.cat([feat, enc], dim=-1)
-            feat = _mm(feat, layer["w"], layer["b"])
-            if li == len(mlp["feat"]) - 1:
-                raw_density = feat[..., 0].float()
-                feat = feat[..., 1:]
-            feat = torch.relu(feat)
-    density = F.softplus(raw_density) if cfg.density_activ == "softplus" else torch.relu(raw_density)
-
-    if cfg.view_dep:
-        # the view encoding is constant along the samples axis: encode per ray
-        # and push it through the first rgb matmul before broadcasting
-        ray_unit = ray / (torch.linalg.norm(ray, dim=-1, keepdim=True) + 1e-12)
-        ray_enc = pe.posenc_scene(ray_unit, cfg.L_view, progress, cfg.barf_c2f,
-                                  include_pi=cfg.include_pi, add_raw=cfg.add_raw_rays).to(cdt)
-        first = mlp["rgb"][0]
-        feat_dim = feat.shape[-1]
-        h = _mm(feat, first["w"][:feat_dim], first["b"])
-        h = h + _mm(ray_enc, first["w"][feat_dim:])[..., None, :]
-        for layer in mlp["rgb"][1:]:
-            h = _mm(torch.relu(h), layer["w"], layer["b"])
-    else:
-        h = feat
-        for li, layer in enumerate(mlp["rgb"]):
-            if li > 0:
-                h = torch.relu(h)
-            h = _mm(h, layer["w"], layer["b"])
-    rgb = torch.sigmoid(h.float())
+    with span("poseprobe.scene.encode"):
+        enc = pe.posenc_scene(points, cfg.L_3D, progress, cfg.barf_c2f,
+                              include_pi=cfg.include_pi, add_raw=cfg.add_raw_3d).to(cdt)
+        if cfg.view_dep:
+            # the view encoding is constant along the samples axis: encode per
+            # ray and push it through the first rgb matmul before broadcasting
+            ray_unit = ray / (torch.linalg.norm(ray, dim=-1, keepdim=True) + 1e-12)
+            ray_enc = pe.posenc_scene(ray_unit, cfg.L_view, progress, cfg.barf_c2f,
+                                      include_pi=cfg.include_pi, add_raw=cfg.add_raw_rays).to(cdt)
+    with span("poseprobe.scene.trunk"):
+        if (cfg.use_fused_trunk and cdt == torch.bfloat16 and enc.is_cuda
+                and fused_mlp.supports(cfg)):
+            raw_density, feat = fused_mlp.fused_trunk(enc, mlp["feat"], cfg.skip[0])
+        else:
+            feat = enc
+            for li, layer in enumerate(mlp["feat"]):
+                if li in cfg.skip:
+                    feat = torch.cat([feat, enc], dim=-1)
+                feat = _mm(feat, layer["w"], layer["b"])
+                if li == len(mlp["feat"]) - 1:
+                    raw_density = feat[..., 0].float()
+                    feat = feat[..., 1:]
+                feat = torch.relu(feat)
+    with span("poseprobe.scene.head"):
+        density = F.softplus(raw_density) if cfg.density_activ == "softplus" else torch.relu(raw_density)
+        if cfg.view_dep:
+            first = mlp["rgb"][0]
+            feat_dim = feat.shape[-1]
+            h = _mm(feat, first["w"][:feat_dim], first["b"])
+            h = h + _mm(ray_enc, first["w"][feat_dim:])[..., None, :]
+            for layer in mlp["rgb"][1:]:
+                h = _mm(torch.relu(h), layer["w"], layer["b"])
+        else:
+            h = feat
+            for li, layer in enumerate(mlp["rgb"]):
+                if li > 0:
+                    h = torch.relu(h)
+                h = _mm(h, layer["w"], layer["b"])
+        rgb = torch.sigmoid(h.float())
     return {"rgb_samples": rgb, "density_samples": density}
 
 
@@ -161,13 +168,15 @@ def render_rays(params: dict, cfg: SceneConfig, center: torch.Tensor, ray: torch
     B, R = ray.shape[:2]
     depth_min, depth_max = depth_range
     noise = noise or {}
-    depth_samples = ray_sampling.sample_depth_stratified(
-        noise.get("jitter"), B, R, cfg.sample_intvs, depth_min, depth_max,
-        param=cfg.depth_param, device=ray.device)
-    points = rays_mod.get_3d_points_from_depth(center, ray, depth_samples, multi_samples=True)
+    with span("poseprobe.scene.sample"):
+        depth_samples = ray_sampling.sample_depth_stratified(
+            noise.get("jitter"), B, R, cfg.sample_intvs, depth_min, depth_max,
+            param=cfg.depth_param, device=ray.device)
+        points = rays_mod.get_3d_points_from_depth(center, ray, depth_samples, multi_samples=True)
     pred = nerf_forward(params["nerf"], cfg, points, ray, progress)
-    out_c = compositing.nerf_composite(pred["rgb_samples"], pred["density_samples"],
-                                       depth_samples, ray, setbg_opaque=cfg.setbg_opaque)
+    with span("poseprobe.scene.composite"):
+        out_c = compositing.nerf_composite(pred["rgb_samples"], pred["density_samples"],
+                                           depth_samples, ray, setbg_opaque=cfg.setbg_opaque)
     result = {
         "rgb": out_c.rgb, "rgb_var": out_c.rgb_var, "depth": out_c.depth,
         "depth_var": out_c.depth_var, "opacity": out_c.opacity, "weights": out_c.weights,
@@ -175,19 +184,21 @@ def render_rays(params: dict, cfg: SceneConfig, center: torch.Tensor, ray: torch
         "origins": center, "viewdirs": ray,
     }
     if cfg.fine_sampling and compute_fine:
-        with torch.no_grad():
-            depth_fine = ray_sampling.sample_depth_from_pdf(
-                noise.get("fine_grid"), out_c.weights[..., 0], cfg.sample_intvs,
-                cfg.sample_intvs_fine, depth_min, depth_max)
-            if cfg.depth_param == "metric":
-                depth_all = ray_sampling.merge_sorted_depths(depth_samples, depth_fine)
-            else:
-                depth_all = torch.sort(torch.cat([depth_samples, depth_fine], dim=-2),
-                                       dim=-2).values
-        points_f = rays_mod.get_3d_points_from_depth(center, ray, depth_all, multi_samples=True)
+        with span("poseprobe.scene.sample"):
+            with torch.no_grad():
+                depth_fine = ray_sampling.sample_depth_from_pdf(
+                    noise.get("fine_grid"), out_c.weights[..., 0], cfg.sample_intvs,
+                    cfg.sample_intvs_fine, depth_min, depth_max)
+                if cfg.depth_param == "metric":
+                    depth_all = ray_sampling.merge_sorted_depths(depth_samples, depth_fine)
+                else:
+                    depth_all = torch.sort(torch.cat([depth_samples, depth_fine], dim=-2),
+                                           dim=-2).values
+            points_f = rays_mod.get_3d_points_from_depth(center, ray, depth_all, multi_samples=True)
         pred_f = nerf_forward(params["nerf_fine"], cfg, points_f, ray, progress)
-        out_f = compositing.nerf_composite(pred_f["rgb_samples"], pred_f["density_samples"],
-                                           depth_all, ray, setbg_opaque=cfg.setbg_opaque)
+        with span("poseprobe.scene.composite"):
+            out_f = compositing.nerf_composite(pred_f["rgb_samples"], pred_f["density_samples"],
+                                               depth_all, ray, setbg_opaque=cfg.setbg_opaque)
         result.update({
             "rgb_fine": out_f.rgb, "rgb_var_fine": out_f.rgb_var, "depth_fine": out_f.depth,
             "depth_var_fine": out_f.depth_var, "opacity_fine": out_f.opacity,
@@ -203,15 +214,18 @@ def render_rays_to_max(params: dict, cfg: SceneConfig, center: torch.Tensor, ray
     """Render each ray only up to a per-ray max depth [B, R] (visibility);
     `all_cumulated` is the probability the ray reaches that depth unoccluded."""
     B, R = ray.shape[:2]
-    depth_samples = ray_sampling.sample_depth_to_max(B, R, cfg.sample_intvs, depth_min, depth_max)
-    points = rays_mod.get_3d_points_from_depth(center, ray, depth_samples, multi_samples=True)
+    with span("poseprobe.scene.sample"):
+        depth_samples = ray_sampling.sample_depth_to_max(B, R, cfg.sample_intvs, depth_min, depth_max)
+        points = rays_mod.get_3d_points_from_depth(center, ray, depth_samples, multi_samples=True)
     pred = nerf_forward(params["nerf"], cfg, points, ray, progress)
-    out_c = compositing.nerf_composite(pred["rgb_samples"], pred["density_samples"],
-                                       depth_samples, ray, setbg_opaque=cfg.setbg_opaque)
+    with span("poseprobe.scene.composite"):
+        out_c = compositing.nerf_composite(pred["rgb_samples"], pred["density_samples"],
+                                           depth_samples, ray, setbg_opaque=cfg.setbg_opaque)
     result = {"all_cumulated": out_c.all_cumulated, "depth": out_c.depth, "opacity": out_c.opacity}
     if cfg.fine_sampling and compute_fine:
         pred_f = nerf_forward(params["nerf_fine"], cfg, points, ray, progress)
-        out_f = compositing.nerf_composite(pred_f["rgb_samples"], pred_f["density_samples"],
-                                           depth_samples, ray, setbg_opaque=cfg.setbg_opaque)
+        with span("poseprobe.scene.composite"):
+            out_f = compositing.nerf_composite(pred_f["rgb_samples"], pred_f["density_samples"],
+                                               depth_samples, ray, setbg_opaque=cfg.setbg_opaque)
         result["all_cumulated_fine"] = out_f.all_cumulated
     return result

@@ -7,9 +7,8 @@
 For each phase cell of `build_trainer()` (early: step 1, object branch on;
 coarse: step 10,001; mid: step 18,001) it times steps without the profiler
 (host clock around synchronised steps), then traces the same number of steps
-with `torch.profiler` and prints the device time per step, the device busy
-share (device time / unprofiled step time), the device events per step, the
-device time of the hand-written kernels (fused trunk; trilinear and layout;
+with `torch.profiler` and prints the device time per step, the device
+events per step, the device time of the hand-written kernels (fused trunk; trilinear and layout;
 fused alpha-composite), the kernels with the most device time and the most
 frequent host (aten) ops.
 With `--superstep K` it also runs the steps as K-step superstep windows
@@ -42,9 +41,11 @@ from .train import trainer as trainer_mod
 
 def _device_events(prof):
     """Kernels, copies and memsets: the events that run on the card (the CPU
-    ops that launched them carry the same time and are left out)."""
+    ops that launched them carry the same time and are left out, and so do
+    the program's spans, which the profiler also draws on the card's timeline)."""
     return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _run(tr, mode: str, steps: int, k: int) -> None:
@@ -88,7 +89,6 @@ def _traced(tr, name: str, mode: str, steps: int, k: int, step_ms: float, out: P
     result = {
         "step_ms": step_ms,
         "device_ms_per_step": device_us / 1e3 / steps,
-        "busy_share": device_us / 1e3 / steps / step_ms,
         "launches_per_step": launches / steps,
         "trunk_kernels_ms_per_step": trunk_us / 1e3 / steps,
         "grid_kernels_ms_per_step": grid_us / 1e3 / steps,
@@ -98,8 +98,8 @@ def _traced(tr, name: str, mode: str, steps: int, k: int, step_ms: float, out: P
         "top_host_ops": [{"op": e.key, "calls_per_step": e.count / steps,
                           "host_ms_per_step": e.cpu_time_total / 1e3 / steps} for e in host_ops],
     }
-    print(f"{name} {mode}: {step_ms:.2f} ms/step unprofiled, device {result['device_ms_per_step']:.2f} ms/step "
-          f"(busy {100 * result['busy_share']:.1f}%), {result['launches_per_step']:.0f} device "
+    print(f"{name} {mode}: {step_ms:.2f} ms/step unprofiled, device {result['device_ms_per_step']:.2f} ms/step, "
+          f"{result['launches_per_step']:.0f} device "
           f"events/step, trunk kernels {result['trunk_kernels_ms_per_step']:.2f} ms/step, trilinear + "
           f"layout kernels {result['grid_kernels_ms_per_step']:.3f} ms/step, composite kernels "
           f"{result['composite_kernels_ms_per_step']:.4f} ms/step")

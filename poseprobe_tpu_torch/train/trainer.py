@@ -56,6 +56,13 @@ Adam; `fit` broadcasts rank 0's state after each step at which host events
 may fire (`replicate_state`). On an NCCL mesh a superstep window is captured
 with its all-reduce; on gloo it runs eagerly (``graph: False`` in the logged
 metrics).
+The step and the host loop mark their layers for a profiler
+(`utils/profiling.span`: `poseprobe.step.*` around the draws, the batch, each
+loss group, the backward and the optimizer; `poseprobe.host.*` around eager
+steps, replays and the step setter). Beside the
+reference's metrics the step reports `feat_rays` (the feature term's valid
+rays) and, with the mask cache, `maskcache_fill` (the in-mask share of the
+object render's lanes after compaction).
 `host_extras` / `restore_host_extras` hold the host-side state that
 `train/state.py`'s checkpoints carry beside the tensors
 (the generator, the mask cache and its budgets, the object voxel count).
@@ -81,6 +88,7 @@ from ..models import object_sdf, pose_refine, scene_nerf
 from ..ops import compositing, grid as grid_ops, maskcache, ray_sampling, tensorf
 from ..parallel import mesh as mesh_mod
 from ..pose_init import ba as ba_mod, pnp as pnp_mod
+from ..utils.profiling import span
 from . import batching, graphs
 from .optim import ObjectOptimizer, PoseOptimizer, SceneOptimizer
 
@@ -202,8 +210,9 @@ class SceneTrainer:
 
     @global_step.setter
     def global_step(self, step: int) -> None:
-        self._global_step = int(step)
-        self._step_t.fill_(self._global_step)
+        with span("poseprobe.host.set_step"):
+            self._global_step = int(step)
+            self._step_t.fill_(self._global_step)
 
     @property
     def fix_first_pose(self) -> bool:
@@ -276,41 +285,41 @@ class SceneTrainer:
         progress = torch.clamp(step / sm.max_iter, 0.0, 1.0)
         depth_range = (self.data.near, self.data.far)
 
-        current_pose = pose_refine.current_pose_pnp(pose_p, self.poses_pnp,
-                                                    fix_first=self.fix_first_pose)
-        if not flags["pose_on"]:
-            # pose window closed: no pose update, so no gradient into the poses
-            current_pose = current_pose.detach()
-        active_pose, active_K = current_pose[:n_active], self.Ks[:n_active]
-        scene_pc = scene_nerf.cast_mlp_params(scene_p, sm.matmul_dtype)
-        sbatch = batching.sample_scene_pixels(
-            draws["pixels"], n_active, self.H, self.W, sc.depth_regu_patch_size,
-            self.images[:n_active], n_active, precrop=flags["precrop_on"],
-            precrop_frac=sc.precrop_frac,
-            fg_pixels=None if self.fg_pixels is None else self.fg_pixels[:n_active],
-            fg_counts=None if self.fg_counts is None else self.fg_counts[:n_active])
-        center_m, ray_m = rays_mod.get_center_and_ray_at_pixels(active_pose, sbatch.pixels,
-                                                                active_K)
-        R_v = center_m.shape[1]
-        R_main = n_active * R_v
-
         lw = sc.loss_weight_dict()
         use_corres = lw.get("corres") is not None
         use_dc = flags["depth_cons_on"] and lw.get("depth_cons") is not None
+        scene_pc = scene_nerf.cast_mlp_params(scene_p, sm.matmul_dtype)
+        with span("poseprobe.step.batch"):
+            current_pose = pose_refine.current_pose_pnp(pose_p, self.poses_pnp,
+                                                        fix_first=self.fix_first_pose)
+            if not flags["pose_on"]:
+                # pose window closed: no pose update, so no gradient into the poses
+                current_pose = current_pose.detach()
+            active_pose, active_K = current_pose[:n_active], self.Ks[:n_active]
+            sbatch = batching.sample_scene_pixels(
+                draws["pixels"], n_active, self.H, self.W, sc.depth_regu_patch_size,
+                self.images[:n_active], n_active, precrop=flags["precrop_on"],
+                precrop_frac=sc.precrop_frac,
+                fg_pixels=None if self.fg_pixels is None else self.fg_pixels[:n_active],
+                fg_counts=None if self.fg_counts is None else self.fg_counts[:n_active])
+            center_m, ray_m = rays_mod.get_center_and_ray_at_pixels(active_pose, sbatch.pixels,
+                                                                    active_K)
+            R_v = center_m.shape[1]
+            R_main = n_active * R_v
 
-        # the main rays and the corres pair rays go through ONE render call
-        center_all = center_m.reshape(1, R_main, 3)
-        ray_all = ray_m.reshape(1, R_main, 3)
-        if use_corres:
-            r = draws["corres_view"]
-            pack = take(self.scene_matches, r)
-            px_self, px_other, conf = pack[:, 2:4], pack[:, 0:2], pack[:, 4]
-            id_self, id_other = r, take(self.pair_j_t, r)
-            center_c, ray_c = scene_losses.correspondence_pair_rays(
-                current_pose, self.Ks, px_self, px_other, id_self, id_other)
-            M = center_c.shape[1]
-            center_all = torch.cat([center_all, center_c.reshape(1, 2 * M, 3)], dim=1)
-            ray_all = torch.cat([ray_all, ray_c.reshape(1, 2 * M, 3)], dim=1)
+            # the main rays and the corres pair rays go through ONE render call
+            center_all = center_m.reshape(1, R_main, 3)
+            ray_all = ray_m.reshape(1, R_main, 3)
+            if use_corres:
+                r = draws["corres_view"]
+                pack = take(self.scene_matches, r)
+                px_self, px_other, conf = pack[:, 2:4], pack[:, 0:2], pack[:, 4]
+                id_self, id_other = r, take(self.pair_j_t, r)
+                center_c, ray_c = scene_losses.correspondence_pair_rays(
+                    current_pose, self.Ks, px_self, px_other, id_self, id_other)
+                M = center_c.shape[1]
+                center_all = torch.cat([center_all, center_c.reshape(1, 2 * M, 3)], dim=1)
+                ray_all = torch.cat([ray_all, ray_c.reshape(1, 2 * M, 3)], dim=1)
         # with a mesh: this rank's share of the rays, then every rank's outputs on every rank
         R_all = center_all.shape[1]
         noise = dict(draws["render"], jitter=mesh_mod.shard_rays(draws["render"]["jitter"][:, :R_all],
@@ -322,33 +331,37 @@ class SceneTrainer:
                                          R_all, self.mesh, axis=1)
 
         rets = {k: v[:, :R_main].reshape((n_active, R_v) + v.shape[2:]) for k, v in rets_all.items()}
-        loss_dict = dict(scene_losses.photometric_and_regu_loss(rets, sbatch.target, sc))
-        if use_corres:
-            depth_pair = rets_all["depth"][0, R_main:, 0].reshape(2, M)
-            depth_fine_pair = (rets_all["depth_fine"][0, R_main:, 0].reshape(2, M)
-                               if "depth_fine" in rets_all else None)
-            loss_dict["corres"] = scene_losses.correspondence_loss_from_depths(
-                depth_pair, depth_fine_pair, current_pose, self.Ks, px_self, px_other, conf,
-                id_self, id_other, step, sc)
-        if use_dc and not use_corres:
-            # no corres term: a fresh reference render at drawn pixels
-            loss_dict["depth_cons"] = scene_losses.depth_consistency_loss(
-                scene_pc, sm, active_pose, active_K, draws["dc_pixels"], draws["dc_view"],
-                interp_w=draws["dc_interp_w"], H=self.H, W=self.W, depth_range=depth_range,
-                progress=progress, iteration=step, compute_fine=flags["fine_on"],
-                use_fine_depth_as_ref=flags["fine_on"], opt=sc, noise_ref=draws["dc_render_ref"],
-                noise=draws["dc_render"])
-        elif use_dc:
-            # the corres pair's self-view pixels and their depth are the reference
-            d_ref = depth_fine_pair[0] if depth_fine_pair is not None else depth_pair[0]
-            loss_dict["depth_cons"] = scene_losses.depth_consistency_from_ref_depth(
-                scene_pc, sm, active_pose, active_K, px_self, d_ref, id_self,
-                interp_w=draws["dc_interp_w"], H=self.H, W=self.W, depth_range=depth_range,
-                progress=progress, iteration=step, compute_fine=flags["fine_on"], opt=sc,
-                noise=draws["dc_render"], ref_valid=conf > 0)
-        total = loss_common.summarize_losses(loss_dict, lw)
-        mse = ((rets["rgb"] - sbatch.target) ** 2).mean()
-        metrics = {"psnr_scene": loss_common.mse2psnr(mse), "loss_render": loss_dict["render"]}
+        with span("poseprobe.step.scene_losses"):
+            loss_dict = dict(scene_losses.photometric_and_regu_loss(rets, sbatch.target, sc))
+            if use_corres:
+                depth_pair = rets_all["depth"][0, R_main:, 0].reshape(2, M)
+                depth_fine_pair = (rets_all["depth_fine"][0, R_main:, 0].reshape(2, M)
+                                   if "depth_fine" in rets_all else None)
+                loss_dict["corres"] = scene_losses.correspondence_loss_from_depths(
+                    depth_pair, depth_fine_pair, current_pose, self.Ks, px_self, px_other, conf,
+                    id_self, id_other, step, sc)
+        if use_dc:
+            with span("poseprobe.step.depth_cons"):
+                if not use_corres:
+                    # no corres term: a fresh reference render at drawn pixels
+                    loss_dict["depth_cons"] = scene_losses.depth_consistency_loss(
+                        scene_pc, sm, active_pose, active_K, draws["dc_pixels"], draws["dc_view"],
+                        interp_w=draws["dc_interp_w"], H=self.H, W=self.W, depth_range=depth_range,
+                        progress=progress, iteration=step, compute_fine=flags["fine_on"],
+                        use_fine_depth_as_ref=flags["fine_on"], opt=sc, noise_ref=draws["dc_render_ref"],
+                        noise=draws["dc_render"])
+                else:
+                    # the corres pair's self-view pixels and their depth are the reference
+                    d_ref = depth_fine_pair[0] if depth_fine_pair is not None else depth_pair[0]
+                    loss_dict["depth_cons"] = scene_losses.depth_consistency_from_ref_depth(
+                        scene_pc, sm, active_pose, active_K, px_self, d_ref, id_self,
+                        interp_w=draws["dc_interp_w"], H=self.H, W=self.W, depth_range=depth_range,
+                        progress=progress, iteration=step, compute_fine=flags["fine_on"], opt=sc,
+                        noise=draws["dc_render"], ref_valid=conf > 0)
+        with span("poseprobe.step.scene_losses"):
+            total = loss_common.summarize_losses(loss_dict, lw)
+            mse = ((rets["rgb"] - sbatch.target) ** 2).mean()
+            metrics = {"psnr_scene": loss_common.mse2psnr(mse), "loss_render": loss_dict["render"]}
         if "corres" in loss_dict:
             metrics["loss_corres"] = loss_dict["corres"]
         metrics["loss_total"] = total
@@ -374,7 +387,8 @@ class SceneTrainer:
         params and their state, and the advance of the step counter. Returns
         the metrics (0-dim tensors on the device)."""
         if draws is None:
-            draws = self.sample_draws(flags)
+            with span("poseprobe.step.draws"):
+                draws = self.sample_draws(flags)
         names = self._trained(flags)
         params = {n: getattr(self, f"{n}_params") for n in self.GROUPS}
         params.update({n: _leafify(params[n]) for n in names})
@@ -382,12 +396,13 @@ class SceneTrainer:
 
         leaves = [tree_leaves(params[n]) for n in names]
         flat = [x for group in leaves for x in group]
-        grads = torch.autograd.grad(total, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
-        if self.mesh is not None:
-            grads = mesh_mod.mean_grads(grads, self.mesh)
+        with span("poseprobe.step.backward"):
+            grads = torch.autograd.grad(total, flat, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+            if self.mesh is not None:
+                grads = mesh_mod.mean_grads(grads, self.mesh)
         start = 0
-        with torch.no_grad():
+        with torch.no_grad(), span("poseprobe.step.optimizer"):
             for n, group in zip(names, leaves):
                 own = getattr(self, f"{n}_params")
                 g = tree_unflatten(own, grads[start:start + len(group)])
@@ -401,7 +416,8 @@ class SceneTrainer:
     def step(self, draws: dict | None = None) -> dict:
         """One training step, run eagerly; returns its metrics (0-dim tensors
         on the device)."""
-        metrics = self._step_body(self.phase_flags(self.global_step), draws)
+        with span("poseprobe.host.eager_step"):
+            metrics = self._step_body(self.phase_flags(self.global_step), draws)
         self._global_step += 1
         return metrics
 
@@ -437,16 +453,17 @@ class SceneTrainer:
         graph = self._graphs.get(key, self.state_tensors())
         rows = []
         if graph is None:
-            with graphs.sync_debug_error():
+            with graphs.sync_debug_error(), span("poseprobe.host.eager_step"):
                 first = self._step_body(flags)
             self._global_step += 1
             rows.append(torch.stack(list(first.values())))
             graph = self._graphs.put(key, graphs.StepGraph(lambda: self._step_body(flags),
                                                            self.state_tensors(), self.generator))
         while len(rows) < k:
-            graph.replay()
+            with span("poseprobe.host.replay"):
+                graph.replay()
+                rows.append(graph.packed.clone())
             self._global_step += 1
-            rows.append(graph.packed.clone())
         hist = torch.stack(rows)
         return {name: hist[:, j] for j, name in enumerate(graph.outputs)}
 
@@ -722,13 +739,14 @@ class JointTrainer(SceneTrainer):
         oc, ot = cfg.object_model, cfg.object_train
         step = self._as_step(step)
         step_f = step.to(torch.float32)
-        current_pose = pose_refine.current_pose_pnp(pose_p, self.poses_pnp,
-                                                    fix_first=self.fix_first_pose)
-        if not flags["pose_on"]:
-            current_pose = current_pose.detach()
-        batch = batching.sample_object_batch(draws["object"], self.images, self.masks, self.Ks,
-                                             current_pose, self.sampler_pixels, self.sampler_counts,
-                                             self.data.inverse_y)
+        with span("poseprobe.step.batch"):
+            current_pose = pose_refine.current_pose_pnp(pose_p, self.poses_pnp,
+                                                        fix_first=self.fix_first_pose)
+            if not flags["pose_on"]:
+                current_pose = current_pose.detach()
+            batch = batching.sample_object_batch(draws["object"], self.images, self.masks, self.Ks,
+                                                 current_pose, self.sampler_pixels, self.sampler_counts,
+                                                 self.data.inverse_y)
         shard = lambda x: mesh_mod.shard_rays(x, self.mesh)  # noqa: E731
         render_out = object_sdf.render(
             obj_p, oc, shard(batch.rays_o), shard(batch.rays_d), shard(batch.viewdirs), global_step=step_f,
@@ -736,41 +754,48 @@ class JointTrainer(SceneTrainer):
             far=self.data.far, bg=1.0 if self.data.white_bkgd else 0.0, mask_grid=self.mask_arr,
             mask_k=self._mask_k)
         render_out = mesh_mod.unshard_rays(render_out, batch.rays_o.shape[0], self.mesh)
-        k0_tv = object_losses_mod.k0_total_variation(obj_p)
-        _, _, obj_loss, psnr = object_losses_mod.object_losses(
-            render_out, batch.target, batch.mask, step_f, oc.N_iters, weight_main=ot.weight_main,
-            weight_mask=ot.weight_mask, weight_tv_k0=ot.weight_tv_k0, k0_tv_value=k0_tv,
-            use_deform=True, deform_prior_init=ot.weight_deform_prior_init,
-            deform_prior_final=ot.weight_deform_prior_final)
-        obj_loss = obj_loss + self._tv_density_loss(obj_p, step)
         metrics = {}
-        if ot.weight_shell > 0:
-            shell = object_losses_mod.shell_positivity_loss(obj_p["sdf_grid"], ot.shell_margin)
-            obj_loss = obj_loss + ot.weight_shell * shell
-            metrics["shell_loss"] = shell
-        metrics["psnr_obj"] = psnr
-        metrics["s_val"] = render_out["s_val"]
+        with span("poseprobe.step.object_losses"):
+            k0_tv = object_losses_mod.k0_total_variation(obj_p)
+            _, _, obj_loss, psnr = object_losses_mod.object_losses(
+                render_out, batch.target, batch.mask, step_f, oc.N_iters, weight_main=ot.weight_main,
+                weight_mask=ot.weight_mask, weight_tv_k0=ot.weight_tv_k0, k0_tv_value=k0_tv,
+                use_deform=True, deform_prior_init=ot.weight_deform_prior_init,
+                deform_prior_final=ot.weight_deform_prior_final)
+            obj_loss = obj_loss + self._tv_density_loss(obj_p, step)
+            if ot.weight_shell > 0:
+                shell = object_losses_mod.shell_positivity_loss(obj_p["sdf_grid"], ot.shell_margin)
+                obj_loss = obj_loss + ot.weight_shell * shell
+                metrics["shell_loss"] = shell
+            metrics["psnr_obj"] = psnr
+            metrics["s_val"] = render_out["s_val"]
+            if self.mask_arr is not None:
+                # the in-mask share of the lanes the render computed after compaction
+                # (the port's own metric)
+                metrics["maskcache_fill"] = render_out["mask"].float().mean()
         if ot.projection_dis_error > 0:
-            r = draws["proj_view"]
-            pack = take(self.obj_matches, r)
-            proj_err, near_surf = projection_losses.projection_error_loss(
-                obj_p, oc, current_pose, self.Ks, coord_self=pack[:, 0:2], coord_other=pack[:, 2:4],
-                mconf=pack[:, 4], id_i=take(self.pair_j_t, r), id_j=r, global_step=step_f,
-                inverse_y=self.data.inverse_y, use_deform=flags["proj_use_deform"], pixel_thre=200.0,
-                near=self.data.near, far=self.data.far, mask_grid=self.mask_arr, mask_k=self._mask_k)
-            obj_loss = obj_loss + ot.projection_dis_error * proj_err + ot.weight_near_surface * near_surf
-            metrics["proj_err"] = proj_err
+            with span("poseprobe.step.projection"):
+                r = draws["proj_view"]
+                pack = take(self.obj_matches, r)
+                proj_err, near_surf = projection_losses.projection_error_loss(
+                    obj_p, oc, current_pose, self.Ks, coord_self=pack[:, 0:2], coord_other=pack[:, 2:4],
+                    mconf=pack[:, 4], id_i=take(self.pair_j_t, r), id_j=r, global_step=step_f,
+                    inverse_y=self.data.inverse_y, use_deform=flags["proj_use_deform"], pixel_thre=200.0,
+                    near=self.data.near, far=self.data.far, mask_grid=self.mask_arr, mask_k=self._mask_k)
+                obj_loss = obj_loss + ot.projection_dis_error * proj_err + ot.weight_near_surface * near_surf
+                metrics["proj_err"] = proj_err
         if self._feature_term_on(flags):
-            r2 = draws["feat_view"]
-            n_feat_rays = min(256, ot.N_rand)
-            feat_loss, n_valid = projection_losses.surface_feature_loss(
-                obj_p, oc, current_pose, self.Ks, batch.rays_o[:n_feat_rays],
-                batch.rays_d[:n_feat_rays], id_i=r2, id_j=take(self.pair_j_t, r2),
-                feature_maps=self.feature_maps, global_step=step_f, inverse_y=self.data.inverse_y,
-                use_deform=True, near=self.data.near, far=self.data.far)
-            obj_loss = obj_loss + ot.weight_surface_projection * feat_loss
-            metrics["feat_loss"] = feat_loss
-            metrics["feat_rays"] = n_valid      # the valid rays of the term (the port's own metric)
+            with span("poseprobe.step.feature"):
+                r2 = draws["feat_view"]
+                n_feat_rays = min(256, ot.N_rand)
+                feat_loss, n_valid = projection_losses.surface_feature_loss(
+                    obj_p, oc, current_pose, self.Ks, batch.rays_o[:n_feat_rays],
+                    batch.rays_d[:n_feat_rays], id_i=r2, id_j=take(self.pair_j_t, r2),
+                    feature_maps=self.feature_maps, global_step=step_f, inverse_y=self.data.inverse_y,
+                    use_deform=True, near=self.data.near, far=self.data.far)
+                obj_loss = obj_loss + ot.weight_surface_projection * feat_loss
+                metrics["feat_loss"] = feat_loss
+                metrics["feat_rays"] = n_valid      # the valid rays of the term (the port's own metric)
         return obj_loss, metrics
 
     def joint_loss(self, obj_p: dict, scene_p: dict, pose_p: dict, step, flags: dict,

@@ -2,10 +2,13 @@
 
 Port of `poseprobe_tpu/utils/profiling.py`:
 
-* `trace(logdir)`: a context manager that records a `torch.profiler` trace
-  (host and, on a card, device activity) and writes it to `logdir` as a
-  Chrome trace;
-* `RaysPerSecond`: a sliding-window throughput meter;
+* `span(name)`: a host span at one of the program's layer boundaries
+  (`poseprobe.<layer>.<part>`), a `torch.profiler.record_function` while a
+  profiler is running and a shared no-op context otherwise, so the spans
+  cost ~1 us each when nothing traces. Under a profiler they land in its
+  trace beside the device events, on the same clock; the device work
+  launched inside a span (and, through autograd's sequence numbers, its
+  backward) can be put down to it;
 * `nan_debug(fn)`: in place of the reference's `checkify_nan_debug`, runs
   `fn` under `torch.autograd.detect_anomaly` (a backward that produces NaN
   raises, naming the forward op) and raises `FloatingPointError` when a
@@ -15,41 +18,16 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import os
-import time
 
 import torch
 
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Profile the enclosed code and write ``trace.json`` into `logdir`."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+NO_SPAN = contextlib.nullcontext()
 
 
-class RaysPerSecond:
-    """Sliding-window rays/s counter."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._events: list[tuple[float, int]] = []
-
-    def update(self, n_rays: int) -> float:
-        now = time.perf_counter()
-        self._events.append((now, n_rays))
-        if len(self._events) > self.window:
-            self._events.pop(0)
-        if len(self._events) < 2:
-            return 0.0
-        dt = self._events[-1][0] - self._events[0][0]
-        total = sum(n for _, n in self._events[1:])
-        return total / max(dt, 1e-9)
+def span(name: str):
+    """`torch.profiler.record_function(name)` while a profiler is running,
+    else the shared no-op context `NO_SPAN`."""
+    return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else NO_SPAN
 
 
 def _tensors(out):

@@ -94,7 +94,7 @@ def test_a_jax_file_loads_into_the_port_and_steps_as_jax_does(jax_file):
     flags, jm = _jax_step(jt, rng)
     assert flags == tt.phase_flags(tt.global_step) and flags["object_on"] and flags["pose_on"]
     tm = tt.step(_draws_from_jax(jt, rng, flags))
-    assert set(jm) == set(tm)
+    assert set(jm) | {"maskcache_fill"} == set(tm)          # the mask cache's fill: the port's own metric
     # proj_err: the jitted JAX step and op-by-op evaluation disagree on grazing rays
     # (test_torch_port_joint_step.py); its weight in loss_total is 1e-4, inside the tolerance
     for k in set(jm) - {"proj_err"}:

@@ -661,6 +661,30 @@ def test_early_step_runs_through_the_kernels():
 
 
 @pytest.mark.cuda
+def test_spans_claim_the_kernels_of_an_eager_step():
+    """An eager early step of the small joint trainer under torch.profiler,
+    split by the benchmark's `portbench/spans.py`: every trunk kernel, the
+    backward's `trunk_bwd_*` included (through autograd's sequence numbers),
+    lands under `poseprobe.scene.trunk`; every trilinear kernel, forward and
+    backward, under `poseprobe.object.field`; device time that no host op
+    claims is under 1% of the step's."""
+    _need_card()
+    from portbench import spans
+    tr = build_trainer(small=True, device="cuda")
+
+    def unit():
+        tr.global_step = 1
+        tr.step()
+        torch.cuda.synchronize()
+    got = spans.attribute(*spans.record(unit, 2))
+    assert got["device_s"][spans.UNLINKED] < 0.01 * got["total_s"], got["device_s"]
+    for kind, span in (("trunk_", "poseprobe.scene.trunk"), ("trilinear_", "poseprobe.object.field")):
+        mine = {k: v for k, v in got["by_kernel"].items() if kind in k[1] and abs(v) > 1e-12}
+        assert any("_bwd" in name for _, name in mine), (kind, mine)
+        assert {where for where, _ in mine} == {span}, (kind, mine)
+
+
+@pytest.mark.cuda
 def test_preset_step_replays_as_a_cuda_graph_with_the_feature_term(tmp_path):
     """The `dtu_generic` preset (its 8x256 bf16 trunk and mask cache; a 24^3
     grid after its pg_scale shrink, 256 rays, 32 + 32 samples) trained from a

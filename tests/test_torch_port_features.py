@@ -245,7 +245,7 @@ def test_dtu_generic_early_step_matches_joint_trainer(tmp_path):
     draws = _draws_from_jax(jt, rng, flags)
     draws["feat_view"] = int(jax.random.randint(jax.random.split(rng, 10)[8], (), 0, flags["n_active"]))
     tm = tt.step(draws)
-    assert set(jm) | {"feat_rays"} == set(tm) and "feat_loss" in jm
+    assert set(jm) | {"feat_rays", "maskcache_fill"} == set(tm) and "feat_loss" in jm
     assert tm["feat_rays"].item() > 0
     for k in jm:
         if k != "proj_err":     # held op by op in the joint-step test; its weight here is 1e-3

@@ -182,7 +182,8 @@ def test_early_step_matches_joint_trainer(incremental, proj_use_deform):
          st.opt_pose, st.poses_pnp) = new
         st.step += 1
         tm = tt.step(_draws_from_jax(jt, rng, flags))
-        assert set(jm) == set(tm)
+        assert set(jm) | {"maskcache_fill"} == set(tm)      # the mask cache's fill: the port's own metric
+        assert 0 < tm["maskcache_fill"].item() <= 1
         for k in jm:
             ref = float(proj_ref) if k == "proj_err" else float(jm[k])
             np.testing.assert_allclose(tm[k].item(), ref, rtol=1e-4, atol=1e-6, err_msg=k)
@@ -255,7 +256,7 @@ def test_build_trainer_early_phase_on_cpu(barrier, monkeypatch):
     monkeypatch.setenv("POSEPROBE_SCATTER_BARRIER", barrier)
     m = tr.step(draws)
     assert set(m) == {"psnr_obj", "s_val", "proj_err", "psnr_scene", "loss_render", "loss_corres",
-                      "loss_total"}
+                      "loss_total", "maskcache_fill"}
     assert all(np.isfinite(v.item()) for v in m.values()), m
     assert m["loss_total"].item() == ref.item()
     assert tr.global_step == 2 and tr.opt_obj_state["count"] == 1

@@ -516,7 +516,7 @@ def test_fit_across_an_activation_matches(pair, monkeypatch, numpy_pnp):
     # before the event: three steps on the same draws, metrics to 1e-3
     # (step 0 alone holds 1e-4; the grids' Adam steps add their noise)
     for jh, th in zip(jhist[:3], thist[:3]):
-        assert set(jh) == set(th)
+        assert set(jh) | {"maskcache_fill"} == set(th)      # the mask cache's fill: the port's own metric
         for k in jh:
             np.testing.assert_allclose(th[k], jh[k], rtol=1e-3, atol=1e-5, err_msg=f"step {jh['step']} {k}")
     # the activated pose: PnP on anchors from probes that took three steps

@@ -223,7 +223,7 @@ def test_joint_step_with_a_tensorf_k0_matches_jax(jax_tensorf, tmp_path):
     flags, jm = _jax_step(jt, rng)
     assert flags == tt.phase_flags(tt.global_step) and flags["object_on"]
     tm = tt.step(js._draws_from_jax(jt, rng, flags))
-    assert set(jm) == set(tm)
+    assert set(jm) | {"maskcache_fill"} == set(tm)          # the mask cache's fill: the port's own metric
     for k in set(jm) - {"proj_err"}:     # proj_err: jitted against op by op, see test_torch_port_joint_step.py
         np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-4, atol=1e-6, err_msg=k)
     jo = convert.adam_state_to_numpy(convert.object_adam_state_from_jax(jax.tree.map(np.asarray, jt.state.opt_obj),
