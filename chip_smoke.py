@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py [--lookup-points FILE]
 
-Builds the port's CUDA kernels from `poseprobe_tpu_torch/csrc/` (six
+Builds the port's CUDA kernels from `poseprobe_tpu_torch/csrc/` (seven
 sources, one nvcc each, in parallel) and holds each kernel against its plain
 PyTorch version on the card:
 * the fused-trunk kernels at the mid-phase fine render's 393,216 points and
   at a ragged point count;
+* the scene encoding's kernels (`posenc.cu`) at the same points, at a render
+  chunk's 1,048,576 and at a ragged count: the forward bit for bit against
+  the plain chain, the backward against autograd through it, each timed
+  beside the plain chain with its bound (bytes);
 * the layout kernels (`transpose2d`, `transpose_slice`, `materialize`) at the
   96^3 x 13-channel grid's shapes and at ragged ones, bit for bit (no path
   launches the two transposes: the lookup works on the grid's own layout);
@@ -167,6 +171,7 @@ PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 FINE_POINTS = (1024 + 2 * 256) * 256   # mid-phase fine render: (rays + corres pair rays) x 256
 RAGGED_POINTS = 100_003                # not a multiple of the 128-point tile
+RENDER_CHUNK_POINTS = 4096 * 256       # a render chunk's fine samples: 4096 rays x (128 + 128)
 REL_TOL = 2e-2                         # max abs error allowed, as a fraction of max |twin|
 COMPOSITE_TILE = 1024                  # ops/fused_composite.TILE: longer rays go to the ray kernels
 CHUNKED_S = (1025, 2048, 4096, 8192)   # sample counts past the tile held (4096, 8192: several stages)
@@ -410,6 +415,69 @@ def _trunk_bwd_parts(fused_mlp, enc, g_feat, g_dens, feat, acts, w, b, L: int, s
     print(f"trunk_bwd N={n}: floor of the two-kernel design {floor_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms "
           f"({floor_bytes / 1e9:.3f} GB at {PEAK_HBM_BYTES / 1e12:.2f} TB/s)")
     return parts
+
+
+def check_posenc_kernels(pe, fused_mlp, scene_nerf) -> list:
+    """The scene encoding's kernels (`csrc/posenc.cu`) against the plain chain
+    (`posenc_scene`, the bf16 cast, the pad) at the main path's encoding (L 10,
+    pad 64, the BARF window half open) for the mid fine render's points, a
+    render chunk's and a ragged count: the forward bit for bit, the backward
+    within 1e-5 of the sum of its terms' sizes. Returns the two records, timed
+    at FINE_POINTS (device times from torch.profiler: the kernel alone, the
+    wrapper with its BARF weights, the plain chain), with the render chunk's
+    times beside them; the bound is the bytes (points read once, the tile
+    written once; the backward reads the points and the tile and writes dx),
+    and the sines and cosines a point (6 L) are recorded beside it."""
+    cfg = scene_nerf.SceneConfig()
+    L, barf, pad = cfg.L_3D, cfg.barf_c2f, fused_mlp.in_pad(cfg.input_3d_dim)
+    progress = torch.tensor(0.5, device=DEVICE)
+    times, b_abs = {}, 0.0
+    for n in (FINE_POINTS, RENDER_CHUNK_POINTS, RAGGED_POINTS):
+        g = torch.Generator(device=DEVICE).manual_seed(n)
+        x = ((torch.rand((n, 3), generator=g, device=DEVICE) * 2.0 - 1.0) * 4.0).requires_grad_(True)
+        denc = torch.randn((n, pad), generator=g, device=DEVICE).to(torch.bfloat16)
+        enc = pe.posenc_scene_padded(x, L, progress, barf, pad)
+        plain = pe.posenc_scene_padded_plain(x, L, progress, barf, pad)
+        (dx,) = torch.autograd.grad(enc, x, denc, retain_graph=True)
+        (dx_plain,) = torch.autograd.grad(plain, x, denc, retain_graph=True)
+        torch.cuda.synchronize()
+        differ = int((enc.view(torch.int16) != plain.view(torch.int16)).sum())
+        w = pe.barf_weights(progress, L, barf, device=DEVICE)
+        f = 2.0 ** torch.arange(L, dtype=torch.float32, device=DEVICE) * torch.pi
+        d = denc.float()
+        sizes = torch.stack([(w * f * d[:, 3 + c * 2 * L:3 + (c + 1) * 2 * L].abs().reshape(-1, 2, L).sum(1)).sum(-1)
+                             for c in range(3)], dim=1) + d[:, :3].abs()
+        err = float(((dx - dx_plain).abs() / sizes).max())
+        print(f"posenc_scene N={n} (L {L}, pad {pad}): forward columns differing from the plain chain's {differ} "
+              f"of {enc.numel()}; backward max |err| / sum of term sizes {err:.3e} (tolerance 1e-5)")
+        if differ or not err <= 1e-5:
+            raise AssertionError(f"the encoding kernels disagree with the plain chain at N={n}")
+        b_abs = max(b_abs, float((dx - dx_plain).abs().max()))
+        if n == RAGGED_POINTS:
+            continue
+        fwd = _device_profile(lambda: pe.posenc_scene_padded(x, L, progress, barf, pad))
+        bwd = _device_profile(lambda: torch.autograd.grad(enc, x, denc, retain_graph=True))
+        times[n] = {
+            "fwd": next(ms for k, ms in fwd[2].items() if "posenc_scene_fwd" in k), "fwd_wrapper": fwd[0],
+            "fwd_plain": _device_ms(lambda: pe.posenc_scene_padded_plain(x, L, progress, barf, pad)),
+            "bwd": next(ms for k, ms in bwd[2].items() if "posenc_scene_bwd" in k), "bwd_wrapper": bwd[0],
+            "bwd_plain": _device_ms(lambda: torch.autograd.grad(plain, x, denc, retain_graph=True)),
+        }
+    per_point = {"fwd": 12 + pad * 2, "bwd": 24 + pad * 2}       # bytes: points (and dx) and the bf16 tile
+    records = []
+    for kind, err in (("fwd", 0.0), ("bwd", b_abs)):
+        t, c = times[FINE_POINTS], times[RENDER_CHUNK_POINTS]
+        rec = _record(f"posenc_scene_{kind}", "posenc.cu", "none (poseprobe_tpu/ops/pe.py posenc_scene: XLA ops)",
+                      err, t[kind], t[kind + "_plain"], 0.0, FINE_POINTS * per_point[kind], None)
+        rec.update(wrapper_ms=t[kind + "_wrapper"], sincos_per_point=6 * L, L=L, pad=pad,
+                   render_chunk_points=RENDER_CHUNK_POINTS, render_chunk_ms=c[kind],
+                   render_chunk_wrapper_ms=c[kind + "_wrapper"], render_chunk_plain_ms=c[kind + "_plain"],
+                   render_chunk_bound_ms=_bound(0.0, RENDER_CHUNK_POINTS * per_point[kind])[0])
+        print(f"posenc_scene_{kind} at a render chunk's {RENDER_CHUNK_POINTS} points: kernel {c[kind]:.4f} ms, "
+              f"wrapper {c[kind + '_wrapper']:.4f} ms, plain chain {c[kind + '_plain']:.4f} ms, bound "
+              f"{rec['render_chunk_bound_ms']:.4f} ms (bytes)")
+        records.append(rec)
+    return records
 
 
 def check_layout_kernels(layout, V: int, C: int, P: int) -> list:
@@ -1050,7 +1118,7 @@ def check_superstep(tr, label: str, counts, reset) -> dict:
     return launched
 
 
-def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
+def drive_early(fused_mlp, grid_ops, layout, pe, tr) -> dict:
     """Early-phase steps (object branch on) of the bench-scale joint trainer.
     Returns the kernels' launch counts of the main-path runs."""
     om, ot, sm = tr.cfg.object_model, tr.cfg.object_train, tr.cfg.scene_model
@@ -1059,12 +1127,13 @@ def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
         return {"trunk_fwd": fused_mlp.fwd_launches, "trunk_bwd": fused_mlp.bwd_launches,
                 "trilinear_fwd": grid_ops.fwd_launches, "trilinear_bwd": grid_ops.bwd_launches,
                 "transpose2d": layout.transpose2d_launches, "transpose_slice": layout.transpose_slice_launches,
-                "materialize": layout.materialize_launches}
+                "materialize": layout.materialize_launches, **pe.launches}
 
     def reset():
         fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
         grid_ops.fwd_launches = grid_ops.bwd_launches = 0
         layout.transpose2d_launches = layout.transpose_slice_launches = layout.materialize_launches = 0
+        pe.launches.update(dict.fromkeys(pe.launches, 0))
 
     tr.global_step = 1
     flags = tr.phase_flags(1)
@@ -1090,10 +1159,15 @@ def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
     print(f"max memory allocated (early): {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if not all(math.isfinite(float(v)) for m in metrics for v in m.values()):
         raise AssertionError("non-finite metrics in the early phase")
-    # per step: the scene half's one coarse trunk render, the deformed 1-channel value+gradient lookup, the
-    # merged 13-channel lookup and the reprojection term's 1-channel lookup, all on the grids' own layout
+    # per step: the scene half's one coarse trunk render (its encoding by the kernel; the encoding's
+    # backward where its points take a gradient, so at most once), the deformed 1-channel value+gradient
+    # lookup, the merged 13-channel lookup and the reprojection term's 1-channel lookup, all on the grids'
+    # own layout
+    if early["posenc_scene_bwd"] > steps:
+        raise AssertionError(f"the early phase ran more encoding backwards than trunk backwards: {early}")
     expect = {"trunk_fwd": steps, "trunk_bwd": steps, "trilinear_fwd": 3 * steps, "trilinear_bwd": 3 * steps,
-              "transpose2d": 0, "transpose_slice": 0, "materialize": 0}
+              "transpose2d": 0, "transpose_slice": 0, "materialize": 0, "posenc_scene_fwd": steps,
+              "posenc_scene_bwd": early["posenc_scene_bwd"]}
     if early != expect:
         raise AssertionError(f"the early phase's grid lookups did not all run through the kernels: "
                              f"{early}, expected {expect}")
@@ -1134,9 +1208,9 @@ def drive_early(fused_mlp, grid_ops, layout, tr) -> dict:
     return {"early": early, "early_graph": graph, "early_barrier": barrier}
 
 
-def drive_slice(fused_mlp, trainer_mod) -> dict:
+def drive_slice(fused_mlp, pe, trainer_mod) -> dict:
     """Coarse-phase and mid-phase steps of the bench-scale scene trainer.
-    Returns the trunk kernels' launch counts per phase."""
+    Returns the trunk and encoding kernels' launch counts per phase."""
     t0 = time.perf_counter()
     tr = trainer_mod.build_scene_trainer(small=SMALL, device=DEVICE)
     sm = tr.cfg.scene_model
@@ -1150,6 +1224,10 @@ def drive_slice(fused_mlp, trainer_mod) -> dict:
 
     def reset():
         fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+        pe.launches.update(dict.fromkeys(pe.launches, 0))
+
+    def counts():
+        return {"trunk_fwd": fused_mlp.fwd_launches, "trunk_bwd": fused_mlp.bwd_launches, **pe.launches}
 
     for phase, start, warm, steps in (("coarse", trainer_mod.N_ITERS + 1, 2, 8),
                                       ("mid", tr.fine_start + 1, 2, 8)):
@@ -1162,22 +1240,25 @@ def drive_slice(fused_mlp, trainer_mod) -> dict:
         metrics = [tr.step() for _ in range(steps)]
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t1) / steps
-        counts = (fused_mlp.fwd_launches, fused_mlp.bwd_launches)
+        launches[phase] = counts()
         losses = [float(m["loss_total"]) for m in metrics]
         flags = tr.phase_flags(start)
         print(f"phase {phase} (step {start}, fine_on={flags['fine_on']}, "
-              f"depth_cons_on={flags['depth_cons_on']}): {dt * 1e3:.2f} ms/step, "
+              f"depth_cons_on={flags['depth_cons_on']}, pose_on={flags['pose_on']}): {dt * 1e3:.2f} ms/step, "
               f"{sm.rand_rays / dt:.1f} rays/s, loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
-              f"psnr {float(metrics[-1]['psnr_scene']):.3f}, launches fwd {counts[0]} bwd {counts[1]}")
+              f"psnr {float(metrics[-1]['psnr_scene']):.3f}, launches {launches[phase]}")
         if not all(math.isfinite(x) for m in metrics for x in (float(v) for v in m.values())):
             raise AssertionError(f"non-finite metrics in the {phase} phase")
-        if counts[0] == 0 or counts[1] == 0:
+        c = launches[phase]
+        if c["trunk_fwd"] == 0 or c["trunk_bwd"] == 0:
             raise AssertionError(f"the {phase} phase did not run through both trunk kernels")
-        launches[phase] = {"trunk_fwd": counts[0], "trunk_bwd": counts[1]}
-        graph = check_superstep(tr, phase, lambda: {"trunk_fwd": fused_mlp.fwd_launches,
-                                                    "trunk_bwd": fused_mlp.bwd_launches}, reset)
+        # the encoding kernel writes every trunk forward's input; its backward runs where the points take a
+        # gradient (the poses' window, the rendered depth of depth consistency), so with at most the trunk's
+        if c["posenc_scene_fwd"] != c["trunk_fwd"] or c["posenc_scene_bwd"] > c["trunk_bwd"]:
+            raise AssertionError(f"the {phase} phase's encodings did not all run through the kernels: {c}")
+        graph = check_superstep(tr, phase, counts, reset)
         if graph != {k: v // steps * SUPERSTEP for k, v in launches[phase].items()}:
-            raise AssertionError(f"the {phase} superstep window did not launch the trunk kernels of "
+            raise AssertionError(f"the {phase} superstep window did not launch the kernels of "
                                  f"{SUPERSTEP} steps: {graph}")
         launches[f"{phase}_graph"] = graph
     print(f"max memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -3098,6 +3179,7 @@ def main(argv=None) -> int:
     C = 1 + om.rgbnet_dim
 
     records = check_trunk_kernels(fused_mlp, scene_nerf, pe)
+    records += check_posenc_kernels(pe, fused_mlp, scene_nerf)
     records += check_layout_kernels(layout, G ** 3, C, _row_pad(C))
     joint.global_step = 1
     early = capture_lookup_points(grid_ops, joint, "early")
@@ -3106,9 +3188,9 @@ def main(argv=None) -> int:
     records += check_composite_kernels(fused_composite, compositing, ot.N_rand, joint._mask_k, om.n_samples)
     print("kernels:", json.dumps([r["name"] for r in records]))
 
-    by_phase = drive_early(fused_mlp, grid_ops, layout, joint)
+    by_phase = drive_early(fused_mlp, grid_ops, layout, pe, joint)
     del joint
-    by_phase.update(drive_slice(fused_mlp, trainer_mod))
+    by_phase.update(drive_slice(fused_mlp, pe, trainer_mod))
     by_phase.update(drive_fit({"fused_mlp": fused_mlp, "grid": grid_ops, "layout": layout,
                                "fused_composite": fused_composite}, trainer_mod))
     work = tempfile.mkdtemp(prefix="poseprobe_smoke_")

@@ -14,8 +14,9 @@ polish, re-registration, probe health, the chord-K re-bound; `core/align.py`,
 `pose_init/ba.py`, `pose_init/relpose.py`, the trainer-facing part of
 `eval/evaluator.py`); and the hand-written Hopper kernels under `csrc/`: the
 fused 8x256 scene trunk (`ops/fused_mlp.py`), the trilinear gather/scatter
-(`ops/grid.py`), the layout kernels (`ops/layout.py`) and the fused
-alpha-composite, forward and backward (`ops/fused_composite.py`). The
+(`ops/grid.py`), the layout kernels (`ops/layout.py`), the scene encoding
+written into the trunk's input tile (`ops/pe.py` `posenc_scene_padded`) and
+the fused alpha-composite, forward and backward (`ops/fused_composite.py`). The
 published presets train from data on disk: the full configuration and its
 presets (`config/`), the six dataset loaders with their PNG reader and the
 classical matcher (`data/loaders.py`, `data/png.py`, `pose_init/matching.py`),

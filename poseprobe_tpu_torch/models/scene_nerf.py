@@ -4,7 +4,9 @@ Port of `poseprobe_tpu/models/scene_nerf.py`. Parameters are plain nested
 dicts of tensors in the JAX layout ({'feat': [{'w': [in, out], 'b'}...],
 'rgb': [...]}). With ``matmul_dtype="bfloat16"`` the trunk runs through the
 hand-written Hopper kernel (`ops/fused_mlp.py`) when its tensors are on
-CUDA; otherwise through the plain layer loop below.
+CUDA, and takes the encoding as its padded bf16 input tile, written by a
+kernel of its own (`pe.posenc_scene_padded`); otherwise through the plain
+encoding and the plain layer loop below.
 
 The renders mark their stages for a profiler (`utils/profiling.span`):
 `poseprobe.scene.sample`, `.encode`, `.trunk`, `.head` and `.composite`.
@@ -107,6 +109,13 @@ def _mm(x: torch.Tensor, w: torch.Tensor, b=None):
     return out if b is None else out + b
 
 
+def _fused(cfg: SceneConfig, points: torch.Tensor) -> bool:
+    """True where the trunk runs through the fused kernels: a bf16 trunk they
+    take (`fused_mlp.supports`) on CUDA tensors."""
+    return (cfg.use_fused_trunk and cfg.matmul_dtype == "bfloat16" and points.is_cuda
+            and fused_mlp.supports(cfg))
+
+
 def nerf_forward(mlp: dict, cfg: SceneConfig, points: torch.Tensor, ray: torch.Tensor,
                  progress) -> dict:
     """MLP prediction at [B, R, S, 3] points with [B, R, 3] ray directions.
@@ -114,10 +123,16 @@ def nerf_forward(mlp: dict, cfg: SceneConfig, points: torch.Tensor, ray: torch.T
     Returns dict(rgb_samples [B,R,S,3], density_samples [B,R,S]) in float32.
     """
     cdt = torch.bfloat16 if cfg.matmul_dtype == "bfloat16" else torch.float32
+    fused = _fused(cfg, points)
     mlp = cast_mlp_params(mlp, cfg.matmul_dtype)
     with span("poseprobe.scene.encode"):
-        enc = pe.posenc_scene(points, cfg.L_3D, progress, cfg.barf_c2f,
-                              include_pi=cfg.include_pi, add_raw=cfg.add_raw_3d).to(cdt)
+        if fused:
+            enc = pe.posenc_scene_padded(points, cfg.L_3D, progress, cfg.barf_c2f,
+                                         fused_mlp.in_pad(cfg.input_3d_dim), include_pi=cfg.include_pi,
+                                         add_raw=cfg.add_raw_3d)
+        else:
+            enc = pe.posenc_scene(points, cfg.L_3D, progress, cfg.barf_c2f,
+                                  include_pi=cfg.include_pi, add_raw=cfg.add_raw_3d).to(cdt)
         if cfg.view_dep:
             # the view encoding is constant along the samples axis: encode per
             # ray and push it through the first rgb matmul before broadcasting
@@ -125,8 +140,7 @@ def nerf_forward(mlp: dict, cfg: SceneConfig, points: torch.Tensor, ray: torch.T
             ray_enc = pe.posenc_scene(ray_unit, cfg.L_view, progress, cfg.barf_c2f,
                                       include_pi=cfg.include_pi, add_raw=cfg.add_raw_rays).to(cdt)
     with span("poseprobe.scene.trunk"):
-        if (cfg.use_fused_trunk and cdt == torch.bfloat16 and enc.is_cuda
-                and fused_mlp.supports(cfg)):
+        if fused:
             raw_density, feat = fused_mlp.fused_trunk(enc, mlp["feat"], cfg.skip[0])
         else:
             feat = enc
@@ -138,6 +152,7 @@ def nerf_forward(mlp: dict, cfg: SceneConfig, points: torch.Tensor, ray: torch.T
                     raw_density = feat[..., 0].float()
                     feat = feat[..., 1:]
                 feat = torch.relu(feat)
+        del enc             # the trunk's input alone: without a graph (a render) it goes before the head
     with span("poseprobe.scene.head"):
         density = F.softplus(raw_density) if cfg.density_activ == "softplus" else torch.relu(raw_density)
         if cfg.view_dep:

@@ -706,7 +706,8 @@ class _FusedTrunk(torch.autograd.Function):
 
 
 def fused_trunk(enc: torch.Tensor, feat_layers: list, skip: int, ckpt: int | None = None):
-    """Run the trunk on [..., D] encoded points (D <= 128).
+    """Run the trunk on [..., D] encoded points (D <= 128), or on the encoding
+    already bf16 and zero-padded to `in_pad(D)` columns, which it takes as it is.
 
     feat_layers: JAX-layout layers [{'w': [in, out], 'b': [out]}], layer
     `skip` taking concat([feat, enc]) and the last emitting [density | feat].
@@ -719,7 +720,10 @@ def fused_trunk(enc: torch.Tensor, feat_layers: list, skip: int, ckpt: int | Non
     ckpt = TRUNK_CKPT if ckpt is None else ckpt
     lead, D = enc.shape[:-1], enc.shape[-1]
     L = len(feat_layers)
-    x = F.pad(enc.reshape(-1, D).to(torch.bfloat16), (0, in_pad(D) - D)).contiguous()
+    x = enc.reshape(-1, D).to(torch.bfloat16)
+    if in_pad(D) != D:              # F.pad copies even a pad of nothing
+        x = F.pad(x, (0, in_pad(D) - D))
+    x = x.contiguous()
     w, b = pack_params(feat_layers, skip)
     feat, dens = _FusedTrunk.apply(x, w, b, L, skip, ckpt)
     return dens.reshape(lead), feat.reshape(lead + (feat.shape[-1],))

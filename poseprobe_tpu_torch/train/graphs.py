@@ -16,7 +16,7 @@ A graph is replayed only while every persistent tensor it captured is still
 the trainer's (`StepGraph.holds`); a host event that rebinds one drops it.
 The kernels' launch counters are Python counters, which a replay does not
 run: a graph records the launches its capture made and adds them at each
-replay (the trunk's by kernel instantiation too).
+replay (the trunk's by kernel instantiation too, the encoding's by kernel).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import time
 
 import torch
 
-from ..ops import fused_composite, fused_mlp, grid, layout
+from ..ops import fused_composite, fused_mlp, grid, layout, pe
 
 _COUNTERS = ((fused_mlp, "fwd_launches"), (fused_mlp, "bwd_launches"), (grid, "fwd_launches"),
              (grid, "bwd_launches"), (layout, "transpose2d_launches"),
@@ -34,16 +34,21 @@ _COUNTERS = ((fused_mlp, "fwd_launches"), (fused_mlp, "bwd_launches"), (grid, "f
              (fused_composite, "fwd_chunked_launches"), (fused_composite, "bwd_chunked_launches"))
 
 
+# the counters kept in dicts by kernel: the trunk's instantiations, then the encoding's kernels
+_BY_KERNEL = (tuple((fused_mlp.launches, k) for k in fused_mlp.KERNEL_NAMES)
+              + tuple((pe.launches, k) for k in pe.launches))
+
+
 def _counts() -> list:
-    """Every launch counter: the wrappers' integers, then the trunk's by kernel instantiation."""
-    return [getattr(mod, name) for mod, name in _COUNTERS] + [fused_mlp.launches[k] for k in fused_mlp.KERNEL_NAMES]
+    """Every launch counter: the wrappers' integers, then those kept by kernel (`_BY_KERNEL`)."""
+    return [getattr(mod, name) for mod, name in _COUNTERS] + [d[k] for d, k in _BY_KERNEL]
 
 
 def _add_counts(values) -> None:
     for (mod, name), n in zip(_COUNTERS, values):
         setattr(mod, name, getattr(mod, name) + n)
-    for k, n in zip(fused_mlp.KERNEL_NAMES, values[len(_COUNTERS):]):
-        fused_mlp.launches[k] += n
+    for (d, k), n in zip(_BY_KERNEL, values[len(_COUNTERS):]):
+        d[k] += n
 
 
 @contextlib.contextmanager

@@ -18,7 +18,11 @@ one voxel, where each of 8 sums has 100,003 terms: 1e-4). Composite kernels: flo
 warp scan instead of a cumprod: outputs 1e-5 abs, gradients 1e-4 of the plain
 version's largest + 1e-6; rays with a sample whose transmittance lies within
 1e-4 (relative) of the early-termination threshold 1e-3 are left out, since
-the gate is a step and the two products round differently.
+the gate is a step and the two products round differently. Encoding
+kernels: the forward is the plain chain's bits (the same float32 products, the
+accurate sinf / cosf, one RNE rounding to bf16); the backward within 1e-5 of
+the sum of its terms' sizes (the same sines and cosines, float32 sums over the
+bands in another order).
 """
 import dataclasses
 import os
@@ -331,16 +335,145 @@ def test_stride_zero_mid_step_replays_as_a_cuda_graph(monkeypatch):
     assert bwd > 0 and remat == bwd, launched
 
 
+def _watch_encodings(monkeypatch) -> list:
+    """A list that gets, for each call of `pe.posenc_scene_padded`, whether its points take a gradient."""
+    with_grad, encode = [], pe.posenc_scene_padded
+    monkeypatch.setattr(pe, "posenc_scene_padded",
+                        lambda x, *a, **k: with_grad.append(x.requires_grad) or encode(x, *a, **k))
+    return with_grad
+
+
 @pytest.mark.cuda
-def test_scene_step_runs_through_the_kernels():
+def test_scene_step_runs_through_the_kernels(monkeypatch):
+    """A coarse and a mid step of the small scene trainer: the trunk kernels
+    carry every render, the encoding kernel writes the input of each trunk
+    forward, and its backward runs once for each render whose points take a
+    gradient (through the poses while their window is open, through the
+    rendered depth in depth consistency)."""
     _need_card()
     tr = build_scene_trainer(small=True, device="cuda")
+    with_grad = _watch_encodings(monkeypatch)
     for start, per_step in ((tr.cfg.object_train.N_iters + 1, (1, 1)), (tr.fine_start + 1, (6, 4))):
         tr.global_step = start
         fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+        enc_before = dict(pe.launches)
+        with_grad.clear()
         m = tr.step()
         assert all(np.isfinite(v.item()) for v in m.values()), m
         assert (fused_mlp.fwd_launches, fused_mlp.bwd_launches) == per_step
+        assert (pe.launches["posenc_scene_fwd"] - enc_before["posenc_scene_fwd"],
+                pe.launches["posenc_scene_bwd"] - enc_before["posenc_scene_bwd"]) == (per_step[0], sum(with_grad))
+        assert sum(with_grad) <= per_step[1]
+
+
+# ---------------------------------------------------------------- the scene encoding
+
+
+def _enc_points(n, L, seed=0):
+    """n points up to the scene's bound (|x| <= 4), every 97th up to 100: far
+    enough that x * f_k takes sinf's slow range reduction at L = 10 too."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.rand((n, 3), generator=g, device="cuda") * 2.0 - 1.0) * 4.0
+    x[::97] *= 25.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100_003, 64, 1])
+@pytest.mark.parametrize("progress", [0.5, 1.0])              # inside the BARF window, and past it
+@pytest.mark.parametrize("include_pi,add_raw", [(True, True), (False, True), (True, False), (False, False)])
+@pytest.mark.parametrize("L_enc,pad", [(10, 64), (16, 128)])
+def test_posenc_kernel_is_the_plain_chains_bits(L_enc, pad, include_pi, add_raw, progress, n):
+    _need_card()
+    x = _enc_points(n, L_enc)
+    before = pe.launches["posenc_scene_fwd"]
+    enc = pe.posenc_scene_padded(x, L_enc, progress, (0.4, 0.7), pad, include_pi=include_pi, add_raw=add_raw)
+    ref = pe.posenc_scene_padded_plain(x, L_enc, progress, (0.4, 0.7), pad, include_pi=include_pi, add_raw=add_raw)
+    torch.cuda.synchronize()
+    assert pe.launches["posenc_scene_fwd"] == before + 1
+    assert enc.shape == ref.shape == (n, pad) and enc.dtype == ref.dtype == torch.bfloat16
+    differ = (enc.view(torch.int16) != ref.view(torch.int16)).sum().item()
+    assert differ == 0, f"{differ} of {enc.numel()} columns differ from the plain chain's"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add_raw", [True, False])
+@pytest.mark.parametrize("L_enc,pad,progress", [(10, 64, 0.5), (16, 128, 1.0)])
+@pytest.mark.parametrize("n", [393_216, 1_001])
+def test_posenc_backward_kernel_matches_autograd(L_enc, pad, progress, add_raw, n):
+    """dx against autograd through the plain chain in float32, on the card:
+    within 1e-5 of the sum of the sizes of each sum's terms."""
+    _need_card()
+    x = _enc_points(n, L_enc, seed=1).requires_grad_(True)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    denc = torch.randn((n, pad), generator=g, device="cuda").to(torch.bfloat16)
+    before = pe.launches["posenc_scene_bwd"]
+    pe.posenc_scene_padded(x, L_enc, progress, (0.4, 0.7), pad, add_raw=add_raw).backward(denc)
+    got, x.grad = x.grad, None
+    pe.posenc_scene_padded_plain(x, L_enc, progress, (0.4, 0.7), pad, add_raw=add_raw).backward(denc)
+    torch.cuda.synchronize()
+    assert pe.launches["posenc_scene_bwd"] == before + 1
+    raw = 3 if add_raw else 0
+    w = pe.barf_weights(progress, L_enc, (0.4, 0.7), device="cuda")
+    f = 2.0 ** torch.arange(L_enc, dtype=torch.float32, device="cuda") * torch.pi
+    d = denc.float()
+    sizes = torch.stack([(w * f * (d[:, raw + c * 2 * L_enc:raw + (c + 1) * 2 * L_enc].abs().reshape(-1, 2, L_enc)
+                                   .sum(1))).sum(-1) for c in range(3)], dim=1)
+    if add_raw:
+        sizes = sizes + d[:, :3].abs()
+    assert ((got - x.grad).abs() <= 1e-5 * sizes + 1e-30).all(), (got - x.grad).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_posenc_kernel_follows_a_progress_tensor_in_a_cuda_graph():
+    """The BARF weights reach the kernel as a device tensor: a captured graph
+    replayed after the progress tensor changed encodes at the new progress."""
+    _need_card()
+    x = _enc_points(5_000, 10)
+    progress = torch.tensor(0.45, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm up (builds the library) off the capture
+        pe.posenc_scene_padded(x, 10, progress, (0.4, 0.7), 64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        enc = pe.posenc_scene_padded(x, 10, progress, (0.4, 0.7), 64)
+    for p in (0.5, 0.62, 1.0):
+        progress.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        # the plain chain at the same float32 progress: a Python float takes the window's arithmetic in double
+        ref = pe.posenc_scene_padded_plain(x, 10, torch.tensor(p, device="cuda"), (0.4, 0.7), 64)
+        assert torch.equal(enc, ref), p
+
+
+@pytest.mark.cuda
+def test_posenc_kernels_carry_the_early_step_and_a_render(monkeypatch):
+    """An early step of the small joint trainer and a render: the encoding
+    kernel writes the input of every trunk forward; its backward runs once for
+    each render of the step whose points take a gradient, and in no render."""
+    _need_card()
+    from poseprobe_tpu_torch.eval import evaluator
+    tr = build_trainer(small=True, device="cuda")
+    tr.global_step = 1
+    with_grad = _watch_encodings(monkeypatch)
+
+    def counts():
+        return (fused_mlp.fwd_launches, fused_mlp.bwd_launches, pe.launches["posenc_scene_fwd"],
+                pe.launches["posenc_scene_bwd"])
+    before = counts()
+    tr.step()
+    trunk_fwd, trunk_bwd, enc_fwd, enc_bwd = (b - a for a, b in zip(before, counts()))
+    assert trunk_fwd > 0 and enc_fwd == trunk_fwd and enc_bwd == sum(with_grad) <= trunk_bwd
+    data = tr.data
+    before = counts()
+    out = evaluator.render_full(tr.scene_params, tr.cfg.scene_model, data.poses_gt_w2c[data.i_test[0]],
+                                data.Ks[data.i_test[0]], 16, 24, (data.near, data.far), chunk=128)
+    assert torch.isfinite(out["rgb"]).all()
+    trunk_fwd, trunk_bwd, enc_fwd, enc_bwd = (b - a for a, b in zip(before, counts()))
+    assert trunk_fwd == 3 * (1 + tr.cfg.scene_model.fine_sampling) and enc_fwd == trunk_fwd
+    assert trunk_bwd == enc_bwd == 0
 
 
 # ---------------------------------------------------------------- layout kernels
@@ -666,7 +799,8 @@ def test_spans_claim_the_kernels_of_an_eager_step():
     split by the benchmark's `portbench/spans.py`: every trunk kernel, the
     backward's `trunk_bwd_*` included (through autograd's sequence numbers),
     lands under `poseprobe.scene.trunk`; every trilinear kernel, forward and
-    backward, under `poseprobe.object.field`; device time that no host op
+    backward, under `poseprobe.object.field`; the encoding kernel under
+    `poseprobe.scene.encode`; device time that no host op
     claims is under 1% of the step's."""
     _need_card()
     from portbench import spans
@@ -678,9 +812,11 @@ def test_spans_claim_the_kernels_of_an_eager_step():
         torch.cuda.synchronize()
     got = spans.attribute(*spans.record(unit, 2))
     assert got["device_s"][spans.UNLINKED] < 0.01 * got["total_s"], got["device_s"]
-    for kind, span in (("trunk_", "poseprobe.scene.trunk"), ("trilinear_", "poseprobe.object.field")):
+    for kind, span in (("trunk_", "poseprobe.scene.trunk"), ("trilinear_", "poseprobe.object.field"),
+                       ("posenc_scene_", "poseprobe.scene.encode")):
         mine = {k: v for k, v in got["by_kernel"].items() if kind in k[1] and abs(v) > 1e-12}
-        assert any("_bwd" in name for _, name in mine), (kind, mine)
+        # the step's scene points take no gradient, so the encoding has no backward kernel to place
+        assert any(("_bwd" if kind != "posenc_scene_" else "_fwd") in name for _, name in mine), (kind, mine)
         assert {where for where, _ in mine} == {span}, (kind, mine)
 
 
